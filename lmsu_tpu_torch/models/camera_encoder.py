@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 
 from lmsu_tpu_torch.config import CameraEncoderConfig
-from lmsu_tpu_torch.models.layers import InvertedResidual, apply_seq, conv_bn_act
+from lmsu_tpu_torch.models.layers import InvertedResidual, ReLU6, apply_seq, conv_bn_act
 
 
 class TwinLiteEncoder(nn.Module):
@@ -33,7 +33,7 @@ class TwinLiteEncoder(nn.Module):
         b1, b2, b4 = config.channels
         fused = config.fused_inference
         self.stem = nn.Sequential(*conv_bn_act(config.in_channels, b1, 3, 2,
-                                               act=nn.ReLU6()))
+                                               act=ReLU6()))
         self.stage1 = InvertedResidual(b1, b1, 1, 1, fused)
         self.stage2 = InvertedResidual(b1, b2, 2, 6, fused)
         self.stage3 = InvertedResidual(b2, b2, 1, 6, fused)

@@ -12,7 +12,8 @@ a reference state dict loads with strict=True.
 Parameters stay float32; `apply_seq` runs a Sequential in the dtype of its
 input (convolution weights are cast per call, BatchNorm takes low-precision
 input with float32 statistics), which is how the JAX package runs bf16
-compute over f32 parameters. BatchNorm: eps 1e-5, momentum 0.1 (flax 0.9).
+compute over f32 parameters. BatchNorm: eps 1e-5, momentum 0.1 (flax 0.9),
+with flax's running-variance rule (see `_FlaxRunningStats`).
 """
 
 from __future__ import annotations
@@ -26,13 +27,86 @@ import torch.nn.functional as F
 from lmsu_tpu_torch.ops.ir_fused import IRParams, fold_bn, fused_ir_infer
 
 
+class _FlaxRunningStats:
+    """Train-mode BatchNorm with flax's semantics (flax 0.12
+    `BatchNorm.__call__` / `_compute_stats`).
+
+    Normalisation uses the biased batch statistics, reduced in float32 for
+    bf16 input (flax's `force_float32_reductions`), and the output is in the
+    input dtype. The running averages take the BIASED batch variance:
+    `var = 0.9 var + 0.1 var_batch` (torch's own BatchNorm would take the
+    unbiased one). flax reduces the variance as E[x^2] - E[x]^2; torch's
+    kernels reduce it in a numerically stabler form, which differs from it
+    by float32 rounding only. Eval mode is torch's (running statistics).
+    State-dict names are torch's: weight, bias, running_mean, running_var,
+    num_batches_tracked.
+
+    The statistics come from one `F.batch_norm` call, which reads the input
+    once and updates the running buffers with the unbiased variance
+    var_b * n / (n - 1); the running variance is then taken back to the
+    biased rule by scaling its new share by (n - 1) / n. The call updates a
+    copy of the running variance: autograd saves the buffers it was given,
+    so they must not change again before the backward.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        n = x.numel() // x.shape[1]
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        with torch.no_grad():
+            kept = (1.0 - self.momentum) * self.running_var
+            self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class ReLU6(nn.ReLU6):
+    """ReLU6 with the JAX package's gradient: its relu6 is
+    min(max(x, 0), 6), whose derivative at exactly 0 and 6 is 1/2 (a tie
+    splits the gradient, in torch.maximum/minimum as in jnp's); torch's
+    ReLU6 gives 0 there. The forward is the same. It matters in training: a
+    channel whose batch variance is 0 leaves its BatchNorm output exactly at
+    the bias, 0 at init, at every position.
+
+    The forward is torch's one-kernel hardtanh; the backward writes that
+    derivative as (sign(x) + sign(6 - x)) / 2, fewer passes over the
+    activation than autograd of min(max(...)) makes."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _ReLU6Fn.apply(x)
+
+
+class _ReLU6Fn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.hardtanh(x, 0.0, 6.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return g * (torch.sign(x) + torch.sign(6.0 - x)) * 0.5
+
+
+class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
+    """BatchNorm over [B, C, N] with flax's train-mode statistics."""
+
+
+class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
+    """BatchNorm over [B, C, H, W] with flax's train-mode statistics."""
+
+
 def conv_bn_act(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
                 groups: int = 1, act: Optional[nn.Module] = None) -> List[nn.Module]:
     """Conv2d (no bias, padding k//2) + BatchNorm2d (+ activation)."""
     layers: List[nn.Module] = [
         nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=kernel_size // 2,
                   groups=groups, bias=False),
-        nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)]
+        BatchNorm2d(cout, eps=1e-5, momentum=0.1)]
     if act is not None:
         layers.append(act)
     return layers
@@ -71,8 +145,8 @@ class InvertedResidual(nn.Module):
         self.fused_inference = fused_inference
         layers: List[nn.Module] = []
         if self.has_expand:
-            layers += conv_bn_act(in_ch, hidden, 1, act=nn.ReLU6())
-        layers += conv_bn_act(hidden, hidden, 3, stride, groups=hidden, act=nn.ReLU6())
+            layers += conv_bn_act(in_ch, hidden, 1, act=ReLU6())
+        layers += conv_bn_act(hidden, hidden, 3, stride, groups=hidden, act=ReLU6())
         layers += conv_bn_act(hidden, out_ch, 1)
         self.conv = nn.Sequential(*layers)
         self._folded: Tuple = (None, None)

@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 
 from lmsu_tpu_torch.config import LidarEncoderConfig
-from lmsu_tpu_torch.models.layers import apply_seq
+from lmsu_tpu_torch.models.layers import BatchNorm1d, apply_seq
 from lmsu_tpu_torch.ops.scatter import bev_scatter_max, points_to_bev_indices
 from lmsu_tpu_torch.ops.scatter_sorted import bev_scatter_max_sorted
 
@@ -45,7 +45,7 @@ class SpatialLiDAREncoder(nn.Module):
         cin = config.input_dim
         for d in tuple(config.mlp_dims) + (config.feature_dim,):
             layers += [nn.Conv1d(cin, d, 1, bias=True),
-                       nn.BatchNorm1d(d, eps=1e-5, momentum=0.1), nn.ReLU()]
+                       BatchNorm1d(d, eps=1e-5, momentum=0.1), nn.ReLU()]
             cin = d
         self.point_mlp = nn.Sequential(*layers)
 

@@ -122,7 +122,7 @@ class CudaKernel:
 
 def kernels() -> Dict[str, CudaKernel]:
     """Every kernel registered by the port's op modules."""
-    from lmsu_tpu_torch.ops import fusion_gate, ir_fused, scatter_sorted  # noqa: F401
+    from lmsu_tpu_torch.ops import fusion_gate, ir_fused, kd_loss, scatter_sorted  # noqa: F401
     return dict(_registry)
 
 

@@ -15,6 +15,12 @@ and keeps the gate reduction in registers (see the .cu source note).
 Weights are taken in the torch layout of the reference's `attention`
 Sequential: w1 [C, 2C, 1, 1], b1 [C], w2 [2, C, 1, 1], b2 [2]. The kernel
 reads them directly, so a forward needs no host sync and no weight copies.
+
+`fusion_gate` is an autograd Function: the forward is the kernel (CUDA) or
+the plain version (CPU); the backward is plain PyTorch on either device, a
+transcription of the JAX package's `_gate_bwd` (fusion_pallas.py:141-175),
+which recomputes a, h and g from the saved inputs (the JAX package has no
+backward kernel for the gate either).
 """
 
 from __future__ import annotations
@@ -43,11 +49,12 @@ def fusion_gate_plain(cam: torch.Tensor, lid: torch.Tensor, w1: torch.Tensor,
     return (g * camf + (1.0 - g) * lidf).to(cam.dtype)
 
 
-def fusion_gate(cam: torch.Tensor, lid: torch.Tensor, w1: torch.Tensor,
-                b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
-                ) -> torch.Tensor:
-    """Fused gate on channels-last features cam/lid [..., C] (f32 or bf16):
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+def fusion_gate_fwd(cam: torch.Tensor, lid: torch.Tensor, w1: torch.Tensor,
+                    b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
+                    ) -> torch.Tensor:
+    """Gate forward on channels-last features cam/lid [..., C] (f32 or
+    bf16): the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors. Not differentiable; `fusion_gate` is."""
     if cam.device.type == "cpu":
         return fusion_gate_plain(cam, lid, w1, b1, w2, b2)
     if cam.device.type != "cuda":
@@ -70,3 +77,52 @@ def fusion_gate(cam: torch.Tensor, lid: torch.Tensor, w1: torch.Tensor,
     KERNEL.launch("fusion_gate_fwd", ptr(cam2), ptr(lid2), *(ptr(t) for t in params),
                   ptr(out), cam2.shape[0], C, dtype_code(cam2), stream_ptr(dev))
     return out.reshape(cam.shape)
+
+
+def fusion_gate_bwd(cam, lid, w1, b1, w2, b2, g_out):
+    """Gradients of the gate w.r.t. (cam, lid, w1, b1, w2, b2), plain
+    PyTorch in f32 (fusion_pallas.py::_gate_bwd in the torch layouts)."""
+    C = cam.shape[-1]
+    camf = cam.reshape(-1, C).float()
+    lidf = lid.reshape(-1, C).float()
+    go = g_out.reshape(-1, C).float()
+    w = w1.reshape(C, 2 * C).float()
+    w1c, w1l = w[:, :C], w[:, C:]                  # [C_out, C_in]
+    w2f = w2.reshape(2, C).float()
+    w2d = w2f[0] - w2f[1]
+    a = camf @ w1c.T + lidf @ w1l.T + b1.float()
+    h = torch.relu(a)
+    g = torch.sigmoid(h @ w2d + (b2[0] - b2[1]).float()).unsqueeze(-1)
+    # out = g*cam + (1-g)*lid
+    s = (go * (camf - lidf)).sum(-1)               # dL/dg per row
+    dd = s * (g[:, 0] * (1.0 - g[:, 0]))           # dL/dd
+    da = torch.where(a > 0, dd[:, None] * w2d[None, :], 0.0)
+    d_cam = (go * g + da @ w1c).to(cam.dtype).reshape(cam.shape)
+    d_lid = (go * (1.0 - g) + da @ w1l).to(lid.dtype).reshape(lid.shape)
+    d_w1 = torch.cat([da.T @ camf, da.T @ lidf], dim=1).reshape(w1.shape).to(w1.dtype)
+    d_b1 = da.sum(0).to(b1.dtype)
+    dw2col = h.T @ dd
+    d_w2 = torch.stack([dw2col, -dw2col]).reshape(w2.shape).to(w2.dtype)
+    sdd = dd.sum()
+    d_b2 = torch.stack([sdd, -sdd]).to(b2.dtype)
+    return d_cam, d_lid, d_w1, d_b1, d_w2, d_b2
+
+
+class _FusionGate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cam, lid, w1, b1, w2, b2):
+        ctx.save_for_backward(cam, lid, w1, b1, w2, b2)
+        return fusion_gate_fwd(cam, lid, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        return fusion_gate_bwd(*ctx.saved_tensors, g_out)
+
+
+def fusion_gate(cam: torch.Tensor, lid: torch.Tensor, w1: torch.Tensor,
+                b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
+                ) -> torch.Tensor:
+    """Fused gate on channels-last features cam/lid [..., C] (f32 or bf16),
+    differentiable in every argument: the kernel (CUDA) or the plain
+    version (CPU) forward, the plain backward."""
+    return _FusionGate.apply(cam, lid, w1, b1, w2, b2)

@@ -68,14 +68,23 @@ def bev_scatter_max(
     grid_size: Tuple[int, int],
 ) -> torch.Tensor:
     """Max-scatter per-point features [B, N, C] into a BEV grid [B, H, W, C];
-    untouched cells are exactly 0. Points in any order."""
+    untouched cells are exactly 0. Points in any order.
+
+    The buffer starts at -inf, as the JAX package's does, and untouched
+    cells become 0 afterwards: the forward is the same as a zero buffer
+    with include_self=False, and autograd's backward then splits a cell's
+    gradient over its tied points only. (From a zero buffer it would count
+    the buffer among the ties of a cell whose max is exactly 0, which ReLU
+    features often give.)"""
     B, N, C = features.shape
     H, W = grid_size
     ncells = H * W
     offsets = torch.arange(B, device=features.device, dtype=torch.int64)[:, None] * ncells
     # Invalid points go to one junk row past the grid, sliced away below.
     idx = torch.where(valid, flat_idx.to(torch.int64) + offsets, B * ncells)
-    out = features.new_zeros(B * ncells + 1, C)
-    out.scatter_reduce_(0, idx.reshape(B * N, 1).expand(B * N, C),
-                        features.reshape(B * N, C), "amax", include_self=False)
+    out = features.new_full((B * ncells + 1, C), float("-inf"))
+    out = out.scatter_reduce(0, idx.reshape(B * N, 1).expand(B * N, C),
+                             features.reshape(B * N, C), "amax", include_self=False)
+    out = torch.where(torch.isneginf(out), torch.zeros((), dtype=out.dtype,
+                                                       device=out.device), out)
     return out[:B * ncells].reshape(B, H, W, C)

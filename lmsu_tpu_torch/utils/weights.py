@@ -7,6 +7,8 @@ variables, and a trained JAX checkpoint serves from the port.
 
 `variables` is {"params", "batch_stats"} as nested dicts of numpy arrays
 (what `jax.device_get` or the JAX package's `load_checkpoint_raw` return).
+The KD projections ([Ct, Cs] per tap, under the JAX state's
+`params["proj"]`) carry across in the same layout both ways.
 Layouts (flax -> torch):
   Conv  [kh, kw, I, O]          -> [O, I, kh, kw]
   Depthwise [k, k, 1, C]        -> [C, 1, k, k]
@@ -41,7 +43,7 @@ class _Converter:
         return np.asarray(tree, np.float32)
 
     def _put(self, key: str, a: np.ndarray) -> None:
-        self.sd[key] = torch.from_numpy(np.ascontiguousarray(a))
+        self.sd[key] = torch.from_numpy(np.array(a, order="C"))  # a writable copy
 
     def conv(self, tkey: str, path: Tuple[str, ...], bias: bool = False) -> None:
         self._put(f"{tkey}.weight", self._get(self.params, path + ("kernel",))
@@ -105,3 +107,14 @@ def from_jax_variables(variables: Mapping[str, Any], config: ModelConfig
                       ("head", f"block{i + 1}", sub))
     b.conv("head.cls", ("head", "cls"), bias=True)
     return b.sd
+
+
+def from_jax_projections(projections: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The KD projections of a JAX-package state (`params["proj"]`, one
+    [Ct, Cs] array per tap) -> tensors in the same layout (no transpose)."""
+    return {tap: torch.from_numpy(np.array(p, np.float32)) for tap, p in projections.items()}
+
+
+def to_jax_projections(projections: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's KD projections -> numpy [Ct, Cs] arrays for the JAX package."""
+    return {tap: p.detach().cpu().float().numpy() for tap, p in projections.items()}

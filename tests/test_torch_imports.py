@@ -66,13 +66,22 @@ def _tiny_config():
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
-    from lmsu_tpu_torch import serve
+    from lmsu_tpu_torch import serve, train_distill
+    from lmsu_tpu_torch.config import ExperimentConfig
     from lmsu_tpu_torch.inference import Predictor
+    from lmsu_tpu_torch.training import DistillationTrainer, Trainer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Predictor(_tiny_config())
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.build_engine(serve.parse_args([]))
+    assert train_distill.make_parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_distill.main(["--epochs", "1"])
+    cfg = ExperimentConfig(model=_tiny_config())
+    for trainer in (Trainer, DistillationTrainer):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            trainer(cfg, [], [])
     # Asked for explicitly, the CPU runs.
     pred = Predictor(_tiny_config(), device="cpu")
     assert pred.device.type == "cpu"
@@ -84,10 +93,24 @@ def test_wrappers_refuse_non_cpu_tensors_without_fallback():
     device this host has no kernel for)."""
     from lmsu_tpu_torch.ops.fusion_gate import fusion_gate
     from lmsu_tpu_torch.ops.ir_fused import IRParams, fused_ir_infer
-    from lmsu_tpu_torch.ops.scatter_sorted import segment_max
+    from lmsu_tpu_torch.ops.kd_loss import fused_feature_mse, mse_partials
+    from lmsu_tpu_torch.ops.scatter_sorted import (bev_scatter_max_sorted, segment_max,
+                                                   segment_max_bwd)
     m = dict(device="meta")
+    keys = torch.empty(1, 4, dtype=torch.int32, **m)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        segment_max(torch.empty(1, 4, 8, **m), torch.empty(1, 4, dtype=torch.int32, **m), 16)
+        segment_max(torch.empty(1, 4, 8, **m), keys, 16)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        segment_max_bwd(torch.empty(1, 4, 8, **m), keys, torch.empty(1, 16, 8, **m),
+                        torch.empty(1, 16, 8, **m), 16)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        bev_scatter_max_sorted(torch.empty(1, 4, 8, **m), torch.empty(1, 4, dtype=torch.long, **m),
+                               torch.empty(1, 4, dtype=torch.bool, **m), (4, 4))
+    s, t, proj = torch.empty(1, 16, 8, **m), torch.empty(1, 16, 12, **m), torch.empty(12, 8, **m)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        mse_partials(s, t, proj)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fused_feature_mse(s, t, proj)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         fusion_gate(torch.empty(1, 2, 2, 32, **m), torch.empty(1, 2, 2, 32, **m),
                     torch.empty(32, 64, 1, 1, **m), torch.empty(32, **m),
@@ -104,7 +127,8 @@ def test_kernel_build_flags_and_sources():
     into a build directory that git ignores."""
     from lmsu_tpu_torch.ops import _cuda
     ks = _cuda.kernels()
-    assert set(ks) == {"scatter_sorted_fwd", "fusion_gate", "ir_fused_infer"}
+    assert set(ks) == {"scatter_sorted_fwd", "scatter_sorted_bwd", "fusion_gate",
+                       "ir_fused_infer", "kd_feature_mse"}
     for k in ks.values():
         assert (_cuda.CSRC / k.source).is_file()
         for sym in k.symbols:
