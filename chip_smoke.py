@@ -10,9 +10,12 @@ Phases:
              printing the build seconds and what ptxas reports.
   2. kernels each kernel against its plain PyTorch version at the main
              paths' shapes, f32 and bf16: serving at B=8, the KD step at
-             B=128 with the student's C=128 and the teacher's C=256 (K1, K2);
-             timed with CUDA events beside the plain version, the PyTorch
-             equivalent where there is one, and the card's bound.
+             B=128 with the student's C=128 and the teacher's C=256 (K1, K2),
+             the fused training kernels K8-K13 at each of the student's five
+             InvertedResidual stages at B=128; timed with CUDA events beside
+             the plain version, the PyTorch equivalent where there is one,
+             and the card's bound; each stage's fused forward + backward
+             beside the unfused block's (cuDNN convs, train-mode BN).
   3. serving the weighted-fusion student at full width with the three
              kernel opt-ins, seeded random weights and randomised BN
              statistics, behind ServingEngine (batch 8) with 8 client
@@ -25,11 +28,17 @@ Phases:
              B=128 on one fixed cell-sorted batch, f32 then bf16, with the
              in-loop teacher and then the cached teacher: 3 warm-up and 10
              timed steps each, launches per step, device time by kernel
-             (torch.profiler). Checks: at B=8 in f32 one step's loss and
-             gradients on the kernel path match the plain path; the loss
-             falls over the timed steps; K1, K2, K5 and K7 were launched.
-             Then one epoch of `python -m lmsu_tpu_torch.train_distill` on
-             synthetic data writes its history and checkpoints.
+             (torch.profiler). Checks: at B=8 in f32 one step's loss,
+             gradients and BN running statistics on the kernel path match
+             the plain path; the loss falls over the timed steps; K1, K2,
+             K5 and K7 were launched. Then one epoch of `python -m
+             lmsu_tpu_torch.train_distill` on synthetic data writes its
+             history and checkpoints. Then the fused training path
+             (CameraEncoderConfig.fused_train): one B=8 f32 step against
+             the same step with K8-K13's plain versions and against the
+             unfused step (loss, gradients, BN running statistics), and the
+             in-loop step at B=128 in f32 and bf16 (loss must fall, K8-K13
+             must launch).
 
 Output: the card's name and power limit (nvidia-smi), then per-phase lines,
 then one `{"kernels": [...]}` JSON line, the serving and train summaries,
@@ -41,6 +50,7 @@ GPU it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -61,6 +71,8 @@ TRAIN_B = 128  # bench.py's HEADLINE_BATCH
 CLIENTS = 8  # client threads: one full batch in flight
 SERVING_KERNELS = ("scatter_sorted_fwd", "fusion_gate", "ir_fused_infer")
 TRAIN_KERNELS = ("scatter_sorted_fwd", "fusion_gate", "scatter_sorted_bwd", "kd_feature_mse")
+IR_TRAIN_KERNELS = ("ir_train_stats1", "ir_train_expand_dw", "ir_train_proj",
+                    "ir_train_proj_bwd", "ir_train_dw_bwd", "ir_train_expand_bwd")
 IR_STAGES = [  # (H, Cin, Cout, stride, expansion): the student's 5 stages at 256^2
     (128, 32, 32, 1, 1), (128, 32, 64, 2, 6), (64, 64, 64, 1, 6),
     (64, 64, 128, 2, 6), (32, 128, 128, 1, 6)]
@@ -125,13 +137,16 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_close(name, got, want, dtype) -> float:
-    """f32: |got - want| <= 1e-4 (summation order differs); bf16: the error
-    over max(1, max|want|) <= 2e-2 (one bf16 rounding of an intermediate
-    may land on the other side). Returns the max absolute error."""
+def check_close(name, got, want, dtype, scaled: bool = False) -> float:
+    """f32: |got - want| <= 1e-4 (summation order differs), times
+    max(1, max|want|) when `scaled` (K8-K13: GEMM depths up to 768, sums over
+    up to 2M pixels); bf16: the error over max(1, max|want|) <= 2e-2 (one
+    bf16 rounding of an intermediate may land on the other side). Returns
+    the max absolute error."""
     err = (got.float() - want.float()).abs().max().item()
     scale = max(1.0, want.float().abs().max().item())
-    ok = err <= 1e-4 if dtype == torch.float32 else err <= 2e-2 * scale
+    tol = (scale if scaled else 1.0) * 1e-4 if dtype == torch.float32 else 2e-2 * scale
+    ok = err <= tol
     if not (ok and torch.isfinite(got.float()).all()):
         raise AssertionError(f"{name} [{dtype}]: max abs err {err:g} (scale {scale:g})")
     return err
@@ -290,8 +305,9 @@ def kernel_kd_mse(rng, dev, dtype, B=B, M=GRID * GRID, cs=128, ct=256):
 
     es = s3.element_size()
     nbytes = B * M * (cs + ct) * es + ct * cs * 4 + B * 4
-    # f32 arithmetic on CUDA cores for both input types.
-    bound, by = bound_ms(nbytes, 2 * B * M * ct * cs + 3 * B * M * cs, torch.float32)
+    # At the card's peak for the input type, though the kernel computes in
+    # f32 on CUDA cores for both.
+    bound, by = bound_ms(nbytes, 2 * B * M * ct * cs + 3 * B * M * cs, dtype)
     run = lambda: kd_loss.mse_partials(s3, t3, p)  # noqa: E731
     return {"ms": time_ms(run), "eager_ms": eager_ms(run),
             "plain_ms": time_ms(lambda: kd_loss.mse_partials_plain(s3, t3, p)),
@@ -369,11 +385,203 @@ def kernel_ir(rng, dev, dtype):
     return total
 
 
+def check_masked(name, got, want, dtype, frac=1e-5):
+    """K12's dv1: as check_close(scaled=True), except at up to `frac` of the
+    elements where one side is exactly 0. K12 recomputes e = x @ W1 in its
+    own summation order, so where v1 = e * s1 + b1 lies within f32 rounding
+    of 0 or 6 its strict ReLU6 mask can differ from the plain version's.
+    Returns (max abs error elsewhere, number of such elements)."""
+    diff = (got.float() - want.float()).abs()
+    scale = max(1.0, want.float().abs().max().item())
+    tol = (1e-4 if dtype == torch.float32 else 2e-2) * scale
+    bad = diff > tol
+    flips = int(bad.sum().item())
+    one_zero = (got[bad] == 0) | (want[bad] == 0)
+    if not (flips <= frac * got.numel() and bool(one_zero.all())
+            and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{name} [{dtype}]: {flips} elements off by more than {tol:g}, "
+                             f"max {diff.max().item():g}")
+    return diff.masked_fill(bad, 0).max().item(), flips
+
+
+def _ir_train_inputs(rng, dev, dtype, H, Cin, Cout, stride, exp, B):
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    Ce = Cin * exp
+    x = t(rng.uniform(0, 3, (B, H, H, Cin))).to(dtype)  # a ReLU6 output, as in the model
+    w1 = t(rng.normal(0, np.sqrt(2.0 / Cin), (Cin, Ce))) if exp != 1 else None
+    dw = t(rng.normal(0, np.sqrt(2.0 / 9), (3, 3, Ce)))
+    w2 = t(rng.normal(0, np.sqrt(2.0 / Ce), (Ce, Cout)))
+    gb = [t(rng.uniform(0.5, 1.5, c)) if i % 2 == 0 else t(rng.normal(0, 0.2, c))
+          for i, c in enumerate((Ce, Ce, Ce, Ce, Cout, Cout))]
+    dy = t(rng.normal(0, 1, (B, H // stride, H // stride, Cout))).to(dtype)
+    return x, w1, dw, w2, gb, dy
+
+
+def kernel_ir_train(rng, dev, dtype, B=TRAIN_B):
+    """K8-K13 against their plain versions at every stage of the student at
+    batch B, each kernel on the inputs the plain chain gives it (batch
+    statistics, BN folds and the vectors of _ir_train_backward), and each
+    stage's fused forward + backward against the port's unfused block
+    (cuDNN convs, train-mode BatchNorm) on the same input: the JAX package's
+    own yardstick (scripts/profile_roofline.py:173-186). Bounds: each input
+    read once, each output written once, and the operations at the card's
+    peak for the input type (bf16: the tensor cores'); the kernels compute
+    in f32 on CUDA cores for both, so their bf16 gap to the bound is the room
+    that tensor-core tiles would take."""
+    from lmsu_tpu_torch.models.layers import InvertedResidual
+    from lmsu_tpu_torch.ops import ir_fused as irf
+    out = {k: {"stages": []} for k in IR_TRAIN_KERNELS}
+    blocks = []
+    es = 4 if dtype == torch.float32 else 2
+    for H, Cin, Cout, stride, exp in IR_STAGES:
+        Ce, Ho, has = Cin * exp, H // stride, exp != 1
+        M1, M2 = B * H * H, B * Ho * Ho
+        stage = f"{H}x{H} {Cin}->{Cout} s{stride} e{exp}"
+        x, w1, dw, w2, (g1, be1, g2, be2, g3, be3), dy = _ir_train_inputs(
+            rng, dev, dtype, H, Cin, Cout, stride, exp, B)
+
+        def record(name, run, plain, checks, nbytes, ops, **extra):
+            bound, by = bound_ms(nbytes, ops, dtype)
+            st = {"stage": stage, "ms": time_ms(run, reps=10, inner=3),
+                  "plain_ms": time_ms(plain, reps=3, inner=1), "bound_ms": bound,
+                  "bound_by": by, "max_abs_err": max(checks), **extra}
+            out[name]["stages"].append(st)
+            torch.cuda.empty_cache()
+
+        if has:
+            args = (x, w1)
+            got, want = irf.stats1(*args), irf.stats1_plain(*args)
+            errs = [check_close(f"stats1 {stage} {k}", g, w, dtype, scaled=True)
+                    for k, g, w in zip(("sum", "sq"), got, want)]
+            record("ir_train_stats1", lambda: irf.stats1(*args),
+                   lambda: irf.stats1_plain(*args), errs,
+                   M1 * Cin * es + Cin * Ce * 4 + 2 * Ce * 4, 2 * M1 * Cin * Ce + 3 * M1 * Ce)
+            m1, v1 = irf._bn_stats_finalize(*want, M1)
+            inv1 = torch.rsqrt(v1 + 1e-5)
+            s1, b1 = irf.fold_bn(g1, be1, m1, v1)
+        else:
+            s1 = b1 = m1 = inv1 = None
+
+        args = (x, w1, s1, b1, dw, stride)
+        got, want = irf.expand_dw(*args), irf.expand_dw_plain(*args)
+        errs = [check_close(f"expand_dw {stage} {k}", g, w, dtype, scaled=True)
+                for k, g, w in zip(("d", "sum", "sq"), got, want)]
+        record("ir_train_expand_dw", lambda: irf.expand_dw(*args),
+               lambda: irf.expand_dw_plain(*args), errs,
+               M1 * Cin * es + M2 * Ce * es + (Cin * Ce * has + 13 * Ce) * 4,
+               2 * M1 * Cin * Ce * has + 18 * M2 * Ce)
+        d = want[0]
+        m2, v2 = irf._bn_stats_finalize(want[1], want[2], M2)
+        inv2 = torch.rsqrt(v2 + 1e-5)
+        s2, b2 = irf.fold_bn(g2, be2, m2, v2)
+        del got, want
+
+        args = (d, s2, b2, w2)
+        errs = [check_close(f"proj {stage}", irf.proj(*args), irf.proj_plain(*args), dtype,
+                            scaled=True)]
+        record("ir_train_proj", lambda: irf.proj(*args), lambda: irf.proj_plain(*args), errs,
+               M2 * Ce * es + M2 * Cout * 4 + (Ce * Cout + 2 * Ce) * 4, 2 * M2 * Ce * Cout)
+
+        args = (d, dy, s2, b2, m2, inv2, w2)
+        got, want = irf.proj_bwd(*args), irf.proj_bwd_plain(*args)
+        errs = [check_close(f"proj_bwd {stage} {k}", g, w, dtype, scaled=True)
+                for k, g, w in zip(("dv2", "dW2", "ra", "rb"), got, want)]
+        record("ir_train_proj_bwd", lambda: irf.proj_bwd(*args),
+               lambda: irf.proj_bwd_plain(*args), errs,
+               2 * M2 * Ce * es + M2 * Cout * es + (2 * Ce * Cout + 6 * Ce) * 4,
+               4 * M2 * Ce * Cout)
+        dv2, r2a, r2b = want[0], want[2], want[3]
+        del got, want
+        u2 = g2 * inv2
+        p2, q2 = u2 * (r2a / M2), u2 * (r2b / M2)
+
+        args = (x, w1, s1, b1, m1, inv1, dw, dv2, u2, p2, q2, d, m2, inv2, stride)
+        got, want = irf.dw_bwd(*args), irf.dw_bwd_plain(*args)
+        err_dv1, flips = check_masked(f"dw_bwd {stage} dv1", got[0], want[0], dtype)
+        errs = [err_dv1,
+                check_close(f"dw_bwd {stage} dDW", got[1], want[1], dtype, scaled=True)]
+        if has:
+            e, _, _ = irf._expand_act(x, w1, s1, b1)
+            en_max = ((e - m1) * inv1).abs().max().item()
+            del e
+            big = max(got[0].float().abs().max().item(), want[0].float().abs().max().item())
+            for k, g, w, f in (("ra", got[2], want[2], 1.0), ("rb", got[3], want[3], en_max)):
+                # each mask flip moves the sum by at most one dv1 (times en)
+                err = (g - w).abs().max().item()
+                tol = 1e-4 * max(1.0, w.abs().max().item()) + flips * big * f
+                if not err <= tol:
+                    raise AssertionError(f"dw_bwd {stage} {k} [{dtype}]: {err:g} > {tol:g}")
+                errs.append(err)
+        record("ir_train_dw_bwd", lambda: irf.dw_bwd(*args), lambda: irf.dw_bwd_plain(*args),
+               errs, M1 * Cin * es + 2 * M2 * Ce * es + M1 * Ce * es
+               + (Cin * Ce * has + 19 * Ce) * 4,
+               2 * M1 * Cin * Ce * has + 36 * M2 * Ce, mask_flips=flips)
+        dv1, r1a, r1b = want[0], want[2], want[3]
+        del got, want
+
+        if has:
+            u1 = g1 * inv1
+            args = (x, w1, m1, inv1, u1, u1 * (r1a / M1), u1 * (r1b / M1), dv1)
+            got, want = irf.expand_bwd(*args), irf.expand_bwd_plain(*args)
+            errs = [check_close(f"expand_bwd {stage} {k}", g, w, dtype, scaled=True)
+                    for k, g, w in zip(("dx", "dW1"), got, want)]
+            del got, want
+            record("ir_train_expand_bwd", lambda: irf.expand_bwd(*args),
+                   lambda: irf.expand_bwd_plain(*args), errs,
+                   M1 * Cin * es + M1 * Ce * es + M1 * Cin * 4 + (2 * Cin * Ce + 5 * Ce) * 4,
+                   6 * M1 * Cin * Ce)
+        del args, d, dv2, dv1
+
+        # The block yardstick: fused forward + backward vs the unfused block.
+        block = InvertedResidual(Cin, Cout, stride, exp).to(dev).train()
+        with torch.no_grad():
+            c = list(block.conv)
+            convs = [m for m in c if isinstance(m, torch.nn.Conv2d)]
+            bns = [m for m in c if isinstance(m, torch.nn.BatchNorm2d)]
+            if has:
+                convs[0].weight.copy_(w1.t()[:, :, None, None])
+            convs[-2].weight.copy_(dw.permute(2, 0, 1)[:, None])
+            convs[-1].weight.copy_(w2.t()[:, :, None, None])
+            for bn, (g, be) in zip(bns, ([(g1, be1)] if has else []) + [(g2, be2), (g3, be3)]):
+                bn.weight.copy_(g)
+                bn.bias.copy_(be)
+        xs = x.detach().requires_grad_(True)
+        xc = x.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+        dyc = dy.permute(0, 3, 1, 2).contiguous()
+        leaves = [(w1 if has else torch.zeros(Cin, Ce, device=dev)).clone().requires_grad_(True),
+                  (g1 if has else torch.zeros(Ce, device=dev)).clone().requires_grad_(True),
+                  (be1 if has else torch.zeros(Ce, device=dev)).clone().requires_grad_(True)] + [
+            a.clone().requires_grad_(True) for a in (dw, g2, be2, w2, g3, be3)]
+
+        def fused():
+            o, _ = irf.fused_ir_train(xs, *leaves, stride, has)
+            o.backward(dy)
+
+        def unfused():
+            block(xc).backward(dyc)
+
+        blocks.append({"stage": stage, "fused_ms": eager_ms(fused, reps=5, inner=1),
+                       "unfused_ms": eager_ms(unfused, reps=5, inner=1)})
+        del block, xs, xc, leaves, x, dy
+        torch.cuda.empty_cache()
+    for name, r in out.items():
+        for k in ("ms", "plain_ms", "bound_ms"):
+            r[k] = sum(st[k] for st in r["stages"])
+        r["max_abs_err"] = max(st["max_abs_err"] for st in r["stages"])
+        r["bound_by"] = ("operations" if any(st["bound_by"] == "operations"
+                                              for st in r["stages"]) else "bytes")
+        r["library_ms"] = None
+        r["shape"] = (f"the student's {len(r['stages'])} InvertedResidual stages at B={B}, "
+                      f"256^2 input; times summed over them")
+    return out, blocks
+
+
 def phase_kernels(dev):
-    """Each kernel at the shapes of both main paths: serving at B=8 (K1, K2
+    """Each kernel at the shapes of its main paths: serving at B=8 (K1, K2
     at the student's C=128) and the KD step at B=128 (K1 and K2 at C=128
-    for the student and C=256 for the 2x teacher, K5 and K7); K5 and K7 at
-    B=8 too. Keys: (kernel, dtype, C, batch)."""
+    for the student and C=256 for the 2x teacher, K5 and K7, and K8-K13 at
+    the student's five stages); K5 and K7 at B=8 too. Keys: (kernel, dtype,
+    C, batch)."""
     rng = np.random.default_rng(0)
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -392,6 +600,13 @@ def phase_kernels(dev):
             torch.cuda.empty_cache()
         res[("ir", name, 0, B)] = kernel_ir(rng, dev, dtype)
         log(f"[kernels] ir_fused_infer {name}: {json.dumps(res[('ir', name, 0, B)])}")
+        irt, blocks = kernel_ir_train(rng, dev, dtype)
+        for k, r in irt.items():
+            res[(k, name, 0, TRAIN_B)] = r
+            log(f"[kernels] {k} {name} B={TRAIN_B}: {json.dumps(r)}")
+        res[("ir_block", name, 0, TRAIN_B)] = blocks
+        log(f"[kernels] fused vs unfused block fwd+bwd {name} B={TRAIN_B}: "
+            f"{json.dumps(blocks)}")
     return res
 
 
@@ -559,14 +774,16 @@ def phase_serving(dev, dtype, state_dict=None):
 # -- train phase -------------------------------------------------------------
 
 
-def train_config(dtype, kernels=True, batch=TRAIN_B, save_dir=None):
+def train_config(dtype, kernels=True, batch=TRAIN_B, save_dir=None, fused_train=False):
     """The KD student step of bench.py: the weighted/128 student, the 2x
     teacher, AdamW lr 1e-3 (constant: eta_min = lr) and wd 1e-3, class
-    weights (0.4, 3.5), the three default taps; kernels on or off."""
-    from lmsu_tpu_torch.config import (DataConfig, ExperimentConfig, KDConfig,
-                                       LidarEncoderConfig, ModelConfig, TrainConfig)
+    weights (0.4, 3.5), the three default taps; kernels on or off; the
+    student's InvertedResidual stages fused in training (K8-K13) or not."""
+    from lmsu_tpu_torch.config import (CameraEncoderConfig, DataConfig, ExperimentConfig,
+                                       KDConfig, LidarEncoderConfig, ModelConfig, TrainConfig)
     model = ModelConfig(num_classes=2, fusion_type="weighted", fusion_out_channels=128,
                         use_pallas_fusion=kernels,
+                        camera=CameraEncoderConfig(fused_train=fused_train),
                         lidar=LidarEncoderConfig(scatter_impl="sorted_pallas" if kernels
                                                  else "xla"),
                         compute_dtype=dtype)
@@ -589,53 +806,223 @@ def train_batch(rng, batch, dev):
             "points": t(pts), "segmentation": t(rng.integers(0, 2, (batch, GRID, GRID)))}
 
 
+@contextlib.contextmanager
+def fused_twins(on: bool = True):
+    """While on, fused_ir_train runs K8-K13's plain versions in the kernels'
+    place on any device (the wrappers take them only for CPU tensors)."""
+    from lmsu_tpu_torch.ops import ir_fused as irf
+    names = ("stats1", "expand_dw", "proj", "proj_bwd", "dw_bwd", "expand_bwd")
+    wrappers = {n: getattr(irf, n) for n in names}
+    try:
+        if on:
+            for n in names:
+                setattr(irf, n, getattr(irf, n + "_plain"))
+        yield
+    finally:
+        for n, f in wrappers.items():
+            setattr(irf, n, f)
+
+
+def check_fused_blocks(dev):
+    """Each of the student's five InvertedResidual stages as a module in
+    train mode, f32, at the step check's batch B (input uniform in [0, 3),
+    seeded weights, randomised BatchNorms, a seeded output cotangent):
+    InvertedResidual(fused_train=True) against the same module with
+    K8-K13's plain versions on the card in the kernels' place ("twins"), and
+    against the unfused module (cuDNN convs, train-mode BatchNorm:
+    "unfused"), from the same state. Errors: the output and every BN running
+    mean and variance after the step as max|d| / max|want| ("forward"); the
+    input gradient and every parameter gradient as relative L2 ("grad"),
+    because where v = e * s + b lies within rounding of 0 or 6 the two sides'
+    strict ReLU6 masks can differ at single elements, which moves the
+    maximum but not the norm. num_batches_tracked must be equal. One block
+    holds one BatchNorm backward per BN, not the KD step's chain of them, so
+    the limits are fixed: forward 1e-5 (f32 sums in another order read
+    ~1e-6 on the H100 at B=8 and B=128), gradients 1e-2 against either side
+    (read up to ~2e-3: the BN weights' gradients sum dv1 * en over the
+    batch, and each element whose mask differs moves that sum by one term).
+    A fault that moves any gradient by 1% or a running statistic by 1e-5 of
+    its scale fails."""
+    import copy
+    from lmsu_tpu_torch.models.layers import InvertedResidual
+    limits = {"forward": 1e-5, "grad": 1e-2}
+    gen = torch.Generator().manual_seed(17)
+    report, bad = [], []
+    for H, Cin, Cout, stride, exp in IR_STAGES:
+        stage = f"{H}x{H} {Cin}->{Cout} s{stride} e{exp}"
+        torch.manual_seed(17)
+        fused = InvertedResidual(Cin, Cout, stride, exp, fused_train=True)
+        randomize_bn(fused, 17)
+        fused = fused.to(dev).train()
+        x = (torch.rand(B, Cin, H, H, generator=gen) * 3).to(dev)
+        dy = torch.randn(B, Cout, H // stride, H // stride, generator=gen).to(dev)
+        res = {}
+        for run in ("fused", "twins", "unfused"):
+            m = copy.deepcopy(fused)
+            m.fused_train = run != "unfused"
+            xi = x.clone().requires_grad_(True)
+            with fused_twins(run == "twins"):
+                y = m(xi)
+                y.backward(dy)
+            res[run] = {"out": y.detach(), "dx": xi.grad,
+                        **{f"grad {k}": p.grad for k, p in m.named_parameters()},
+                        **{k: v.clone() for k, v in m.named_buffers()}}
+        st = {"stage": stage}
+        for run in ("twins", "unfused"):
+            worst = {"forward": (0.0, ""), "grad": (0.0, "")}
+            for k, want in res[run].items():
+                got = res["fused"][k]
+                if k.endswith("num_batches_tracked"):
+                    if not torch.equal(got, want):
+                        bad.append(f"{stage} vs {run}: {k} {got.item()} != {want.item()}")
+                    continue
+                d = (got - want).double()
+                if k == "dx" or k.startswith("grad "):
+                    kind, e = "grad", (d.norm() / want.double().norm().clamp_min(1e-30)).item()
+                else:
+                    kind = "forward"
+                    e = d.abs().max().item() / max(want.abs().max().item(), 1e-30)
+                if not (e <= limits[kind] and torch.isfinite(got).all()):
+                    bad.append(f"{stage} vs {run}: {k} err {e:g} > {limits[kind]:g}")
+                worst[kind] = max(worst[kind], (e, k))
+            st[f"vs_{run}"] = {f"{kind}_worst": w for kind, w in worst.items()}
+        report.append(st)
+        del res, fused
+    if bad:
+        raise AssertionError(f"fused blocks at B={B}: {bad}; {report}")
+    return {"batch": B, "limits": limits, "stages": report}
+
+
+def kd_step(dev, batch, cfg, perturb: float = 0.0, twins: bool = False):
+    """One KD step from the trainer's seeded weights, times (1 + perturb xi)
+    with xi ~ N(0, 1) when `perturb`: (loss, every gradient, every BN
+    running statistic after the step), in float64. With `twins`,
+    fused_ir_train runs K8-K13's plain versions on the card in the kernels'
+    place (the wrappers take them only for CPU tensors)."""
+    from lmsu_tpu_torch.ops import ir_fused as irf
+    from lmsu_tpu_torch.training import DistillationTrainer
+    tr = DistillationTrainer(cfg, [batch], [batch], device=dev)
+    if perturb:
+        gen = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for p in tr.params.values():
+                p.mul_(1 + perturb * torch.randn(p.shape, generator=gen).to(dev))
+    with fused_twins(twins):
+        loss, _ = tr.train_step(batch)
+    stats = {k: v.detach().double() for k, v in tr.model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return float(loss), {k: p.grad.detach().double() for k, p in tr.params.items()}, stats
+
+
+def hold_step(what, got, want, noise=None) -> dict:
+    """Hold KD step `got` against `want`, each as kd_step returns it:
+      loss              |d| <= 1e-5 |loss|;
+      all gradients     relative L2 <= 1e-3;
+      each gradient     max|d| <= 1e-2 max|g| + 1e-6 G, G the largest
+                        gradient of any tensor;
+      each BN running mean and variance after the step
+                        max|d| <= 1e-4 max|s| + 1e-6.
+    With `noise` (the `want` step from perturbed weights), each limit gains
+    ten times want's own spread N (|noise - want|, measured alike), capped:
+    loss min(10 N, 1e-4 |loss|), relative L2 min(10 N, 0.1), each gradient
+    min(10 N, 0.1 max|g|), each statistic min(10 N, 1e-2 max|s|). Raises
+    on the first quantity over its limit; returns the errors."""
+    (la, ga, sa), (lb, gb, sb) = got, want
+    lp, gp, sp = want if noise is None else noise   # no noise: spread 0
+    err = abs(la - lb)
+    if not err <= 1e-5 * abs(lb) + min(10 * abs(lp - lb), 1e-4 * abs(lb)):
+        raise AssertionError(f"{what}: loss {la} != {lb} (perturbed {lp})")
+    gmax = max(g.abs().max().item() for g in gb.values())
+    sq = {k: ((ga[k] - gb[k]) ** 2).sum().item() for k in gb}
+    norm = sum((g ** 2).sum().item() for g in gb.values()) ** 0.5
+    rel = sum(sq.values()) ** 0.5 / norm
+    spread = sum(((gp[k] - gb[k]) ** 2).sum().item() for k in gb) ** 0.5 / norm
+    top = sorted(sq, key=lambda k: -sq[k])[:4]
+    out = {"loss": la, "loss_want": lb, "loss_abs_err": err, "grad_rel_l2_err": rel,
+           "params": len(gb), "largest_diffs": {
+               k: {"l2_diff": sq[k] ** 0.5, "l2": (gb[k] ** 2).sum().item() ** 0.5} for k in top}}
+    if noise is not None:
+        out.update({"loss_perturbed": lp, "grad_rel_l2_spread": spread})
+    if not rel <= 1e-3 + min(10 * spread, 0.1):
+        raise AssertionError(f"{what}: gradients' relative L2 error {rel:g}: {out}")
+    worst = {}
+    for kind, got_t, want_t, noise_t, fixed_of, cap in (
+            ("grad", ga, gb, gp, lambda s: 1e-2 * s + 1e-6 * gmax, 0.1),
+            ("bn_stat", sa, sb, sp, lambda s: 1e-4 * s + 1e-6, 1e-2)):
+        worst[kind] = (0.0, "")
+        for k in want_t:
+            e = (got_t[k] - want_t[k]).abs().max().item()
+            scale = want_t[k].abs().max().item()
+            fixed = fixed_of(scale)
+            tol = fixed + min(10 * (noise_t[k] - want_t[k]).abs().max().item(), cap * scale)
+            if not e <= tol:
+                raise AssertionError(f"{what}: {kind} {k}: err {e:g} > {tol:g}")
+            worst[kind] = max(worst[kind], (e / fixed, k))
+        out.update({f"{kind}_worst_err_over_fixed_limit": worst[kind][0],
+                    f"{kind}_worst": worst[kind][1]})
+    out["bn_stats"] = len(sb)
+    return out
+
+
 def check_kernel_vs_plain_step(dev):
     """One f32 KD step at B=8, TF32 off: the kernel path (sorted scatter
     K1+K5, fused gate K2, fused feature MSE K7) against the plain path
     (unsorted scatter_reduce with autograd, unfused softmax gate,
-    kd_total_loss) from the same weights and the same cell-sorted batch.
-    The two differ in f32 rounding only. Tolerances: |d loss| <= 1e-5
-    |loss|; over all gradients the relative L2 error <= 1e-3; per
-    parameter tensor max|d grad| <= 1e-2 max|grad| + 1e-6 G, G the largest
-    gradient of any tensor. Why so wide: the first LiDAR MLP layer's weight
+    kd_total_loss) from the same weights and the same cell-sorted batch,
+    held to hold_step's fixed limits. The two differ in f32 rounding only.
+    Why the gradient limits are so wide: the first LiDAR MLP layer's weight
     gradient sums, over 40k points, raw coordinates (|x| up to ~100) times
     BatchNorm-centred gradients, so its rounding moves with any change of
     summation order, and the two scatters order the points differently. The
     G term is for the biases that a train-mode BatchNorm follows: their true
     gradient is 0 and both paths give rounding noise."""
-    from lmsu_tpu_torch.training import DistillationTrainer
     rng = np.random.default_rng(11)
     batch = train_batch(rng, B, dev)
-    res = []
-    for kernels in (True, False):
-        tr = DistillationTrainer(train_config(torch.float32, kernels, B), [batch], [batch],
-                                 device=dev)
-        loss, _ = tr.train_step(batch)
-        res.append((float(loss), {k: p.grad.detach().double() for k, p in tr.params.items()}))
-    (la, ga), (lb, gb) = res
-    err_loss = abs(la - lb)
-    if not err_loss <= 1e-5 * abs(lb):
-        raise AssertionError(f"KD step loss: kernel path {la} != plain path {lb}")
-    gmax = max(g.abs().max().item() for g in gb.values())
-    sq = {k: ((ga[k] - gb[k]) ** 2).sum().item() for k in gb}
-    rel_l2 = (sum(sq.values()) / sum((g ** 2).sum().item() for g in gb.values())) ** 0.5
-    top = sorted(sq, key=lambda k: -sq[k])[:4]
-    out = {"loss_kernel_path": la, "loss_plain_path": lb, "loss_abs_err": err_loss,
-           "grad_rel_l2_err": rel_l2, "params": len(gb),
-           "largest_diffs": {k: {"l2_diff": sq[k] ** 0.5,
-                                 "l2": (gb[k] ** 2).sum().item() ** 0.5} for k in top}}
-    if not rel_l2 <= 1e-3:
-        raise AssertionError(f"KD step gradients: relative L2 error {rel_l2:g}: {out}")
-    worst = (0.0, "")
-    for k in gb:
-        err = (ga[k] - gb[k]).abs().max().item()
-        scale = gb[k].abs().max().item()
-        if not err <= 1e-2 * scale + 1e-6 * gmax:
-            raise AssertionError(f"KD step grad {k}: err {err:g}, scale {scale:g}")
-        if err / (scale + 1e-6 * gmax) > worst[0]:
-            worst = (err / (scale + 1e-6 * gmax), k)
-    out.update({"grad_worst_err_over_scale": worst[0], "grad_worst_param": worst[1]})
-    return out
+    return hold_step("KD step, kernel path vs plain path",
+                     kd_step(dev, batch, train_config(torch.float32, True, B)),
+                     kd_step(dev, batch, train_config(torch.float32, False, B)))
+
+
+def check_fused_step(dev):
+    """The fused training path (CameraEncoderConfig.fused_train, every other
+    kernel opt-in on) at B=8, f32, TF32 off, deterministic cuDNN:
+      blocks  check_fused_blocks at B=8, the step's shapes: each stage's
+              module against K8-K13's plain versions and against the
+              unfused module, at fixed limits. This is the tight check.
+      step    one KD step from the same weights and batch, held by
+              hold_step (a) against the same fused step with the plain
+              versions in the kernels' place, and (b) against the unfused
+              step (cuDNN convs, train-mode BatchNorm). The step amplifies
+              f32 rounding: the gradients of the convs that a train-mode
+              BatchNorm follows are sums that cancel, so the plain-version
+              step moves its gradients by ~4e-3 relative L2 when the weights
+              move by 1e-7 of themselves, and the unfused step by ~1e-2
+              under 1e-6. So each comparison adds ten times that spread, of
+              the plain-version step under 1e-7 for (a) and of the unfused
+              step under 1e-6 for (b) (hold_step's `noise`); the fused and
+              unfused paths also differ by design (E[x^2] - E[x]^2
+              statistics, ReLU6 derivative 0 at exact ties where unfused
+              gives 1/2)."""
+    blocks = check_fused_blocks(dev)
+    rng = np.random.default_rng(13)
+    batch = train_batch(rng, B, dev)
+    cfg = lambda fused: train_config(torch.float32, True, B, fused_train=fused)  # noqa: E731
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fused = kd_step(dev, batch, cfg(True))
+        twins = kd_step(dev, batch, cfg(True), twins=True)
+        twins_p = kd_step(dev, batch, cfg(True), twins=True, perturb=1e-7)
+        unfused = kd_step(dev, batch, cfg(False))
+        unfused_p = kd_step(dev, batch, cfg(False), perturb=1e-6)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return {"blocks": blocks,
+            "step_vs_plain_versions": hold_step(
+                "fused KD step vs the same step with K8-K13's plain versions", fused, twins,
+                noise=twins_p),
+            "step_vs_unfused": hold_step("fused KD step vs unfused step", fused, unfused,
+                                         noise=unfused_p)}
 
 
 def profile_steps(step, reps: int = 2):
@@ -659,16 +1046,20 @@ def profile_steps(step, reps: int = 2):
         raise AssertionError("the profiler saw no device time")
     ours = {n: sum(r[1] for r in rows if n in r[0])
             for n in ("scatter_sorted_fwd", "scatter_sorted_bwd", "fusion_gate",
-                      "kd_mse_tiles", "kd_mse_reduce")}
+                      "kd_mse_tiles", "kd_mse_reduce", "stats1_kernel", "expand_dw_kernel",
+                      "proj_kernel", "dv2_kernel", "dw2_kernel", "dw_bwd_kernel",
+                      "expand_bwd_kernel", "colsum_kernel")}
     return {"wall_ms": wall, "device_ms": device_ms,
             "idle_share": max(0.0, 1.0 - device_ms / wall), "our_kernels_ms": ours,
             "top": [{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:15]]}
 
 
-def phase_train(dev, dtype, warmup: int = 3, steps: int = 10):
+def phase_train(dev, dtype, warmup: int = 3, steps: int = 10, variants=("in_loop", "cached"),
+                fused_train=False):
     """The KD step at B=128 through DistillationTrainer.train_step on one
     fixed batch: in-loop teacher, then cached teacher (its outputs computed
-    once for the batch, bench.py:233-244). Launches of each kernel per step
+    once for the batch, bench.py:233-244); with fused_train, the student's
+    InvertedResidual stages run K8-K13. Launches of each kernel per step
     are counted over the timed steps; the loss must fall over them."""
     from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
     from lmsu_tpu_torch.training import DistillationTrainer
@@ -676,9 +1067,10 @@ def phase_train(dev, dtype, warmup: int = 3, steps: int = 10):
     rng = np.random.default_rng(5)
     batch = train_batch(rng, TRAIN_B, dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    tr = DistillationTrainer(train_config(dtype), [batch], [batch], device=dev)
+    tr = DistillationTrainer(train_config(dtype, fused_train=fused_train), [batch], [batch],
+                             device=dev)
     out = {}
-    for variant in ("in_loop", "cached"):
+    for variant in variants:
         t_out = tr.teacher_forward(batch) if variant == "cached" else None
         step = lambda: tr.train_step(batch, teacher_out=t_out)  # noqa: E731
         for _ in range(warmup):
@@ -699,10 +1091,11 @@ def phase_train(dev, dtype, warmup: int = 3, steps: int = 10):
                         "losses": losses, "launches": launches,
                         "launches_per_step": {k: n / steps for k, n in launches.items()},
                         "profile": profile_steps(step)}
-        log(f"[train {name}] {variant}: {json.dumps(out[variant])}")
+        tag = f"{name} fused_train" if fused_train else name
+        log(f"[train {tag}] {variant}: {json.dumps(out[variant])}")
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     out["loss_parts"] = tr.last_loss_parts
-    log(f"[train {name}] peak device memory {out['peak_mem_gb']:.3f} GB; last loss parts "
+    log(f"[train {tag}] peak device memory {out['peak_mem_gb']:.3f} GB; last loss parts "
         f"{json.dumps(out['loss_parts'])}")
     return out
 
@@ -774,17 +1167,28 @@ def main(argv=None) -> int:
         tres["bf16"] = phase_train(dev, torch.bfloat16)
         tres["cli"] = run_train_cli(dev)
         log(f"[train] train_distill CLI: {json.dumps(tres['cli'])}")
+        tres["fused_check"] = check_fused_step(dev)
+        log(f"[train] fused_train blocks and step == plain versions / unfused: "
+            f"{json.dumps(tres['fused_check'])}")
+        for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            tres[f"fused_{dt}"] = phase_train(dev, dtype, variants=("in_loop",),
+                                              fused_train=True)
         for dt in ("f32", "bf16"):
-            for variant in ("in_loop", "cached"):
-                n = tres[dt][variant]["launches"]
-                if any(n[k] <= 0 for k in TRAIN_KERNELS):
-                    raise AssertionError(f"train {dt} {variant}: a kernel was not launched: {n}")
+            for run, variant, need in ((dt, "in_loop", TRAIN_KERNELS),
+                                       (dt, "cached", TRAIN_KERNELS),
+                                       (f"fused_{dt}", "in_loop",
+                                        TRAIN_KERNELS + IR_TRAIN_KERNELS)):
+                n = tres[run][variant]["launches"]
+                if any(n[k] <= 0 for k in need):
+                    raise AssertionError(f"train {run} {variant}: a kernel was not launched: {n}")
         log(f"[train] phase {time.perf_counter() - t0:.1f} s")
 
     # Each kernel's launches are counted on its slice's main path, f32: the
-    # serving run for K1-K3, the 10 timed in-loop KD steps for K5, K7. The
-    # times in an entry are at that path's shape (kind, C, batch); the other
-    # shapes the kernel was checked at follow under "other_shapes".
+    # serving run for K1-K3, the 10 timed in-loop KD steps for K5, K7, the 10
+    # timed in-loop KD steps with fused_train for K8-K13. The times in an
+    # entry are at that path's shape (kind, C, batch; K8-K13 summed over the
+    # five stages at B=128, per stage under "stages"); the other shapes the
+    # kernel was checked at follow under "other_shapes".
     meta = {
         "scatter_sorted_fwd": ("lmsu_tpu/ops/scatter_sorted_pallas.py:163",
                                ("scatter", 128, B), "serving"),
@@ -795,32 +1199,40 @@ def main(argv=None) -> int:
         "kd_feature_mse": ("lmsu_tpu/ops/kd_loss_pallas.py:48", ("kd_mse", 256, TRAIN_B),
                            "train"),
     }
+    for name, line in zip(IR_TRAIN_KERNELS, (362, 384, 414, 424, 462, 517)):
+        meta[name] = (f"lmsu_tpu/ops/ir_fused.py:{line}", (name, 0, TRAIN_B), "fused_train")
+    counted_on = {"serving": "f32 serving run",
+                  "train": "f32 in-loop KD run at B=128, 10 timed steps",
+                  "fused_train": "f32 in-loop KD run with fused_train at B=128, 10 timed steps"}
 
     def launches(path, dt, name):
         if path == "serving":
             return sres.get(dt, {}).get("launches", {}).get(name, 0)
-        return tres.get(dt, {}).get("in_loop", {}).get("launches", {}).get(name, 0)
+        run = dt if path == "train" else f"fused_{dt}"
+        return tres.get(run, {}).get("in_loop", {}).get("launches", {}).get(name, 0)
 
     lines = []
     for name, (replaces, (op, C, b), path) in meta.items():
         entry = {"name": name, "route": "cuda", "source": f"lmsu_tpu_torch/csrc/{name}.cu",
                  "replaces": replaces, "launches": launches(path, "f32", name),
-                 "launches_counted_on": ("f32 serving run" if path == "serving"
-                                         else "f32 in-loop KD run at B=128, 10 timed steps")}
+                 "launches_counted_on": counted_on[path]}
         if tres and path == "serving":
             entry["train_launches"] = launches("train", "f32", name)
         if kres:
             f32 = kres[(op, "f32", C, b)]
             bf16 = dict(kres[(op, "bf16", C, b)])
             bf16["launches"] = launches(path, "bf16", name)
-            entry.update({k: f32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms", "eager_ms",
-                                              "shape")})
+            entry.update({k: f32.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_ms", "eager_ms",
+                                                  "shape")})
             if "library" in f32:
                 entry["library"] = f32["library"]
             entry["kernel_ms"] = f32["ms"]
             if "stages" in f32:
                 entry["stages"] = f32["stages"]
+            if path == "fused_train":
+                entry["block_fwd_bwd_ms"] = {dt: kres[("ir_block", dt, 0, TRAIN_B)]
+                                             for dt in ("f32", "bf16")}
             entry["other_shapes"] = [
                 {"C": k[2], "B": k[3], "f32": v, "bf16": kres[(k[0], "bf16") + k[2:]]}
                 for k, v in kres.items()
@@ -833,11 +1245,12 @@ def main(argv=None) -> int:
         print(json.dumps({"serving": {k: v["stats"] for k, v in sres.items()},
                           "card": smi}))
     if tres:
-        print(json.dumps({"train": {dt: {v: {k: tres[dt][v][k] for k in
-                                             ("step_ms", "frames_per_s")}
-                                         for v in ("in_loop", "cached")}
-                                    for dt in ("f32", "bf16")},
-                          "batch": TRAIN_B, "card": smi}))
+        summary = {dt: {v: {k: tres[dt][v][k] for k in ("step_ms", "frames_per_s")}
+                        for v in ("in_loop", "cached")} for dt in ("f32", "bf16")}
+        for dt in ("f32", "bf16"):
+            summary[f"fused_train_{dt}"] = {"in_loop": {
+                k: tres[f"fused_{dt}"]["in_loop"][k] for k in ("step_ms", "frames_per_s")}}
+        print(json.dumps({"train": summary, "batch": TRAIN_B, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -44,7 +44,10 @@ class CameraEncoderConfig:
     # CUDA kernel (ops/ir_fused.py): BN running stats fold to scale/bias and
     # the 6x-expanded hidden activations stay in shared memory.
     fused_inference: bool = False
-    # Training-only fused kernels; not ported yet.
+    # Train-mode forwards run each InvertedResidual stage through the fused
+    # training kernels (ops/ir_fused.py::fused_ir_train, K8-K13): batch
+    # statistics in f32, the expanded hidden tensor recomputed from x in the
+    # backward instead of stored.
     fused_train: bool = False
 
     @property

@@ -31,14 +31,14 @@ class TwinLiteEncoder(nn.Module):
         super().__init__()
         self.config = config
         b1, b2, b4 = config.channels
-        fused = config.fused_inference
+        fused = (config.fused_inference, config.fused_train)
         self.stem = nn.Sequential(*conv_bn_act(config.in_channels, b1, 3, 2,
                                                act=ReLU6()))
-        self.stage1 = InvertedResidual(b1, b1, 1, 1, fused)
-        self.stage2 = InvertedResidual(b1, b2, 2, 6, fused)
-        self.stage3 = InvertedResidual(b2, b2, 1, 6, fused)
-        self.stage4 = InvertedResidual(b2, b4, 2, 6, fused)
-        self.stage5 = InvertedResidual(b4, b4, 1, 6, fused)
+        self.stage1 = InvertedResidual(b1, b1, 1, 1, *fused)
+        self.stage2 = InvertedResidual(b1, b2, 2, 6, *fused)
+        self.stage3 = InvertedResidual(b2, b2, 1, 6, *fused)
+        self.stage4 = InvertedResidual(b2, b4, 2, 6, *fused)
+        self.stage5 = InvertedResidual(b4, b4, 1, 6, *fused)
 
     @property
     def feature_channels(self) -> Dict[str, int]:

@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from lmsu_tpu_torch.ops.ir_fused import IRParams, fold_bn, fused_ir_infer
+from lmsu_tpu_torch.ops.ir_fused import IRParams, fold_bn, fused_ir_infer, fused_ir_train
 
 
 class _FlaxRunningStats:
@@ -133,16 +133,24 @@ class InvertedResidual(nn.Module):
 
     fused_inference: eval-mode calls run the block as one CUDA kernel
     (ops/ir_fused.py) with BN folded; the folded parameters are cached and
-    refolded when any parameter or buffer changes in place."""
+    refolded when any parameter or buffer changes in place.
+
+    fused_train: train-mode calls run `fused_ir_train` (kernels K8-K13) on
+    views of this module's own parameters, so gradients reach the conv and
+    BN parameters and checkpoints are unchanged; the BN running statistics
+    are updated from the block's batch statistics as the JAX package's
+    `_fused_train_call` does (layers.py:120-158)."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
-                 expansion_ratio: int = 6, fused_inference: bool = False):
+                 expansion_ratio: int = 6, fused_inference: bool = False,
+                 fused_train: bool = False):
         super().__init__()
         hidden = int(round(in_ch * expansion_ratio))
         self.stride = stride
         self.has_expand = expansion_ratio != 1
         self.use_residual = stride == 1 and in_ch == out_ch
         self.fused_inference = fused_inference
+        self.fused_train = fused_train
         layers: List[nn.Module] = []
         if self.has_expand:
             layers += conv_bn_act(in_ch, hidden, 1, act=ReLU6())
@@ -176,11 +184,36 @@ class InvertedResidual(nn.Module):
         self._folded = (key, params)
         return params
 
+    def _fused_train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = list(self.conv)
+        if self.has_expand:
+            pw1, bn1, dwc, bn2, pw2, bn3 = c[0], c[1], c[3], c[4], c[6], c[7]
+            w1, g1, be1 = pw1.weight[:, :, 0, 0].t(), bn1.weight, bn1.bias
+        else:
+            dwc, bn2, pw2, bn3 = c[0], c[1], c[3], c[4]
+            ce = dwc.weight.shape[0]
+            w1 = x.new_zeros(x.shape[1], ce, dtype=torch.float32)
+            g1 = be1 = x.new_zeros(ce, dtype=torch.float32)
+        out, (m1, v1, m2, v2, m3, v3) = fused_ir_train(
+            x.permute(0, 2, 3, 1), w1, g1, be1, dwc.weight[:, 0].permute(1, 2, 0),
+            bn2.weight, bn2.bias, pw2.weight[:, :, 0, 0].t(), bn3.weight, bn3.bias,
+            self.stride, self.has_expand, bn3.eps)
+        with torch.no_grad():
+            stats = ((bn1, m1, v1),) if self.has_expand else ()
+            for bn, m, v in stats + ((bn2, m2, v2), (bn3, m3, v3)):
+                mom = bn.momentum  # torch 0.1 == flax 0.9
+                bn.running_mean.copy_((1.0 - mom) * bn.running_mean + mom * m)
+                bn.running_var.copy_((1.0 - mom) * bn.running_var + mom * v)
+                bn.num_batches_tracked.add_(1)
+        return out.permute(0, 3, 1, 2)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused_inference and not self.training:
             y = fused_ir_infer(x.permute(0, 2, 3, 1), self.folded_params(),
                                stride=self.stride)
             return y.permute(0, 3, 1, 2)
+        if self.fused_train and self.training:
+            return self._fused_train_forward(x)
         y = apply_seq(self.conv, x)
         return x + y if self.use_residual else y
 

@@ -4,9 +4,9 @@ Each source under `lmsu_tpu_torch/csrc/` is compiled at first use by
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`
 into its own shared library with a plain C interface, and loaded with
 ctypes. Libraries go to `build/lmsu_tpu_torch/` beside the package (listed
-in .gitignore), named by a hash of the source, so an edited kernel is
-rebuilt and an unchanged one is reused. `build_all()` starts one nvcc per
-source, all at once.
+in .gitignore), named by a hash of the source and the shared headers
+`csrc/*.cuh`, so an edited kernel is rebuilt and an unchanged one is
+reused. `build_all()` starts one nvcc per source, all at once.
 
 Every C entry point takes device pointers, sizes and the CUDA stream, and
 returns the `cudaError_t` of `cudaGetLastError()` right after its launch;
@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 _lock = threading.Lock()
 _registry: Dict[str, "CudaKernel"] = {}
@@ -93,8 +94,9 @@ class CudaKernel:
         _registry[self.name] = self
 
     def _so_path(self) -> Path:
-        digest = hashlib.sha256((CSRC / self.source).read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        text = (CSRC / self.source).read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / f"{self.name}-{digest[:16]}.so"
 
     def _command(self, out: Path) -> List[str]:

@@ -1,9 +1,10 @@
-"""Fused InvertedResidual block for inference: the hand-written CUDA kernel
-(csrc/ir_fused_infer.cu) and its plain PyTorch version.
+"""Fused InvertedResidual blocks: the hand-written CUDA kernels and their
+plain PyTorch versions, for inference and for training.
 
-Replaces the TPU kernel lmsu_tpu/ops/ir_fused.py::_ir_infer_kernel (with
-the chunk loop and glue of fused_ir_infer). With BN running statistics
-folded into per-channel scale/bias:
+Inference (`fused_ir_infer`, csrc/ir_fused_infer.cu) replaces the TPU kernel
+lmsu_tpu/ops/ir_fused.py::_ir_infer_kernel (with the chunk loop and glue of
+fused_ir_infer). With BN running statistics folded into per-channel
+scale/bias:
 
     e   = relu6((x @ W1) * s1 + b1)           expand 1x1 (absent at expansion 1)
     d   = relu6(dw3x3(e, stride) * s2 + b2)   depthwise, padding 1
@@ -16,16 +17,45 @@ a small grid splits its hidden channels; see the .cu source note).
 Rounding follows the TPU kernel: e, the depthwise taps and d are rounded to
 the input dtype, every sum is f32, and the residual is added in the input
 dtype.
+
+Training (`fused_ir_train`, an autograd Function) transcribes
+_ir_train_forward / _ir_train_backward. BatchNorm needs the batch
+statistics before it normalises, so the forward is three kernels with
+[C]-vector glue between them, and the backward three more:
+
+    K8  stats1      e = x @ W1 recomputed, never stored -> mean1/var1
+    K9  expand_dw   recompute e, BN1 + relu6, depthwise; STORE d -> mean2/var2
+    K10 proj        BN2 + relu6, y = d' @ W2
+    glue            BN3 statistics, out = BN3(y) (+ x)
+    glue            BN3 backward -> dy
+    K11 proj_bwd    dW2 = d'^T dy; dv2 = relu6'(v2) (dy W2^T); STORE dv2; sums
+    K12 dw_bwd      dd = BN2bwd(dv2); dDW tap sums; de' = conv_T(dd, DW);
+                    dv1 = relu6'(v1) de' (e recomputed); STORE dv1; sums
+    K13 expand_bwd  de = BN1bwd(dv1); dW1 = x^T de; dx = de W1^T (+ dout)
+
+(csrc/ir_train_*.cu; K8-K13 number the TPU kernels as PERF.md does.) The
+numerics contract is the TPU module's (its docstring, :33-60): BN
+statistics are the fast variance E[x^2] - E[x]^2 in f32, not
+F.batch_norm's; values are rounded to the input dtype at the TPU kernels'
+places (e after the expand dot, e_act, the depthwise taps, the stored d,
+d_act, y_buf, dy, the stored dv2, dd, the stored dv1, de), dx is summed in
+f32 and cast once; the ReLU6 derivative is 1 strictly inside (0, 6) and 0
+at the ties (the TPU kernels' masks; the unfused path's ReLU6 gives 1/2
+there); the residual is added in the input dtype. The TPU path pads the
+hidden dim to 128 lanes and loops over 128-wide chunks; the padded
+channels are exactly zero, so leaving both out changes only the order of
+f32 sums. Each kernel has a plain version here (`*_plain`): CPU tensors
+take it, CUDA tensors launch the kernel, other devices raise.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from lmsu_tpu_torch.ops._cuda import (_I, _P, CudaKernel, check_cuda_args,
+from lmsu_tpu_torch.ops._cuda import (_I, _L, _P, CudaKernel, check_cuda_args,
                                       dtype_code, ptr, stream_ptr)
 
 KERNEL = CudaKernel("ir_fused_infer.cu", {
@@ -145,3 +175,496 @@ def fused_ir_infer(x: torch.Tensor, p: IRParams, stride: int = 1) -> torch.Tenso
                   ptr(partial), B, H, W, Ho, Wo, Cin, Ce, Cout, stride, int(has_expand),
                   residual, nsplit, dtype_code(x), stream_ptr(dev))
     return out
+
+
+# -- training: kernels K8-K13 and their plain versions ------------------------
+
+_REDUCE_ROWS = 256     # rows per group in the kernels' fixed-order partial sums
+_SPLIT_ROWS = 2048     # pixels per split of K11's dW2 sum
+_STRIP_ROWS = 1024     # pixels per block span of K13 (a multiple of 64)
+
+STATS1 = CudaKernel("ir_train_stats1.cu", {
+    "ir_train_stats1": (_P,) * 7 + (_L,) + (_I,) * 4 + (_P,),
+    "ir_train_stats1_rows": (_L,)})
+EXPAND_DW = CudaKernel("ir_train_expand_dw.cu", {
+    "ir_train_expand_dw": (_P,) * 11 + (_I,) * 11 + (_P,),
+    "ir_train_expand_dw_smem": (_I,) * 3,
+    "ir_train_expand_dw_rows": (_I,) * 3})
+PROJ = CudaKernel("ir_train_proj.cu", {
+    "ir_train_proj": (_P,) * 5 + (_L,) + (_I,) * 3 + (_P,)})
+PROJ_BWD = CudaKernel("ir_train_proj_bwd.cu", {
+    "ir_train_proj_bwd": (_P,) * 15 + (_L,) + (_I,) * 5 + (_P,),
+    "ir_train_proj_bwd_rows": (_L,)})
+DW_BWD = CudaKernel("ir_train_dw_bwd.cu", {
+    "ir_train_dw_bwd": (_P,) * 22 + (_I,) * 11 + (_P,),
+    "ir_train_dw_bwd_smem": (_I,) * 3,
+    "ir_train_dw_bwd_rows": (_I,) * 3})
+EXPAND_BWD = CudaKernel("ir_train_expand_bwd.cu", {
+    "ir_train_expand_bwd": (_P,) * 13 + (_L,) + (_I,) * 5 + (_P,),
+    "ir_train_expand_bwd_cblocks": (_I,)})
+
+_F32 = torch.float32
+
+
+def _rnd(v: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """v rounded to dt, as f32 (the TPU kernels' `.astype(x.dtype)`)."""
+    return v.to(dt).float()
+
+
+def _mask(v: torch.Tensor) -> torch.Tensor:
+    """The fused path's ReLU6 derivative: 1 strictly inside (0, 6), else 0."""
+    return ((v > 0.0) & (v < 6.0)).float()
+
+
+def _check_spatial(H: int, W: int, stride: int) -> None:
+    if stride not in (1, 2):
+        raise ValueError(f"stride must be 1 or 2, got {stride}")
+    if stride == 2 and (H % 2 or W % 2):
+        raise ValueError(
+            f"fused InvertedResidual needs even spatial dims at stride-2 stages, got "
+            f"{H}x{W}; use the unfused path (CameraEncoderConfig.fused_train=False) for "
+            f"image sizes not divisible by 16.")
+
+
+def _on_card(name: str, t: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version runs), True for CUDA."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA, not {t.device}")
+    return True
+
+
+def _check_shapes(name: str, **tensors) -> None:
+    """Each keyword is (tensor, expected shape): a kernel reads by these
+    shapes, so a mismatch raises before any pointer is passed."""
+    for label, (t, shape) in tensors.items():
+        if t is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {label} must be {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _w(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """A weight as the kernels take it: f32 holding input-dtype values."""
+    return t.detach().to(dt).float().contiguous()
+
+
+def _v(*ts) -> list:
+    """Per-channel vectors as the kernels take them: contiguous f32."""
+    return [t.detach().float().contiguous() for t in ts]
+
+
+def _scratch(dev, *reductions) -> Optional[torch.Tensor]:
+    """The second-level buffer of the kernels' partial sums: for each
+    reduction (rows, columns) with more rows than one group, ceil(rows /
+    _REDUCE_ROWS) rows of its width; None when no reduction needs one."""
+    n = max([-(-rows // _REDUCE_ROWS) * cols for rows, cols in reductions
+             if rows > _REDUCE_ROWS], default=0)
+    return torch.empty(n, dtype=_F32, device=dev) if n else None
+
+
+def _expand_act(x, w1, s1, b1):
+    """e (rounded), v1 = e * s1 + b1 and e_act (rounded) of the expand 1x1."""
+    dt = x.dtype
+    e = _rnd(x.float() @ _rnd(w1, dt), dt)
+    v1 = e * s1.float() + b1.float()
+    return e, v1, _rnd(_relu6(v1), dt)
+
+
+def _dw_taps(dw, dt):
+    """[3, 3, Ce] taps rounded to dt -> the [Ce, 1, 3, 3] grouped-conv weight."""
+    return _rnd(dw, dt).permute(2, 0, 1).unsqueeze(1)
+
+
+# K8 ----------------------------------------------------------------------
+
+
+def stats1_plain(x, w1):
+    """x [B, H, W, Cin], W1 [Cin, Ce] -> (sum e, sum e^2) [Ce] f32 of
+    e = x @ W1 rounded to x's dtype."""
+    e = _rnd(x.reshape(-1, x.shape[-1]).float() @ _rnd(w1, x.dtype), x.dtype)
+    return e.sum(0), (e * e).sum(0)
+
+
+def stats1(x, w1):
+    """K8 (`_stats1_kernel`): the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    cin, ce = x.shape[-1], w1.shape[-1]
+    _check_shapes("stats1", w1=(w1, (cin, ce)))
+    if not _on_card("stats1", x):
+        return stats1_plain(x, w1)
+    x = x.contiguous()
+    M = x.numel() // cin
+    w = _w(w1, x.dtype)
+    dev = check_cuda_args(x, w)
+    rows = STATS1.lib().ir_train_stats1_rows(M)
+    part = torch.empty(2, rows, ce, dtype=_F32, device=dev)
+    scratch = _scratch(dev, (rows, ce))
+    out = torch.empty(2, ce, dtype=_F32, device=dev)
+    STATS1.launch("ir_train_stats1", ptr(x), ptr(w), ptr(part[0]), ptr(part[1]), ptr(scratch),
+                  ptr(out[0]), ptr(out[1]), M, cin, ce, _REDUCE_ROWS, dtype_code(x),
+                  stream_ptr(dev))
+    return out[0], out[1]
+
+
+# K9 ----------------------------------------------------------------------
+
+
+def expand_dw_plain(x, w1, s1, b1, dw, stride):
+    """x [B, H, W, Cin] -> (d [B, Ho, Wo, Ce] in x's dtype, sum d, sum d^2):
+    e_act = relu6(e * s1 + b1) (x itself when w1 is None), d = the depthwise
+    3x3 of e_act, padding 1, rounded to x's dtype; the sums over that d."""
+    dt = x.dtype
+    e_act = _expand_act(x, w1, s1, b1)[2] if w1 is not None else x.float()
+    ce = e_act.shape[-1]
+    d = F.conv2d(e_act.permute(0, 3, 1, 2), _dw_taps(dw, dt), stride=stride, padding=1,
+                 groups=ce).permute(0, 2, 3, 1).to(dt).contiguous()
+    d32 = d.float()
+    return d, d32.sum((0, 1, 2)), (d32 * d32).sum((0, 1, 2))
+
+
+def expand_dw(x, w1, s1, b1, dw, stride):
+    """K9 (`_expand_dw_kernel`); w1, s1, b1 None at expansion 1."""
+    B, H, W, cin = x.shape
+    _check_spatial(H, W, stride)
+    ce = dw.shape[-1]
+    _check_shapes("expand_dw", w1=(w1, (cin, ce)), s1=(s1, (ce,)), b1=(b1, (ce,)),
+                  dw=(dw, (3, 3, ce)))
+    if not _on_card("expand_dw", x):
+        return expand_dw_plain(x, w1, s1, b1, dw, stride)
+    has_expand = w1 is not None
+    if cin % 4 or (not has_expand and ce != cin):
+        raise ValueError(f"expand_dw kernel takes Cin % 4 == 0 (and Ce == Cin at "
+                         f"expansion 1), got Cin={cin}, Ce={ce}")
+    lib = EXPAND_DW.lib()
+    if lib.ir_train_expand_dw_smem(cin, stride, int(has_expand)) > _SMEM_LIMIT:
+        raise ValueError(f"fused training block too wide for shared memory (Cin={cin}, "
+                         f"stride {stride}); use fused_train=False")
+    dt = x.dtype
+    x = x.contiguous()
+    Ho, Wo = H // stride, W // stride
+    taps = _w(dw, dt).reshape(9, ce)
+    if has_expand:
+        w, (sv, bv) = _w(w1, dt), _v(s1, b1)
+        dev = check_cuda_args(x, w, sv, bv, taps)
+    else:
+        w = sv = bv = None
+        dev = check_cuda_args(x, taps)
+    rows = lib.ir_train_expand_dw_rows(B, Ho, Wo)
+    part = torch.empty(2, rows, ce, dtype=_F32, device=dev)
+    out = torch.empty(2, ce, dtype=_F32, device=dev)
+    d = torch.empty(B, Ho, Wo, ce, dtype=dt, device=dev)
+    EXPAND_DW.launch("ir_train_expand_dw", ptr(x), ptr(w), ptr(sv), ptr(bv), ptr(taps), ptr(d),
+                     ptr(part[0]), ptr(part[1]), ptr(_scratch(dev, (rows, ce))), ptr(out[0]),
+                     ptr(out[1]), B, H, W, Ho, Wo, cin, ce, stride, int(has_expand),
+                     _REDUCE_ROWS, dtype_code(x), stream_ptr(dev))
+    return d, out[0], out[1]
+
+
+# K10 ---------------------------------------------------------------------
+
+
+def proj_plain(d, s2, b2, w2):
+    """d [B, Ho, Wo, Ce] -> y = relu6(d * s2 + b2) (rounded) @ W2, f32."""
+    d_act = _rnd(_relu6(d.float() * s2.float() + b2.float()), d.dtype)
+    return d_act @ _rnd(w2, d.dtype)
+
+
+def proj(d, s2, b2, w2):
+    """K10 (`_proj_kernel`): y [B, Ho, Wo, Cout] f32."""
+    ce, cout = d.shape[-1], w2.shape[-1]
+    _check_shapes("proj", s2=(s2, (ce,)), b2=(b2, (ce,)), w2=(w2, (ce, cout)))
+    if not _on_card("proj", d):
+        return proj_plain(d, s2, b2, w2)
+    d = d.contiguous()
+    M = d.numel() // ce
+    w = _w(w2, d.dtype)
+    sv, bv = _v(s2, b2)
+    dev = check_cuda_args(d, sv, bv, w)
+    y = torch.empty(*d.shape[:-1], cout, dtype=_F32, device=dev)
+    PROJ.launch("ir_train_proj", ptr(d), ptr(sv), ptr(bv), ptr(w), ptr(y), M, ce, cout,
+                dtype_code(d), stream_ptr(dev))
+    return y
+
+
+# K11 ---------------------------------------------------------------------
+
+
+def proj_bwd_plain(d, dy, s2, b2, m2, inv2, w2):
+    """-> (dv2 in d's dtype, dW2 [Ce, Cout] f32, sum dv2, sum dv2 * dn):
+    dW2 = d_act^T dy, dv2 = relu6'(v2) (dy W2^T), dn = (d - m2) inv2."""
+    dt = d.dtype
+    ce, cout = d.shape[-1], dy.shape[-1]
+    d32 = d.reshape(-1, ce).float()
+    dy32 = dy.reshape(-1, cout).float()
+    v2 = d32 * s2.float() + b2.float()
+    dw2 = _rnd(_relu6(v2), dt).T @ dy32
+    dv2 = (dy32 @ _rnd(w2, dt).T) * _mask(v2)
+    dn = (d32 - m2.float()) * inv2.float()
+    return dv2.to(dt).reshape(d.shape), dw2, dv2.sum(0), (dv2 * dn).sum(0)
+
+
+def proj_bwd(d, dy, s2, b2, m2, inv2, w2):
+    """K11 (`_proj_bwd_kernel`)."""
+    ce, cout = d.shape[-1], w2.shape[-1]
+    _check_shapes("proj_bwd", dy=(dy, (*d.shape[:-1], cout)), w2=(w2, (ce, cout)),
+                  **{k: (v, (ce,)) for k, v in (("s2", s2), ("b2", b2), ("m2", m2),
+                                                ("inv2", inv2))})
+    if not _on_card("proj_bwd", d):
+        return proj_bwd_plain(d, dy, s2, b2, m2, inv2, w2)
+    if dy.dtype != d.dtype:
+        raise ValueError(f"d and dy must share a dtype, got {d.dtype} and {dy.dtype}")
+    d, dy = d.contiguous(), dy.contiguous()
+    M = d.numel() // ce
+    w = _w(w2, d.dtype)
+    vs = _v(s2, b2, m2, inv2)
+    dev = check_cuda_args(d, dy, w, *vs)
+    rows = PROJ_BWD.lib().ir_train_proj_bwd_rows(M)
+    nsplit = -(-M // _SPLIT_ROWS)
+    part = torch.empty(2, rows, ce, dtype=_F32, device=dev)
+    part_w = torch.empty(nsplit, ce * cout, dtype=_F32, device=dev)
+    scratch = _scratch(dev, (rows, ce), (nsplit, ce * cout))
+    dv2 = torch.empty_like(d)
+    dw2 = torch.empty(ce, cout, dtype=_F32, device=dev)
+    r = torch.empty(2, ce, dtype=_F32, device=dev)
+    PROJ_BWD.launch("ir_train_proj_bwd", ptr(d), ptr(dy), *(ptr(v) for v in vs), ptr(w),
+                    ptr(dv2), ptr(part[0]), ptr(part[1]), ptr(part_w), ptr(scratch), ptr(dw2),
+                    ptr(r[0]), ptr(r[1]), M, ce, cout, _SPLIT_ROWS, _REDUCE_ROWS,
+                    dtype_code(d), stream_ptr(dev))
+    return dv2, dw2, r[0], r[1]
+
+
+# K12 ---------------------------------------------------------------------
+
+
+def dw_bwd_plain(x, w1, s1, b1, m1, inv1, dw, dv2, u2, p2, q2, d, m2, inv2, stride):
+    """-> (dv1 [B, H, W, Ce] in x's dtype, dDW [9, Ce] f32, sum dv1, sum
+    dv1 * en): dd = u2 dv2 - p2 - q2 (d - m2) inv2 (rounded), dDW[t] the
+    tap sums of e_act against dd, de_act the transposed depthwise conv of
+    dd, dv1 = relu6'(v1) de_act, en = (e - m1) inv1. At expansion 1 (w1
+    None): dv1 = de_act and the sums are 0."""
+    dt = x.dtype
+    dn = (d.float() - m2.float()) * inv2.float()
+    dd = _rnd(u2.float() * dv2.float() - p2.float() - q2.float() * dn, dt)
+    if w1 is not None:
+        e, v1, e_act = _expand_act(x, w1, s1, b1)
+    else:
+        e_act = x.float()
+    Ho, Wo, ce = dd.shape[1:]
+    ep = F.pad(e_act, (0, 0, 1, 1, 1, 1))
+    ddw = torch.stack([
+        (ep[:, ky:ky + stride * (Ho - 1) + 1:stride, kx:kx + stride * (Wo - 1) + 1:stride]
+         * dd).sum((0, 1, 2)) for ky in range(3) for kx in range(3)])
+    de_act = F.conv_transpose2d(dd.permute(0, 3, 1, 2), _dw_taps(dw, dt), stride=stride,
+                                padding=1, output_padding=stride - 1,
+                                groups=ce).permute(0, 2, 3, 1)
+    if w1 is not None:
+        dv1 = de_act * _mask(v1)
+        en = (e - m1.float()) * inv1.float()
+        ra, rb = dv1.sum((0, 1, 2)), (dv1 * en).sum((0, 1, 2))
+    else:
+        dv1 = de_act
+        ra = rb = torch.zeros(ce, dtype=_F32, device=x.device)
+    return dv1.to(dt).contiguous(), ddw, ra, rb
+
+
+def dw_bwd(x, w1, s1, b1, m1, inv1, dw, dv2, u2, p2, q2, d, m2, inv2, stride):
+    """K12 (`_dw_bwd_kernel`); w1, s1, b1, m1, inv1 None at expansion 1."""
+    B, H, W, cin = x.shape
+    _check_spatial(H, W, stride)
+    ce = dw.shape[-1]
+    om = (B, H // stride, W // stride, ce)
+    _check_shapes("dw_bwd", w1=(w1, (cin, ce)), dw=(dw, (3, 3, ce)), dv2=(dv2, om), d=(d, om),
+                  **{k: (v, (ce,)) for k, v in (("s1", s1), ("b1", b1), ("m1", m1),
+                                                ("inv1", inv1), ("u2", u2), ("p2", p2),
+                                                ("q2", q2), ("m2", m2), ("inv2", inv2))})
+    if not _on_card("dw_bwd", x):
+        return dw_bwd_plain(x, w1, s1, b1, m1, inv1, dw, dv2, u2, p2, q2, d, m2, inv2, stride)
+    has_expand = w1 is not None
+    if cin % 4 or (not has_expand and ce != cin):
+        raise ValueError(f"dw_bwd kernel takes Cin % 4 == 0 (and Ce == Cin at expansion "
+                         f"1), got Cin={cin}, Ce={ce}")
+    if not (x.dtype == dv2.dtype == d.dtype):
+        raise ValueError("x, dv2 and d must share a dtype")
+    lib = DW_BWD.lib()
+    if lib.ir_train_dw_bwd_smem(cin, stride, int(has_expand)) > _SMEM_LIMIT:
+        raise ValueError(f"fused training block too wide for shared memory (Cin={cin}, "
+                         f"stride {stride}); use fused_train=False")
+    dt = x.dtype
+    x, dv2, d = x.contiguous(), dv2.contiguous(), d.contiguous()
+    Ho, Wo = H // stride, W // stride
+    taps = _w(dw, dt).reshape(9, ce)
+    u2, p2, q2, m2, inv2 = _v(u2, p2, q2, m2, inv2)
+    if has_expand:
+        w = _w(w1, dt)
+        s1, b1, m1, inv1 = _v(s1, b1, m1, inv1)
+        dev = check_cuda_args(x, w, s1, b1, m1, inv1, taps, dv2, u2, p2, q2, d, m2, inv2)
+    else:
+        w = s1 = b1 = m1 = inv1 = None
+        dev = check_cuda_args(x, taps, dv2, u2, p2, q2, d, m2, inv2)
+    rows = lib.ir_train_dw_bwd_rows(B, Ho, Wo)
+    part_dw = torch.empty(rows, 9 * ce, dtype=_F32, device=dev)
+    part = torch.empty(2, rows, ce, dtype=_F32, device=dev)
+    dv1 = torch.empty(B, H, W, ce, dtype=dt, device=dev)
+    ddw = torch.empty(9, ce, dtype=_F32, device=dev)
+    r = torch.empty(2, ce, dtype=_F32, device=dev)
+    DW_BWD.launch("ir_train_dw_bwd", ptr(x), ptr(w), ptr(s1), ptr(b1), ptr(m1), ptr(inv1),
+                  ptr(taps), ptr(dv2), ptr(u2), ptr(p2), ptr(q2), ptr(d), ptr(m2), ptr(inv2),
+                  ptr(dv1), ptr(part_dw), ptr(part[0]), ptr(part[1]),
+                  ptr(_scratch(dev, (rows, 9 * ce))), ptr(ddw), ptr(r[0]), ptr(r[1]), B, H, W,
+                  Ho, Wo, cin, ce, stride, int(has_expand), _REDUCE_ROWS, dtype_code(x),
+                  stream_ptr(dev))
+    return dv1, ddw, r[0], r[1]
+
+
+# K13 ---------------------------------------------------------------------
+
+
+def expand_bwd_plain(x, w1, m1, inv1, u1, p1, q1, dv1):
+    """-> (dx [B, H, W, Cin] f32, dW1 [Cin, Ce] f32): e = x @ W1 (rounded),
+    de = u1 dv1 - p1 - q1 (e - m1) inv1 (rounded), dW1 = x^T de,
+    dx = de W1^T."""
+    dt = x.dtype
+    cin, ce = x.shape[-1], dv1.shape[-1]
+    xm = x.reshape(-1, cin).float()
+    w = _rnd(w1, dt)
+    e = _rnd(xm @ w, dt)
+    en = (e - m1.float()) * inv1.float()
+    de = _rnd(u1.float() * dv1.reshape(-1, ce).float() - p1.float() - q1.float() * en, dt)
+    return (de @ w.T).reshape(x.shape), xm.T @ de
+
+
+def expand_bwd(x, w1, m1, inv1, u1, p1, q1, dv1):
+    """K13 (`_expand_bwd_kernel`)."""
+    cin, ce = x.shape[-1], dv1.shape[-1]
+    _check_shapes("expand_bwd", dv1=(dv1, (*x.shape[:-1], ce)), w1=(w1, (cin, ce)),
+                  **{k: (v, (ce,)) for k, v in (("m1", m1), ("inv1", inv1), ("u1", u1),
+                                                ("p1", p1), ("q1", q1))})
+    if not _on_card("expand_bwd", x):
+        return expand_bwd_plain(x, w1, m1, inv1, u1, p1, q1, dv1)
+    if cin > 128 or dv1.dtype != x.dtype:
+        raise ValueError(f"expand_bwd kernel takes Cin <= 128 and x, dv1 of one dtype, got "
+                         f"Cin={cin}, {x.dtype} and {dv1.dtype}")
+    x, dv1 = x.contiguous(), dv1.contiguous()
+    M = x.numel() // cin
+    w = _w(w1, x.dtype)
+    vs = _v(m1, inv1, u1, p1, q1)
+    dev = check_cuda_args(x, w, *vs, dv1)
+    ncb = EXPAND_BWD.lib().ir_train_expand_bwd_cblocks(ce)
+    nstrip = -(-M // _STRIP_ROWS)
+    dxp = torch.empty(ncb, M, cin, dtype=_F32, device=dev)
+    dw1p = torch.empty(nstrip, cin * ce, dtype=_F32, device=dev)
+    scratch = _scratch(dev, (ncb, M * cin), (nstrip, cin * ce))
+    dx = torch.empty(x.shape, dtype=_F32, device=dev)
+    dw1 = torch.empty(cin, ce, dtype=_F32, device=dev)
+    EXPAND_BWD.launch("ir_train_expand_bwd", ptr(x), ptr(w), *(ptr(v) for v in vs), ptr(dv1),
+                      ptr(dxp), ptr(dw1p), ptr(scratch), ptr(dx), ptr(dw1), M, cin, ce,
+                      _STRIP_ROWS, _REDUCE_ROWS, dtype_code(x), stream_ptr(dev))
+    return dx, dw1
+
+
+# The block -----------------------------------------------------------------
+
+
+def _bn_stats_finalize(s, sq, count):
+    """flax _compute_stats (use_fast_variance): biased var = E[x^2] - E[x]^2."""
+    mean = s / count
+    return mean, sq / count - mean * mean
+
+
+class _FusedIRTrain(torch.autograd.Function):
+    """ir_fused.py::fused_ir_train's custom VJP: _ir_train_forward (:566-666)
+    and _ir_train_backward (:669-835) with K8-K13 for the kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w1, g1, be1, dwk, g2, be2, w2, g3, be3, stride, has_expand, eps):
+        B, H, W, cin = x.shape
+        _check_spatial(H, W, stride)
+        ce, cout = dwk.shape[-1], w2.shape[-1]
+        Ho, Wo = H // stride, W // stride
+        M1, M2 = B * H * W, B * Ho * Wo
+        dt = x.dtype
+        x = x.contiguous()
+        if has_expand:
+            m1, v1 = _bn_stats_finalize(*stats1(x, w1), M1)
+            s1, b1 = fold_bn(g1.float(), be1.float(), m1, v1, eps)
+        else:
+            m1, v1 = (torch.zeros(ce, dtype=_F32, device=x.device) for _ in range(2))
+            s1 = b1 = None
+        d, s, sq = expand_dw(x, w1 if has_expand else None, s1, b1, dwk, stride)
+        m2, v2 = _bn_stats_finalize(s, sq, M2)
+        s2, b2 = fold_bn(g2.float(), be2.float(), m2, v2, eps)
+        y_buf = proj(d, s2, b2, w2).to(dt)
+        y32 = y_buf.float()
+        m3, v3 = _bn_stats_finalize(y32.sum((0, 1, 2)), (y32 * y32).sum((0, 1, 2)), M2)
+        inv3 = torch.rsqrt(v3 + eps)
+        out = (g3.float() * (y32 - m3) * inv3 + be3.float()).to(dt)
+        if stride == 1 and cin == cout:
+            out = x + out
+        ctx.save_for_backward(x, d, y_buf, m1, v1, m2, v2, m3, v3, w1, g1, be1, dwk, g2, be2,
+                              w2, g3, be3)
+        ctx.conf = (stride, has_expand, eps)
+        stats = (m1, v1, m2, v2, m3, v3)
+        ctx.mark_non_differentiable(*stats)
+        return (out,) + stats
+
+    @staticmethod
+    def backward(ctx, g_out, *_stat_grads):
+        # The statistics' cotangents are never used: running-average updates
+        # are outside autograd, as stop-gradient in flax.
+        (x, d, y_buf, m1, v1, m2, v2, m3, v3, w1, g1, be1, dwk, g2, be2, w2, g3,
+         be3) = ctx.saved_tensors
+        stride, has_expand, eps = ctx.conf
+        B, H, W, cin = x.shape
+        ce, cout = dwk.shape[-1], w2.shape[-1]
+        M1, M2 = B * H * W, B * (H // stride) * (W // stride)
+        dt = x.dtype
+
+        # BN3 backward (glue, Cout wide).
+        inv3 = torch.rsqrt(v3 + eps)
+        yn = (y_buf.float() - m3) * inv3
+        dout = g_out.float()
+        r3a = dout.sum((0, 1, 2))
+        r3b = (dout * yn).sum((0, 1, 2))
+        dy = (g3.float() * inv3 * (dout - r3a / M2 - yn * (r3b / M2))).to(dt)
+
+        inv2 = torch.rsqrt(v2 + eps)
+        s2, b2 = fold_bn(g2.float(), be2.float(), m2, v2, eps)
+        dv2, dW2, r2a, r2b = proj_bwd(d, dy, s2, b2, m2, inv2, w2)
+        u2 = g2.float() * inv2
+        p2 = u2 * (r2a / M2)
+        q2 = u2 * (r2b / M2)
+
+        if has_expand:
+            inv1 = torch.rsqrt(v1 + eps)
+            s1, b1 = fold_bn(g1.float(), be1.float(), m1, v1, eps)
+            dv1, ddw, r1a, r1b = dw_bwd(x, w1, s1, b1, m1, inv1, dwk, dv2, u2, p2, q2, d, m2,
+                                        inv2, stride)
+            u1 = g1.float() * inv1
+            dx, dW1 = expand_bwd(x, w1, m1, inv1, u1, u1 * (r1a / M1), u1 * (r1b / M1), dv1)
+            dx = dx.to(dt)
+            dg1, db1, dW1 = r1b.to(g1.dtype), r1a.to(be1.dtype), dW1.to(w1.dtype)
+        else:
+            dx, ddw, _, _ = dw_bwd(x, None, None, None, None, None, dwk, dv2, u2, p2, q2, d,
+                                   m2, inv2, stride)
+            dW1, dg1, db1 = torch.zeros_like(w1), torch.zeros_like(g1), torch.zeros_like(be1)
+        if stride == 1 and cin == cout:
+            dx = dx + g_out
+        return (dx, dW1, dg1, db1, ddw.reshape(3, 3, ce).to(dwk.dtype), r2b.to(g2.dtype),
+                r2a.to(be2.dtype), dW2.to(w2.dtype), r3b.to(g3.dtype), r3a.to(be3.dtype),
+                None, None, None)
+
+
+def fused_ir_train(x, w1, g1, be1, dwk, g2, be2, w2, g3, be3, stride: int = 1,
+                   has_expand: bool = True, eps: float = 1e-5
+                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Fused training-mode InvertedResidual on NHWC x [B, H, W, Cin] (f32 or
+    bf16); parameters in the JAX package's layout: w1 [Cin, Ce] (zeros, with
+    g1 and be1, at expansion 1, has_expand False), dwk [3, 3, Ce], w2
+    [Ce, Cout], BN weights and biases per channel.
+
+    Returns (out, (mean1, var1, mean2, var2, mean3, var3)): the batch
+    statistics (biased variance) for the running averages, outside autograd.
+    Gradients reach every tensor input through K11-K13."""
+    out, *stats = _FusedIRTrain.apply(x, w1, g1, be1, dwk, g2, be2, w2, g3, be3, stride,
+                                      has_expand, eps)
+    return out, tuple(stats)

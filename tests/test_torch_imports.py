@@ -122,13 +122,56 @@ def test_wrappers_refuse_non_cpu_tensors_without_fallback():
         fused_ir_infer(torch.empty(1, 4, 4, 8, **m), p, 1)
 
 
+def test_training_block_wrappers_refuse_non_cpu_tensors_without_fallback():
+    """K8-K13 and the fused training block: a meta tensor raises, none falls
+    back to the plain version."""
+    from lmsu_tpu_torch.ops import ir_fused as irf
+    m = dict(device="meta")
+    x, d, e = torch.empty(2, 4, 4, 8, **m), torch.empty(2, 4, 4, 16, **m), torch.empty(16, **m)
+    w1, dw, w2 = torch.empty(8, 16, **m), torch.empty(3, 3, 16, **m), torch.empty(16, 8, **m)
+    y = torch.empty(2, 4, 4, 8, **m)
+    calls = {
+        "stats1": lambda: irf.stats1(x, w1),
+        "expand_dw": lambda: irf.expand_dw(x, w1, e, e, dw, 1),
+        "proj": lambda: irf.proj(d, e, e, w2),
+        "proj_bwd": lambda: irf.proj_bwd(d, y, e, e, e, e, w2),
+        "dw_bwd": lambda: irf.dw_bwd(x, w1, e, e, e, e, dw, d, e, e, e, d, e, e, 1),
+        "expand_bwd": lambda: irf.expand_bwd(x, w1, e, e, e, e, e, d),
+        "fused_ir_train": lambda: irf.fused_ir_train(
+            x, w1, e, e, dw, e, e, w2, torch.empty(8, **m), torch.empty(8, **m), 1, True),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            call()
+
+
+def test_create_model_takes_fused_train_and_refuses_the_rest():
+    from lmsu_tpu_torch.config import CameraEncoderConfig, LidarEncoderConfig, ModelConfig
+    from lmsu_tpu_torch.models import create_model
+    cfg = _tiny_config()
+    model = create_model(cfg.replace(camera=CameraEncoderConfig(base_channels=4,
+                                                                fused_train=True)))
+    assert all(getattr(model.camera_encoder, f"stage{i}").fused_train for i in range(1, 6))
+    for bad, name in ((cfg.replace(camera=CameraEncoderConfig(base_channels=4, remat=True)),
+                       "remat"),
+                      (cfg.replace(lidar=LidarEncoderConfig(feature_dim=16, mlp_dims=(8, 16),
+                                                            grid_size=(8, 8),
+                                                            use_pallas=True)), "use_pallas")):
+        with pytest.raises(NotImplementedError, match=name):
+            create_model(bad)
+    assert isinstance(ModelConfig().camera.fused_train, bool)
+
+
 def test_kernel_build_flags_and_sources():
     """Each kernel source exists and builds for sm_90a without fast math,
-    into a build directory that git ignores."""
+    into a build directory that git ignores; a shared header's text is part
+    of every library's build hash."""
     from lmsu_tpu_torch.ops import _cuda
     ks = _cuda.kernels()
     assert set(ks) == {"scatter_sorted_fwd", "scatter_sorted_bwd", "fusion_gate",
-                       "ir_fused_infer", "kd_feature_mse"}
+                       "ir_fused_infer", "kd_feature_mse", "ir_train_stats1",
+                       "ir_train_expand_dw", "ir_train_proj", "ir_train_proj_bwd",
+                       "ir_train_dw_bwd", "ir_train_expand_bwd"}
     for k in ks.values():
         assert (_cuda.CSRC / k.source).is_file()
         for sym in k.symbols:
@@ -137,6 +180,9 @@ def test_kernel_build_flags_and_sources():
     assert "arch=compute_90a,code=sm_90a" in flags and "fast_math" not in flags
     assert _cuda.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert "/build/" in (ROOT / ".gitignore").read_text().split()
+    headers = sorted(_cuda.CSRC.glob("*.cuh"))
+    assert headers and all(f'#include "{h.name}"' in (_cuda.CSRC / k.source).read_text()
+                           for h in headers for k in ks.values() if k.name.startswith("ir_train"))
 
 
 def test_build_skipped_without_nvcc_is_an_error(monkeypatch):
