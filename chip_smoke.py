@@ -10,19 +10,25 @@ Phases:
              printing the build seconds and what ptxas reports.
   2. kernels each kernel against its plain PyTorch version at the main
              paths' shapes, f32 and bf16: serving at B=8, the KD step at
-             B=128 with the student's C=128 and the teacher's C=256 (K1, K2),
-             the fused training kernels K8-K13 at each of the student's five
-             InvertedResidual stages at B=128; timed with CUDA events beside
-             the plain version, the PyTorch equivalent where there is one,
-             and the card's bound; each stage's fused forward + backward
-             beside the unfused block's (cuDNN convs, train-mode BN).
+             B=128 with the student's C=128 and the teacher's C=256 (K1, K2,
+             K4, K6), the fused training kernels K8-K13 at each of the
+             student's five InvertedResidual stages at B=128; timed with
+             CUDA events beside the plain version, the PyTorch equivalent
+             where there is one, and the card's bound; each stage's fused
+             forward + backward beside the unfused block's (cuDNN convs,
+             train-mode BN). The scatter kernels K4 and K6 (and K1 beside
+             K4) also on a skewed cloud: 2,000 of the 5,000 points in one
+             cell, as zero padding puts them.
   3. serving the weighted-fusion student at full width with the three
              kernel opt-ins, seeded random weights and randomised BN
              statistics, behind ServingEngine (batch 8) with 8 client
              threads and one HTTP request; f32 then bf16. Checks: responses
              match direct Predictor calls, f32 logits match the same weights
              on the plain path (unsorted scatter, unfused gate and blocks),
-             and every kernel was launched while the engine served.
+             and every kernel was launched while the engine served. Then
+             two f32 runs of 16 frames with the other scatter kernels: the
+             unsorted scatter (scatter_impl="pallas", K6; no host sort) and
+             the flat sorted forward (`_FWD_FLAT`, K4), each without K1.
   4. train   the KD step of bench.py (weighted/128 student, 2x teacher,
              seeded weights) through DistillationTrainer.train_step at
              B=128 on one fixed cell-sorted batch, f32 then bf16, with the
@@ -38,7 +44,10 @@ Phases:
              the same step with K8-K13's plain versions and against the
              unfused step (loss, gradients, BN running statistics), and the
              in-loop step at B=128 in f32 and bf16 (loss must fall, K8-K13
-             must launch).
+             must launch). Then scatter_impl="pallas": one B=8 f32 step on
+             the kernel path against the plain path, and the in-loop step at
+             B=128 in f32 and bf16 on points in their own order (loss must
+             fall, K6 twice per step, K1 and K5 never).
 
 Output: the card's name and power limit (nvidia-smi), then per-phase lines,
 then one `{"kernels": [...]}` JSON line, the serving and train summaries,
@@ -70,6 +79,8 @@ B, IMG, NPTS, GRID = 8, 256, 5000, 64
 TRAIN_B = 128  # bench.py's HEADLINE_BATCH
 CLIENTS = 8  # client threads: one full batch in flight
 SERVING_KERNELS = ("scatter_sorted_fwd", "fusion_gate", "ir_fused_infer")
+SCATTER_KERNELS = ("scatter_sorted_fwd", "scatter_sorted_fwd_flat", "voxelize_scatter_max")
+SKEW = 2000  # points of each skewed cloud in the centre cell
 TRAIN_KERNELS = ("scatter_sorted_fwd", "fusion_gate", "scatter_sorted_bwd", "kd_feature_mse")
 IR_TRAIN_KERNELS = ("ir_train_stats1", "ir_train_expand_dw", "ir_train_proj",
                     "ir_train_proj_bwd", "ir_train_dw_bwd", "ir_train_expand_bwd")
@@ -169,16 +180,22 @@ def make_points(rng, n=NPTS, batch=B):
     return pts
 
 
-def sorted_inputs(rng, C, dtype, dev, batch=B):
+def sorted_inputs(rng, C, dtype, dev, batch=B, skew=False):
     """Cell-sorted points, their keys on the device (checked against the
-    host sort key) and features with ties and all-negative rows."""
+    host sort key) and features with ties and all-negative rows. The
+    uniform cloud has 400 invalid points; the skewed one has its last SKEW
+    points zero-padded and valid, all in the centre cell (31, 31), as a
+    frame padded without point_valid gives them."""
     from lmsu_tpu_torch.data.rasterize import bev_cell_key
     from lmsu_tpu_torch.ops.scatter import points_to_bev_indices
     from lmsu_tpu_torch.ops.scatter_sorted import cell_keys
     rng_range = (-50.0, -50.0, -5.0, 50.0, 50.0, 3.0)
     pts = make_points(rng, batch=batch)
     pv = np.ones((batch, NPTS), bool)
-    pv[:, -400:] = False
+    if skew:
+        pts[:, -SKEW:] = 0.0
+    else:
+        pv[:, -400:] = False
     host_key = bev_cell_key(pts, (GRID, GRID), rng_range, pv)
     order = np.argsort(host_key, axis=1, kind="stable")
     pts = np.take_along_axis(pts, order[..., None], 1)
@@ -197,41 +214,102 @@ def sorted_inputs(rng, C, dtype, dev, batch=B):
     return feats, keys
 
 
+def scatter_library(feats, keys, hw):
+    """The one PyTorch call computing the scatter kernels' function,
+    scatter_reduce_ amax into a zero buffer with include_self=False, and its
+    result [B, hw, C] (timed as a yardstick, never used by the port)."""
+    Bn, _, C = feats.shape
+    idx = torch.where(keys < hw, keys.long() + torch.arange(Bn, device=feats.device)[:, None] * hw,
+                      Bn * hw).reshape(-1, 1).expand(-1, C)
+    src = feats.reshape(-1, C)
+    out = torch.zeros(Bn * hw + 1, C, dtype=feats.dtype, device=feats.device)
+
+    def library():
+        out.scatter_reduce_(0, idx, src, "amax", include_self=False)
+
+    library()
+    torch.cuda.synchronize()
+    return library, out[:-1].reshape(Bn, hw, C)
+
+
+def scatter_bound(feats, keys, hw):
+    """K1/K4/K6's bound: the rows of valid points (invalid ones are never
+    read), the keys, the output; one compare per valid element."""
+    Bn, _, C = feats.shape
+    n_valid = int((keys < hw).sum().item())
+    es = feats.element_size()
+    return bound_ms(n_valid * C * es + keys.numel() * 4 + Bn * hw * C * es, n_valid * C,
+                    feats.dtype)
+
+
 def kernel_scatter(rng, dev, dtype, C, B=B):
     from lmsu_tpu_torch.ops import scatter_sorted as ss
     hw = GRID * GRID
     feats, keys = sorted_inputs(rng, C, dtype, dev, B)
     got = ss.segment_max(feats, keys, hw)
     want = ss.segment_max_plain(feats, keys, hw)
-    # The one PyTorch call computing the same function (timed, never used).
-    idx = torch.where(keys < hw, keys.long() + torch.arange(B, device=dev)[:, None] * hw,
-                      B * hw).reshape(-1, 1).expand(-1, C)
-    src = feats.reshape(-1, C)
-    lib_out = torch.zeros(B * hw + 1, C, dtype=dtype, device=dev)
-
-    def library():
-        lib_out.scatter_reduce_(0, idx, src, "amax", include_self=False)
-
-    library()
-    torch.cuda.synchronize()
-    lib = lib_out[:-1].reshape(B, hw, C)
+    library, lib = scatter_library(feats, keys, hw)
     if not (torch.equal(got, want) and torch.equal(got, lib)):
         raise AssertionError(f"scatter_sorted_fwd C={C} {dtype}: not bit-exact "
                              f"({(got.float() - want.float()).abs().max().item():g})")
     k_np = keys.cpu().numpy()
     n_empty = B * hw - sum(len(np.unique(r[r < hw])) for r in k_np)
-    # The work this data needs: the rows of valid points (invalid ones sort
-    # past every cell's span and are never read), the keys, the output.
-    n_valid = int((k_np < hw).sum())
-    es = feats.element_size()
-    nbytes = n_valid * C * es + keys.numel() * 4 + B * hw * C * es
-    bound, by = bound_ms(nbytes, n_valid * C, dtype)
+    bound, by = scatter_bound(feats, keys, hw)
     return {"ms": time_ms(lambda: ss.segment_max(feats, keys, hw)),
             "eager_ms": eager_ms(lambda: ss.segment_max(feats, keys, hw)),
             "plain_ms": time_ms(lambda: ss.segment_max_plain(feats, keys, hw), reps=20, inner=2),
             "library_ms": time_ms(library), "bound_ms": bound, "bound_by": by,
             "max_abs_err": 0.0, "shape": f"feats [{B},{NPTS},{C}], out [{B},{GRID},{GRID},{C}]",
             "empty_cells": int(n_empty)}
+
+
+def kernel_unsorted(rng, dev, dtype, C, B=B, skew=False):
+    """K6 on points in no order (one permutation of the sorted cloud)
+    against its plain version and scatter_reduce_, bit for bit."""
+    from lmsu_tpu_torch.ops import voxelize as vx
+    hw = GRID * GRID
+    feats, keys = sorted_inputs(rng, C, dtype, dev, B, skew)
+    perm = torch.from_numpy(rng.permutation(NPTS)).to(dev)
+    feats, keys = feats[:, perm].contiguous(), keys[:, perm].contiguous()
+    got = vx.scatter_max(feats, keys, hw)
+    want = vx.scatter_max_plain(feats, keys, hw)
+    library, lib = scatter_library(feats, keys, hw)
+    if not (torch.equal(got, want) and torch.equal(got, lib)):
+        raise AssertionError(f"voxelize_scatter_max C={C} B={B} skew={skew} {dtype}: not "
+                             f"bit-exact ({(got.float() - want.float()).abs().max().item():g})")
+    bound, by = scatter_bound(feats, keys, hw)
+    run = lambda: vx.scatter_max(feats, keys, hw)  # noqa: E731
+    return {"ms": time_ms(run), "eager_ms": eager_ms(run),
+            "plain_ms": time_ms(lambda: vx.scatter_max_plain(feats, keys, hw), reps=10, inner=2),
+            "library_ms": time_ms(library), "library": "scatter_reduce_ amax",
+            "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
+            "shape": f"feats [{B},{NPTS},{C}] unsorted, out [{B},{GRID},{GRID},{C}]"
+                     + (f", {SKEW} points in one cell" if skew else "")}
+
+
+def kernel_flat(rng, dev, dtype, C, B=B, skew=False):
+    """K4 against its plain version, K1 and scatter_reduce_, bit for bit,
+    on cell-sorted points; K1 timed beside it."""
+    from lmsu_tpu_torch.ops import scatter_sorted as ss
+    hw = GRID * GRID
+    feats, keys = sorted_inputs(rng, C, dtype, dev, B, skew)
+    got = ss.segment_max_flat(feats, keys, hw)
+    want = ss.segment_max_flat_plain(feats, keys, hw)
+    k1 = ss.segment_max(feats, keys, hw)
+    library, lib = scatter_library(feats, keys, hw)
+    if not (torch.equal(got, want) and torch.equal(got, k1) and torch.equal(got, lib)):
+        raise AssertionError(f"scatter_sorted_fwd_flat C={C} B={B} skew={skew} {dtype}: not "
+                             f"bit-exact ({(got.float() - want.float()).abs().max().item():g})")
+    bound, by = scatter_bound(feats, keys, hw)
+    run = lambda: ss.segment_max_flat(feats, keys, hw)  # noqa: E731
+    return {"ms": time_ms(run), "eager_ms": eager_ms(run),
+            "plain_ms": time_ms(lambda: ss.segment_max_flat_plain(feats, keys, hw),
+                                reps=5, inner=1),
+            "library_ms": time_ms(library), "library": "scatter_reduce_ amax",
+            "k1_ms": time_ms(lambda: ss.segment_max(feats, keys, hw)),
+            "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
+            "shape": f"feats [{B},{NPTS},{C}] cell-sorted, out [{B},{GRID},{GRID},{C}]"
+                     + (f", {SKEW} points in one cell" if skew else "")}
 
 
 def kernel_scatter_bwd(rng, dev, dtype, C=128, B=B):
@@ -577,12 +655,16 @@ def kernel_ir_train(rng, dev, dtype, B=TRAIN_B):
 
 
 def phase_kernels(dev):
-    """Each kernel at the shapes of its main paths: serving at B=8 (K1, K2
-    at the student's C=128) and the KD step at B=128 (K1 and K2 at C=128
-    for the student and C=256 for the 2x teacher, K5 and K7, and K8-K13 at
-    the student's five stages); K5 and K7 at B=8 too. Keys: (kernel, dtype,
-    C, batch)."""
+    """Each kernel at the shapes of its main paths: serving at B=8 (K1, K2,
+    K4, K6 at the student's C=128) and the KD step at B=128 (K1, K2, K4, K6
+    at C=128 for the student and C=256 for the 2x teacher, K5 and K7, and
+    K8-K13 at the student's five stages); K5 and K7 at B=8 too; K4 and K6
+    (with K1 beside K4) also on the skewed cloud ("<kind>_skew"). Keys:
+    (kernel, dtype, C, batch)."""
     rng = np.random.default_rng(0)
+    # K4 and K6 draw from a stream of their own, so that the other kernels'
+    # inputs stay those of the runs before them.
+    rng_k4_k6 = np.random.default_rng(4)
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
@@ -591,9 +673,14 @@ def phase_kernels(dev):
         runs += [("kd_mse", 256, b, kernel_kd_mse) for b in (B, TRAIN_B)]
         runs += [("gate", 128, B, kernel_gate), ("gate", 128, TRAIN_B, kernel_gate),
                  ("gate", 256, TRAIN_B, kernel_gate)]
+        for kind, fn in (("voxelize", kernel_unsorted), ("scatter_flat", kernel_flat)):
+            runs += [(kind + tag, C, b, fn) for tag in ("", "_skew")
+                     for b, C in ((B, 128), (TRAIN_B, 128), (TRAIN_B, 256))]
         for kind, C, b, fn in runs:
             kw = {"B": b} if kind == "kd_mse" else {"C": C, "B": b}
-            r = fn(rng, dev, dtype, **kw)
+            if kind.endswith("_skew"):
+                kw["skew"] = True
+            r = fn(rng_k4_k6 if fn in (kernel_unsorted, kernel_flat) else rng, dev, dtype, **kw)
             res[(kind, name, C, b)] = r
             log(f"[kernels] {kind} {name} C={C} B={b}: {json.dumps(r)}")
             del r
@@ -613,13 +700,13 @@ def phase_kernels(dev):
 # -- serving phase -----------------------------------------------------------
 
 
-def serving_config(dtype, kernels=True):
+def serving_config(dtype, kernels=True, scatter="sorted_pallas"):
     from lmsu_tpu_torch.config import CameraEncoderConfig, LidarEncoderConfig, ModelConfig
     return ModelConfig(
         num_classes=2, fusion_type="weighted", fusion_out_channels=128,
         use_pallas_fusion=kernels,
         camera=CameraEncoderConfig(fused_inference=kernels),
-        lidar=LidarEncoderConfig(scatter_impl="sorted_pallas" if kernels else "xla"),
+        lidar=LidarEncoderConfig(scatter_impl=scatter if kernels else "xla"),
         compute_dtype=dtype)
 
 
@@ -676,12 +763,33 @@ def profile_forward(pred, frames, prepped, reps: int = 5):
             "top": [{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:12]]}
 
 
-def phase_serving(dev, dtype, state_dict=None):
+@contextlib.contextmanager
+def fwd_flat(on: bool = True):
+    """While on, the sorted scatter's forward is the flat chunk-table kernel
+    K4 (the JAX package's _FWD_FLAT switch) instead of K1."""
+    from lmsu_tpu_torch.ops import scatter_sorted as ss
+    before = ss._FWD_FLAT
+    ss._FWD_FLAT = on
+    try:
+        yield
+    finally:
+        ss._FWD_FLAT = before
+
+
+def phase_serving(dev, dtype, state_dict=None, scatter="sorted_pallas", n_frames=32):
+    """With scatter="sorted_pallas" K1 (K4 under fwd_flat) serves the
+    scatter, with "pallas" K6; of the three scatter kernels only that one
+    may launch, and with "pallas" no host sort runs."""
     from lmsu_tpu_torch.inference import Predictor
+    from lmsu_tpu_torch.ops import scatter_sorted as ss
     from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
     from lmsu_tpu_torch.serving import ServingEngine, make_server
     name = "f32" if dtype == torch.float32 else "bf16"
-    pred = Predictor(serving_config(dtype), state_dict, device=dev, seed=0)
+    scatter_kernel = ("voxelize_scatter_max" if scatter == "pallas" else
+                      "scatter_sorted_fwd_flat" if ss._FWD_FLAT else "scatter_sorted_fwd")
+    if scatter_kernel != "scatter_sorted_fwd":
+        name = f"{name} {scatter_kernel}"
+    pred = Predictor(serving_config(dtype, scatter=scatter), state_dict, device=dev, seed=0)
     if state_dict is None:
         randomize_bn(pred.model, 1)
     engine = ServingEngine.from_predictor(pred, batch_size=B, image_size=(IMG, IMG),
@@ -692,7 +800,7 @@ def phase_serving(dev, dtype, state_dict=None):
         engine.warmup()
         log(f"[serving {name}] warmup {time.perf_counter() - t0:.2f} s")
         rng = np.random.default_rng(7)
-        frames = make_frames(rng, 32)
+        frames = make_frames(rng, n_frames)
         results = [None] * len(frames)
 
         def client(k):  # closed loop: submit one frame, wait for it, repeat
@@ -718,8 +826,12 @@ def phase_serving(dev, dtype, state_dict=None):
         with urllib.request.urlopen(req, timeout=120) as r:
             http_logits = np.load(io.BytesIO(r.read()))["logits"]
         launches = {k: v.launches for k, v in kernels().items()}
-        if any(launches[k] <= 0 for k in SERVING_KERNELS):
-            raise AssertionError(f"a kernel was not launched while serving: {launches}")
+        need = ("fusion_gate", "ir_fused_infer", scatter_kernel)
+        if (any(launches[k] <= 0 for k in need)
+                or any(launches[k] for k in SCATTER_KERNELS if k != scatter_kernel)):
+            raise AssertionError(f"{name}: launches while serving: {launches}")
+        if scatter == "pallas" and (pred._sorter is not None or engine._sorter is not None):
+            raise AssertionError("the pallas scatter takes points unsorted; a sorter is set")
 
         # (a) every response equals the Predictor called directly on the
         # same preprocessed frames, batched by 8.
@@ -774,18 +886,19 @@ def phase_serving(dev, dtype, state_dict=None):
 # -- train phase -------------------------------------------------------------
 
 
-def train_config(dtype, kernels=True, batch=TRAIN_B, save_dir=None, fused_train=False):
+def train_config(dtype, kernels=True, batch=TRAIN_B, save_dir=None, fused_train=False,
+                 scatter="sorted_pallas"):
     """The KD student step of bench.py: the weighted/128 student, the 2x
     teacher, AdamW lr 1e-3 (constant: eta_min = lr) and wd 1e-3, class
-    weights (0.4, 3.5), the three default taps; kernels on or off; the
-    student's InvertedResidual stages fused in training (K8-K13) or not."""
+    weights (0.4, 3.5), the three default taps; kernels on (with the
+    scatter `scatter`) or off; the student's InvertedResidual stages fused
+    in training (K8-K13) or not."""
     from lmsu_tpu_torch.config import (CameraEncoderConfig, DataConfig, ExperimentConfig,
                                        KDConfig, LidarEncoderConfig, ModelConfig, TrainConfig)
     model = ModelConfig(num_classes=2, fusion_type="weighted", fusion_out_channels=128,
                         use_pallas_fusion=kernels,
                         camera=CameraEncoderConfig(fused_train=fused_train),
-                        lidar=LidarEncoderConfig(scatter_impl="sorted_pallas" if kernels
-                                                 else "xla"),
+                        lidar=LidarEncoderConfig(scatter_impl=scatter if kernels else "xla"),
                         compute_dtype=dtype)
     train = TrainConfig(lr=1e-3, eta_min=1e-3, weight_decay=1e-3, class_weights=(0.4, 3.5),
                         kd=KDConfig(enabled=True, use_pallas=kernels),
@@ -793,14 +906,16 @@ def train_config(dtype, kernels=True, batch=TRAIN_B, save_dir=None, fused_train=
     return ExperimentConfig(model=model, data=DataConfig(batch_size=batch), train=train)
 
 
-def train_batch(rng, batch, dev):
+def train_batch(rng, batch, dev, sort=True):
     """bench.py's fixed batch: uniform images, N(0, 30) points with z in
-    [-5, 3], random labels; the points sorted by BEV cell on the host."""
+    [-5, 3], random labels; the points sorted by BEV cell on the host
+    unless `sort` is off (the loaders sort for sorted_pallas only)."""
     from lmsu_tpu_torch.data.rasterize import bev_cell_key
     pts = rng.normal(0, 30, (batch, NPTS, 4)).astype(np.float32)
     pts[..., 2] = rng.uniform(-5, 3, (batch, NPTS))
-    key = bev_cell_key(pts, (GRID, GRID), (-50.0, -50.0, -5.0, 50.0, 50.0, 3.0))
-    pts = np.take_along_axis(pts, np.argsort(key, axis=-1, kind="stable")[..., None], 1)
+    if sort:
+        key = bev_cell_key(pts, (GRID, GRID), (-50.0, -50.0, -5.0, 50.0, 50.0, 3.0))
+        pts = np.take_along_axis(pts, np.argsort(key, axis=-1, kind="stable")[..., None], 1)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     return {"image": t(rng.uniform(0, 1, (batch, IMG, IMG, 3)).astype(np.float32)),
             "points": t(pts), "segmentation": t(rng.integers(0, 2, (batch, GRID, GRID)))}
@@ -964,9 +1079,10 @@ def hold_step(what, got, want, noise=None) -> dict:
     return out
 
 
-def check_kernel_vs_plain_step(dev):
+def check_kernel_vs_plain_step(dev, scatter="sorted_pallas"):
     """One f32 KD step at B=8, TF32 off: the kernel path (sorted scatter
-    K1+K5, fused gate K2, fused feature MSE K7) against the plain path
+    K1+K5, or with scatter="pallas" the unsorted scatter K6 with the dense
+    backward; fused gate K2, fused feature MSE K7) against the plain path
     (unsorted scatter_reduce with autograd, unfused softmax gate,
     kd_total_loss) from the same weights and the same cell-sorted batch,
     held to hold_step's fixed limits. The two differ in f32 rounding only.
@@ -975,11 +1091,13 @@ def check_kernel_vs_plain_step(dev):
     BatchNorm-centred gradients, so its rounding moves with any change of
     summation order, and the two scatters order the points differently. The
     G term is for the biases that a train-mode BatchNorm follows: their true
-    gradient is 0 and both paths give rounding noise."""
+    gradient is 0 and both paths give rounding noise. Both scatters get the
+    same cell-sorted batch (the pallas one takes any order), so the two
+    checks differ by the scatter alone."""
     rng = np.random.default_rng(11)
     batch = train_batch(rng, B, dev)
-    return hold_step("KD step, kernel path vs plain path",
-                     kd_step(dev, batch, train_config(torch.float32, True, B)),
+    return hold_step(f"KD step, kernel path ({scatter}) vs plain path",
+                     kd_step(dev, batch, train_config(torch.float32, True, B, scatter=scatter)),
                      kd_step(dev, batch, train_config(torch.float32, False, B)))
 
 
@@ -1045,7 +1163,8 @@ def profile_steps(step, reps: int = 2):
     if device_ms <= 0:
         raise AssertionError("the profiler saw no device time")
     ours = {n: sum(r[1] for r in rows if n in r[0])
-            for n in ("scatter_sorted_fwd", "scatter_sorted_bwd", "fusion_gate",
+            for n in ("scatter_sorted_fwd_kernel", "scatter_sorted_fwd_flat_kernel",
+                      "voxelize_scatter_max_kernel", "scatter_sorted_bwd", "fusion_gate",
                       "kd_mse_tiles", "kd_mse_reduce", "stats1_kernel", "expand_dw_kernel",
                       "proj_kernel", "dv2_kernel", "dw2_kernel", "dw_bwd_kernel",
                       "expand_bwd_kernel", "colsum_kernel")}
@@ -1055,20 +1174,23 @@ def profile_steps(step, reps: int = 2):
 
 
 def phase_train(dev, dtype, warmup: int = 3, steps: int = 10, variants=("in_loop", "cached"),
-                fused_train=False):
+                fused_train=False, scatter="sorted_pallas"):
     """The KD step at B=128 through DistillationTrainer.train_step on one
     fixed batch: in-loop teacher, then cached teacher (its outputs computed
     once for the batch, bench.py:233-244); with fused_train, the student's
-    InvertedResidual stages run K8-K13. Launches of each kernel per step
+    InvertedResidual stages run K8-K13; with scatter="pallas" the scatter
+    is K6 on points in their own order. Launches of each kernel per step
     are counted over the timed steps; the loss must fall over them."""
     from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
     from lmsu_tpu_torch.training import DistillationTrainer
     name = "f32" if dtype == torch.float32 else "bf16"
+    tag = " ".join([name] + (["fused_train"] if fused_train else [])
+                   + ([scatter] if scatter != "sorted_pallas" else []))
     rng = np.random.default_rng(5)
-    batch = train_batch(rng, TRAIN_B, dev)
+    batch = train_batch(rng, TRAIN_B, dev, sort=scatter == "sorted_pallas")
     torch.cuda.reset_peak_memory_stats(dev)
-    tr = DistillationTrainer(train_config(dtype, fused_train=fused_train), [batch], [batch],
-                             device=dev)
+    tr = DistillationTrainer(train_config(dtype, fused_train=fused_train, scatter=scatter),
+                             [batch], [batch], device=dev)
     out = {}
     for variant in variants:
         t_out = tr.teacher_forward(batch) if variant == "cached" else None
@@ -1091,7 +1213,6 @@ def phase_train(dev, dtype, warmup: int = 3, steps: int = 10, variants=("in_loop
                         "losses": losses, "launches": launches,
                         "launches_per_step": {k: n / steps for k, n in launches.items()},
                         "profile": profile_steps(step)}
-        tag = f"{name} fused_train" if fused_train else name
         log(f"[train {tag}] {variant}: {json.dumps(out[variant])}")
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     out["loss_parts"] = tr.last_loss_parts
@@ -1159,6 +1280,9 @@ def main(argv=None) -> int:
     if "serving" in phases:
         sres["f32"], sd = phase_serving(dev, torch.float32)
         sres["bf16"], _ = phase_serving(dev, torch.bfloat16, sd)
+        sres["pallas_f32"], _ = phase_serving(dev, torch.float32, sd, "pallas", 16)
+        with fwd_flat():
+            sres["flat_f32"], _ = phase_serving(dev, torch.float32, sd, n_frames=16)
     if "train" in phases:
         t0 = time.perf_counter()
         tres["check"] = check_kernel_vs_plain_step(dev)
@@ -1181,17 +1305,36 @@ def main(argv=None) -> int:
                 n = tres[run][variant]["launches"]
                 if any(n[k] <= 0 for k in need):
                     raise AssertionError(f"train {run} {variant}: a kernel was not launched: {n}")
+        tres["pallas_check"] = check_kernel_vs_plain_step(dev, scatter="pallas")
+        log(f"[train] kernel path (pallas scatter) == plain path: "
+            f"{json.dumps(tres['pallas_check'])}")
+        for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            run = tres[f"pallas_{dt}"] = phase_train(dev, dtype, variants=("in_loop",),
+                                                     scatter="pallas")
+            per_step = run["in_loop"]["launches_per_step"]
+            # K6 in the student's and the teacher's encoder; never K1 or K5.
+            if (per_step["voxelize_scatter_max"] != 2
+                    or any(per_step[k] <= 0 for k in ("fusion_gate", "kd_feature_mse"))
+                    or any(per_step[k] for k in ("scatter_sorted_fwd", "scatter_sorted_fwd_flat",
+                                                 "scatter_sorted_bwd"))):
+                raise AssertionError(f"train pallas {dt}: launches per step {per_step}")
         log(f"[train] phase {time.perf_counter() - t0:.1f} s")
 
     # Each kernel's launches are counted on its slice's main path, f32: the
     # serving run for K1-K3, the 10 timed in-loop KD steps for K5, K7, the 10
-    # timed in-loop KD steps with fused_train for K8-K13. The times in an
-    # entry are at that path's shape (kind, C, batch; K8-K13 summed over the
-    # five stages at B=128, per stage under "stages"); the other shapes the
-    # kernel was checked at follow under "other_shapes".
+    # timed in-loop KD steps with fused_train for K8-K13, the serving runs
+    # with the pallas scatter (K6, with its KD run beside) and with
+    # _FWD_FLAT (K4). The times in an entry are at that path's shape (kind,
+    # C, batch; K8-K13 summed over the five stages at B=128, per stage under
+    # "stages"); the other shapes the kernel was checked at follow under
+    # "other_shapes", the skewed cloud under "skewed" (K1's from K4's runs).
     meta = {
         "scatter_sorted_fwd": ("lmsu_tpu/ops/scatter_sorted_pallas.py:163",
                                ("scatter", 128, B), "serving"),
+        "scatter_sorted_fwd_flat": ("lmsu_tpu/ops/scatter_sorted_pallas.py:211",
+                                    ("scatter_flat", 128, B), "serving_flat"),
+        "voxelize_scatter_max": ("lmsu_tpu/ops/voxelize_pallas.py:54", ("voxelize", 128, B),
+                                 "serving_pallas"),
         "fusion_gate": ("lmsu_tpu/ops/fusion_pallas.py:41", ("gate", 128, B), "serving"),
         "ir_fused_infer": ("lmsu_tpu/ops/ir_fused.py:223", ("ir", 0, B), "serving"),
         "scatter_sorted_bwd": ("lmsu_tpu/ops/scatter_sorted_pallas.py:263",
@@ -1202,13 +1345,17 @@ def main(argv=None) -> int:
     for name, line in zip(IR_TRAIN_KERNELS, (362, 384, 414, 424, 462, 517)):
         meta[name] = (f"lmsu_tpu/ops/ir_fused.py:{line}", (name, 0, TRAIN_B), "fused_train")
     counted_on = {"serving": "f32 serving run",
+                  "serving_flat": "f32 serving run with _FWD_FLAT",
+                  "serving_pallas": "f32 serving run with scatter_impl=pallas",
                   "train": "f32 in-loop KD run at B=128, 10 timed steps",
                   "fused_train": "f32 in-loop KD run with fused_train at B=128, 10 timed steps"}
 
     def launches(path, dt, name):
-        if path == "serving":
-            return sres.get(dt, {}).get("launches", {}).get(name, 0)
-        run = dt if path == "train" else f"fused_{dt}"
+        if path.startswith("serving"):
+            run = {"serving": dt, "serving_flat": f"flat_{dt}",
+                   "serving_pallas": f"pallas_{dt}"}[path]
+            return sres.get(run, {}).get("launches", {}).get(name, 0)
+        run = {"train": dt, "fused_train": f"fused_{dt}", "train_pallas": f"pallas_{dt}"}[path]
         return tres.get(run, {}).get("in_loop", {}).get("launches", {}).get(name, 0)
 
     lines = []
@@ -1216,12 +1363,16 @@ def main(argv=None) -> int:
         entry = {"name": name, "route": "cuda", "source": f"lmsu_tpu_torch/csrc/{name}.cu",
                  "replaces": replaces, "launches": launches(path, "f32", name),
                  "launches_counted_on": counted_on[path]}
-        if tres and path == "serving":
-            entry["train_launches"] = launches("train", "f32", name)
+        if tres and path in ("serving", "serving_pallas"):
+            train = "train_pallas" if path == "serving_pallas" else "train"
+            entry["train_launches"] = launches(train, "f32", name)
+            entry["train_launches_bf16"] = launches(train, "bf16", name)
         if kres:
             f32 = kres[(op, "f32", C, b)]
             bf16 = dict(kres[(op, "bf16", C, b)])
-            bf16["launches"] = launches(path, "bf16", name)
+            # The K4 and K6 serving runs are f32 only.
+            bf16["launches"] = None if path.startswith("serving_") else launches(path, "bf16",
+                                                                                 name)
             entry.update({k: f32.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "eager_ms",
                                                   "shape")})
@@ -1237,6 +1388,13 @@ def main(argv=None) -> int:
                 {"C": k[2], "B": k[3], "f32": v, "bf16": kres[(k[0], "bf16") + k[2:]]}
                 for k, v in kres.items()
                 if k[0] == op and k[1] == "f32" and k[2:] != (C, b)]
+            if op in ("scatter", "scatter_flat", "voxelize"):
+                skew = "scatter_flat_skew" if op == "scatter" else op + "_skew"
+                pick = ((lambda r: {"ms": r["k1_ms"], "shape": r["shape"]}) if op == "scatter"
+                        else dict)
+                entry["skewed"] = [{"C": k[2], "B": k[3], "f32": pick(v),
+                                    "bf16": pick(kres[(k[0], "bf16") + k[2:]])}
+                                   for k, v in kres.items() if k[0] == skew and k[1] == "f32"]
             entry["dtype"] = "float32"
             entry["bf16"] = bf16
         lines.append(entry)
@@ -1248,8 +1406,9 @@ def main(argv=None) -> int:
         summary = {dt: {v: {k: tres[dt][v][k] for k in ("step_ms", "frames_per_s")}
                         for v in ("in_loop", "cached")} for dt in ("f32", "bf16")}
         for dt in ("f32", "bf16"):
-            summary[f"fused_train_{dt}"] = {"in_loop": {
-                k: tres[f"fused_{dt}"]["in_loop"][k] for k in ("step_ms", "frames_per_s")}}
+            for run, key in (("fused", "fused_train"), ("pallas", "pallas_scatter")):
+                summary[f"{key}_{dt}"] = {"in_loop": {
+                    k: tres[f"{run}_{dt}"]["in_loop"][k] for k in ("step_ms", "frames_per_s")}}
         print(json.dumps({"train": summary, "batch": TRAIN_B, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -67,15 +67,23 @@ class LidarEncoderConfig:
     point_cloud_range: Tuple[float, float, float, float, float, float] = (
         -50.0, -50.0, -5.0, 50.0, 50.0, 3.0)
     mlp_dims: Tuple[int, ...] = (64, 128)
-    # BEV scatter-max algorithm: "xla" (the plain unsorted scatter,
-    # ops/scatter.py) or "sorted_pallas" (the sorted-input segment-max
-    # kernel, ops/scatter_sorted.py; REQUIRES points pre-sorted by BEV cell,
-    # which the Predictor and the serving engine do on the host through
-    # data/rasterize.py::make_point_sorter). The name is the JAX package's,
-    # so one configuration selects the same path in both packages.
+    # BEV scatter-max algorithm, the JAX package's five names, so one
+    # configuration selects the same path in both packages:
+    #   "xla"           plain scatter_reduce, autograd's backward (ops/scatter.py);
+    #   "xla_fastbwd"   the same forward, the dense tie-splitting backward;
+    #   "sorted"        sort + segmented prefix max + lookup, points in any
+    #                   order, dense backward (plain PyTorch, ops/scatter.py);
+    #   "pallas"        the unsorted scatter-max kernel, dense backward
+    #                   (ops/voxelize.py);
+    #   "sorted_pallas" the sorted-input segment-max kernels
+    #                   (ops/scatter_sorted.py); REQUIRES points pre-sorted by
+    #                   BEV cell, which the Predictor, the serving engine and
+    #                   the training loaders do on the host
+    #                   (data/rasterize.py::make_point_sorter) for this value
+    #                   only.
     scatter_impl: str = "xla"
-    # Deprecated alias of scatter_impl="pallas" in the JAX package; that
-    # kernel is not ported yet.
+    # Deprecated alias: True selects scatter_impl="pallas", whatever
+    # scatter_impl says (as in the JAX package).
     use_pallas: bool = False
     width_mult: float = 1.0
 

@@ -27,10 +27,8 @@ def _check_supported(config: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{field}={getattr(config, field)!r} is not ported yet "
                 f"(supported: {allowed})")
-    if config.camera.remat or config.lidar.use_pallas:
-        raise NotImplementedError(
-            "remat and use_pallas are training/scatter options that are not "
-            "ported yet")
+    if config.camera.remat:
+        raise NotImplementedError("remat is a training option that is not ported yet")
     if config.compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                          f"{config.compute_dtype}")

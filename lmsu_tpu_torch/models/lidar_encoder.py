@@ -20,19 +20,30 @@ import torch.nn as nn
 
 from lmsu_tpu_torch.config import LidarEncoderConfig
 from lmsu_tpu_torch.models.layers import BatchNorm1d, apply_seq
-from lmsu_tpu_torch.ops.scatter import bev_scatter_max, points_to_bev_indices
-from lmsu_tpu_torch.ops.scatter_sorted import bev_scatter_max_sorted
+from lmsu_tpu_torch.ops.scatter import (bev_scatter_max, bev_scatter_max_fastbwd,
+                                        bev_scatter_max_sorted, points_to_bev_indices)
+from lmsu_tpu_torch.ops.scatter_sorted import bev_scatter_max_sorted_pallas
+from lmsu_tpu_torch.ops.voxelize import bev_scatter_max_pallas
 
 
 def _scatter(cfg: LidarEncoderConfig, feats, flat_idx, valid):
-    """Route to the configured scatter-max algorithm (equivalent outputs)."""
-    if cfg.scatter_impl == "sorted_pallas":
+    """Route to the configured scatter-max algorithm (equivalent outputs),
+    in the JAX package's order (lmsu_tpu/models/lidar_encoder.py:37-57);
+    the deprecated `use_pallas` selects "pallas"."""
+    impl = "pallas" if cfg.use_pallas else cfg.scatter_impl
+    if impl == "pallas":
+        return bev_scatter_max_pallas(feats, flat_idx, valid, cfg.grid_size)
+    if impl == "sorted":
+        return bev_scatter_max_sorted(feats, flat_idx, valid, cfg.grid_size)
+    if impl == "sorted_pallas":
         # Requires points pre-sorted by BEV cell (data/rasterize.py or
         # ops/scatter_sorted.py::sort_points_by_bev_cell).
-        return bev_scatter_max_sorted(feats, flat_idx, valid, cfg.grid_size)
-    if cfg.scatter_impl == "xla":
+        return bev_scatter_max_sorted_pallas(feats, flat_idx, valid, cfg.grid_size)
+    if impl == "xla_fastbwd":
+        return bev_scatter_max_fastbwd(feats, flat_idx, valid, cfg.grid_size)
+    if impl == "xla":
         return bev_scatter_max(feats, flat_idx, valid, cfg.grid_size)
-    raise ValueError(f"scatter_impl {cfg.scatter_impl!r} is not ported")
+    raise ValueError(f"Unknown scatter_impl: {cfg.scatter_impl}")
 
 
 class SpatialLiDAREncoder(nn.Module):

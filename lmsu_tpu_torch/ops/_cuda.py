@@ -124,7 +124,8 @@ class CudaKernel:
 
 def kernels() -> Dict[str, CudaKernel]:
     """Every kernel registered by the port's op modules."""
-    from lmsu_tpu_torch.ops import fusion_gate, ir_fused, kd_loss, scatter_sorted  # noqa: F401
+    from lmsu_tpu_torch.ops import (fusion_gate, ir_fused, kd_loss,  # noqa: F401
+                                    scatter_sorted, voxelize)
     return dict(_registry)
 
 

@@ -9,15 +9,19 @@ scripts/common.py) for the PyTorch port. Two phases:
 Usage:
   python -m lmsu_tpu_torch.train_distill [--device cuda] [--epochs 20] \\
       [--batch-size 4] [--num-train 800 --num-val 200] [--difficulty easy] \\
-      [--scatter-impl sorted_pallas] [--use-pallas-fusion] [--use-pallas-kd] \\
+      [--scatter-impl {xla,xla_fastbwd,sorted,pallas,sorted_pallas}] \\
+      [--use-pallas-fusion] [--use-pallas-kd] \\
       [--bf16] [--teacher-checkpoint teacher.pth | --train-teacher] \\
       [--save-dir checkpoints/distill_student] [--resume]
 
-The data is the synthetic dataset. With --scatter-impl sorted_pallas the
-loaders sort each sample's points by BEV cell (the sorted kernels' input
-contract). --use-pallas-fusion and --use-pallas-kd turn on the fusion-gate
-and feature-MSE kernels (the JAX package's names). Checkpoints are torch
-files (latest.pth, best.pth) in --save-dir beside training_history.json.
+The data is the synthetic dataset. --scatter-impl takes the JAX package's
+five scatter-max algorithms (xla, xla_fastbwd, sorted, pallas,
+sorted_pallas); with sorted_pallas the loaders sort each sample's points by
+BEV cell (the sorted kernels' input contract), with the others the points
+stay in their order. --use-pallas-fusion and --use-pallas-kd turn on the
+fusion-gate and feature-MSE kernels (the JAX package's names). Checkpoints
+are torch files (latest.pth, best.pth) in --save-dir beside
+training_history.json.
 """
 
 from __future__ import annotations
@@ -103,9 +107,15 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from <save-dir>/latest.pth if present")
     p.add_argument("--fusion-channels", type=int, default=128)
-    p.add_argument("--scatter-impl", default="xla", choices=["xla", "sorted_pallas"],
-                   help="BEV scatter-max: 'sorted_pallas' runs the sorted-scatter "
-                   "kernels and turns on the loaders' by-cell point sort")
+    p.add_argument("--scatter-impl", default="xla",
+                   choices=["xla", "xla_fastbwd", "sorted", "pallas", "sorted_pallas"],
+                   help="BEV scatter-max (LidarEncoderConfig.scatter_impl): 'xla' "
+                   "scatter_reduce with autograd's backward; 'xla_fastbwd' the same "
+                   "forward with the dense tie-splitting backward; 'sorted' sort + "
+                   "segmented prefix max, dense backward; 'pallas' the unsorted "
+                   "scatter-max kernel, dense backward; 'sorted_pallas' the "
+                   "sorted-scatter kernels, and it also turns on the loaders' "
+                   "by-cell point sort")
     p.add_argument("--use-pallas-fusion", action="store_true",
                    help="run the weighted-fusion gate through its kernel")
     p.add_argument("--use-pallas-kd", action="store_true",

@@ -94,7 +94,7 @@ def test_wrappers_refuse_non_cpu_tensors_without_fallback():
     from lmsu_tpu_torch.ops.fusion_gate import fusion_gate
     from lmsu_tpu_torch.ops.ir_fused import IRParams, fused_ir_infer
     from lmsu_tpu_torch.ops.kd_loss import fused_feature_mse, mse_partials
-    from lmsu_tpu_torch.ops.scatter_sorted import (bev_scatter_max_sorted, segment_max,
+    from lmsu_tpu_torch.ops.scatter_sorted import (bev_scatter_max_sorted_pallas, segment_max,
                                                    segment_max_bwd)
     m = dict(device="meta")
     keys = torch.empty(1, 4, dtype=torch.int32, **m)
@@ -104,8 +104,9 @@ def test_wrappers_refuse_non_cpu_tensors_without_fallback():
         segment_max_bwd(torch.empty(1, 4, 8, **m), keys, torch.empty(1, 16, 8, **m),
                         torch.empty(1, 16, 8, **m), 16)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        bev_scatter_max_sorted(torch.empty(1, 4, 8, **m), torch.empty(1, 4, dtype=torch.long, **m),
-                               torch.empty(1, 4, dtype=torch.bool, **m), (4, 4))
+        bev_scatter_max_sorted_pallas(torch.empty(1, 4, 8, **m),
+                                      torch.empty(1, 4, dtype=torch.long, **m),
+                                      torch.empty(1, 4, dtype=torch.bool, **m), (4, 4))
     s, t, proj = torch.empty(1, 16, 8, **m), torch.empty(1, 16, 12, **m), torch.empty(12, 8, **m)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         mse_partials(s, t, proj)
@@ -120,6 +121,28 @@ def test_wrappers_refuse_non_cpu_tensors_without_fallback():
                  torch.empty(8, 8, **m), e, e)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         fused_ir_infer(torch.empty(1, 4, 4, 8, **m), p, 1)
+
+
+def test_scatter_family_wrappers_refuse_non_cpu_tensors_without_fallback(monkeypatch):
+    """K6 (the unsorted scatter-max of scatter_impl="pallas") and K4 (the
+    flat sorted forward, also when segment_max takes it under _FWD_FLAT):
+    a meta tensor raises, none falls back to the plain version."""
+    from lmsu_tpu_torch.ops import scatter_sorted as ss
+    from lmsu_tpu_torch.ops.voxelize import bev_scatter_max_pallas, scatter_max
+    m = dict(device="meta")
+    feats, keys = torch.empty(1, 4, 8, **m), torch.empty(1, 4, dtype=torch.int32, **m)
+    monkeypatch.setattr(ss, "_FWD_FLAT", True)
+    calls = {
+        "scatter_max": lambda: scatter_max(feats, keys, 16),
+        "bev_scatter_max_pallas": lambda: bev_scatter_max_pallas(
+            feats, torch.empty(1, 4, dtype=torch.long, **m),
+            torch.empty(1, 4, dtype=torch.bool, **m), (4, 4)),
+        "segment_max_flat": lambda: ss.segment_max_flat(feats, keys, 16),
+        "segment_max under _FWD_FLAT": lambda: ss.segment_max(feats, keys, 16),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            call()
 
 
 def test_training_block_wrappers_refuse_non_cpu_tensors_without_fallback():
@@ -146,19 +169,19 @@ def test_training_block_wrappers_refuse_non_cpu_tensors_without_fallback():
 
 
 def test_create_model_takes_fused_train_and_refuses_the_rest():
+    """fused_train and the deprecated LidarEncoderConfig.use_pallas (the
+    "pallas" scatter, as in the JAX package) build; remat is refused."""
     from lmsu_tpu_torch.config import CameraEncoderConfig, LidarEncoderConfig, ModelConfig
     from lmsu_tpu_torch.models import create_model
     cfg = _tiny_config()
     model = create_model(cfg.replace(camera=CameraEncoderConfig(base_channels=4,
                                                                 fused_train=True)))
     assert all(getattr(model.camera_encoder, f"stage{i}").fused_train for i in range(1, 6))
-    for bad, name in ((cfg.replace(camera=CameraEncoderConfig(base_channels=4, remat=True)),
-                       "remat"),
-                      (cfg.replace(lidar=LidarEncoderConfig(feature_dim=16, mlp_dims=(8, 16),
-                                                            grid_size=(8, 8),
-                                                            use_pallas=True)), "use_pallas")):
-        with pytest.raises(NotImplementedError, match=name):
-            create_model(bad)
+    lidar = LidarEncoderConfig(feature_dim=16, mlp_dims=(8, 16), grid_size=(8, 8),
+                               use_pallas=True)
+    assert create_model(cfg.replace(lidar=lidar)).lidar_encoder.encoder.config.use_pallas
+    with pytest.raises(NotImplementedError, match="remat"):
+        create_model(cfg.replace(camera=CameraEncoderConfig(base_channels=4, remat=True)))
     assert isinstance(ModelConfig().camera.fused_train, bool)
 
 
@@ -168,10 +191,11 @@ def test_kernel_build_flags_and_sources():
     of every library's build hash."""
     from lmsu_tpu_torch.ops import _cuda
     ks = _cuda.kernels()
-    assert set(ks) == {"scatter_sorted_fwd", "scatter_sorted_bwd", "fusion_gate",
-                       "ir_fused_infer", "kd_feature_mse", "ir_train_stats1",
-                       "ir_train_expand_dw", "ir_train_proj", "ir_train_proj_bwd",
-                       "ir_train_dw_bwd", "ir_train_expand_bwd"}
+    assert set(ks) == {"scatter_sorted_fwd", "scatter_sorted_fwd_flat", "scatter_sorted_bwd",
+                       "voxelize_scatter_max", "fusion_gate", "ir_fused_infer",
+                       "kd_feature_mse", "ir_train_stats1", "ir_train_expand_dw",
+                       "ir_train_proj", "ir_train_proj_bwd", "ir_train_dw_bwd",
+                       "ir_train_expand_bwd"}
     for k in ks.values():
         assert (_cuda.CSRC / k.source).is_file()
         for sym in k.symbols:

@@ -69,8 +69,8 @@ def _student_kw():
                 camera_fpn_channels=16, use_pallas_fusion=True)
 
 
-def _lidar_kw():
-    return dict(feature_dim=32, mlp_dims=(16, 32), grid_size=GRID, scatter_impl="sorted_pallas")
+def _lidar_kw(scatter="sorted_pallas"):
+    return dict(feature_dim=32, mlp_dims=(16, 32), grid_size=GRID, scatter_impl=scatter)
 
 
 def _batch():
@@ -85,12 +85,24 @@ def _batch():
 
 
 @pytest.fixture(scope="module")
-def jax_run():
+def jax_runs():
+    """The JAX trajectory for a scatter_impl, made at first use."""
+    runs = {}
+
+    def get(scatter):
+        if scatter not in runs:
+            runs[scatter] = _jax_trajectory(scatter)
+        return runs[scatter]
+    return get
+
+
+def _jax_trajectory(scatter):
     """The JAX trajectory: initial variables and projections, the per-step
     losses, the first step's gradients, the final parameters and BN
     statistics (all numpy); under "perturbed" the same from weights moved
     by 1e-6 of themselves."""
-    scfg = JModel(camera=JCam(base_channels=8), lidar=JLidar(**_lidar_kw()), **_student_kw())
+    scfg = JModel(camera=JCam(base_channels=8), lidar=JLidar(**_lidar_kw(scatter)),
+                  **_student_kw())
     tcfg = jax_teacher_config(scfg, 2.0)
     student, teacher = jax_create_model(scfg), jax_create_model(tcfg)
     s_vars = init_model(student, jax.random.PRNGKey(0), image_size=(IMG, IMG),
@@ -149,9 +161,9 @@ def jax_run():
     return out
 
 
-def _port_config():
+def _port_config(scatter):
     model = ModelConfig(camera=CameraEncoderConfig(base_channels=8),
-                        lidar=LidarEncoderConfig(**_lidar_kw()), **_student_kw())
+                        lidar=LidarEncoderConfig(**_lidar_kw(scatter)), **_student_kw())
     train = TrainConfig(lr=LR, eta_min=LR, weight_decay=1e-3, class_weights=(0.4, 3.5),
                         kd=KDConfig(enabled=True, use_pallas=True))
     return ExperimentConfig(model=model, data=DataConfig(batch_size=B), train=train)
@@ -166,9 +178,16 @@ def _port_state(variables, proj, cfg):
     return out
 
 
-@pytest.mark.parametrize("teacher", ["in_loop", "cached"])
-def test_three_kd_steps_match_jax(jax_run, teacher, tmp_path):
-    cfg = _port_config()
+@pytest.mark.parametrize("teacher, scatter", [("in_loop", "sorted_pallas"),
+                                              ("cached", "sorted_pallas"), ("in_loop", "pallas")],
+                         ids=["in_loop", "cached", "in_loop_pallas"])
+def test_three_kd_steps_match_jax(jax_runs, teacher, scatter, tmp_path):
+    """"in_loop_pallas": scatter_impl="pallas" (the unsorted scatter-max and
+    the dense backward) in the student and the teacher, on both sides, on
+    the same batch (the pallas scatter takes its cell-sorted points as it
+    would take any order)."""
+    jax_run = jax_runs(scatter)
+    cfg = _port_config(scatter)
     cfg = cfg.replace(train=cfg.train.__class__(**{**cfg.train.__dict__,
                                                    "save_dir": str(tmp_path)}))
     images, pts, labels = _batch()

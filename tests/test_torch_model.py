@@ -36,12 +36,14 @@ def rng():
     return np.random.default_rng(3)
 
 
-def _configs(opt_ins: bool):
-    """The same small weighted-fusion model in both packages."""
+def _configs(opt_ins: bool, scatter: str = ""):
+    """The same small weighted-fusion model in both packages; the scatter is
+    `scatter`, else "sorted_pallas" with the kernel opt-ins and "xla"
+    without."""
     kw = dict(num_classes=2, fusion_type="weighted", fusion_out_channels=32,
               camera_fpn_channels=32, use_pallas_fusion=opt_ins)
     lid = dict(feature_dim=32, mlp_dims=(16, 32), grid_size=GRID,
-               scatter_impl="sorted_pallas" if opt_ins else "xla")
+               scatter_impl=scatter or ("sorted_pallas" if opt_ins else "xla"))
     jcfg = JModel(camera=JCam(base_channels=8, fused_inference=opt_ins),
                   lidar=JLidar(**lid), **kw)
     pcfg = ModelConfig(camera=CameraEncoderConfig(base_channels=8, fused_inference=opt_ins),
@@ -88,22 +90,27 @@ def test_weights_round_trip_through_both_converters(jax_variables):
         np.testing.assert_array_equal(np.asarray(flat_b[path]), a, err_msg=str(path))
 
 
-@pytest.mark.parametrize("opt_ins", [False, True], ids=["plain_path", "kernel_path"])
-def test_logits_match_jax(jax_variables, rng, opt_ins):
-    jcfg, pcfg = _configs(opt_ins)
+@pytest.mark.parametrize("opt_ins, scatter", [(False, ""), (True, ""), (True, "pallas")],
+                         ids=["plain_path", "kernel_path", "pallas"])
+def test_logits_match_jax(jax_variables, rng, opt_ins, scatter):
+    """With the "pallas" scatter the points stay in their order: neither
+    package's Predictor sorts for it."""
+    jcfg, pcfg = _configs(opt_ins, scatter)
     images = rng.integers(0, 256, (2, IMG, IMG, 3)).astype(np.uint8)
     pts = rng.normal(0, 30, (2, NPTS, 4)).astype(np.float32)
     pv = rng.uniform(size=(2, NPTS)) > 0.2
-    # Sorted once on the host for both sides (the sorted kernels' contract).
-    sorter = make_point_sorter(GRID, jcfg.lidar.point_cloud_range)
-    rows = [sorter({"points": pts[i], "point_valid": pv[i]}) for i in range(2)]
-    pts = np.stack([r["points"] for r in rows])
-    pv = np.stack([r["point_valid"] for r in rows])
+    if scatter != "pallas":
+        # Sorted once on the host for both sides (the sorted kernels' contract).
+        sorter = make_point_sorter(GRID, jcfg.lidar.point_cloud_range)
+        rows = [sorter({"points": pts[i], "point_valid": pv[i]}) for i in range(2)]
+        pts = np.stack([r["points"] for r in rows])
+        pv = np.stack([r["point_valid"] for r in rows])
     with jax.default_matmul_precision("highest"):
         want = np.asarray(jax_create_model(jcfg).apply(
             jax_variables, jnp.asarray(images), jnp.asarray(pts), train=False,
             point_valid=jnp.asarray(pv)))
     pred = Predictor(pcfg, from_jax_variables(jax_variables, pcfg), device="cpu")
+    assert (pred._sorter is not None) == (pcfg.lidar.scatter_impl == "sorted_pallas")
     got = pred(images, pts, pv)
     assert got.shape == (2, *GRID, 2) and got.dtype == torch.float32
     got = got.numpy()

@@ -19,7 +19,7 @@ from lmsu_tpu.ops.scatter_sorted_pallas import (
     sort_points_by_bev_cell as jax_sort_points)
 from lmsu_tpu_torch.data.rasterize import bev_cell_key, make_point_sorter
 from lmsu_tpu_torch.ops.scatter import bev_scatter_max, points_to_bev_indices
-from lmsu_tpu_torch.ops.scatter_sorted import (bev_scatter_max_sorted, cell_keys,
+from lmsu_tpu_torch.ops.scatter_sorted import (bev_scatter_max_sorted_pallas, cell_keys,
                                                segment_max, sort_points_by_bev_cell)
 
 torch.set_num_threads(2)
@@ -116,7 +116,7 @@ def test_sorted_scatter_plain_equals_jax_bitwise(rng, case):
                              .astype(jnp.float32))
     want_xla = np.asarray(jax_bev_scatter_max(jf, jnp.asarray(idx), jnp.asarray(valid), grid)
                           .astype(jnp.float32))
-    got = bev_scatter_max_sorted(tf, torch.from_numpy(idx), torch.from_numpy(valid), grid)
+    got = bev_scatter_max_sorted_pallas(tf, torch.from_numpy(idx), torch.from_numpy(valid), grid)
     assert got.dtype == tf.dtype and got.shape == (kw["B"], *grid, kw["C"])
     np.testing.assert_array_equal(got.float().numpy(), want_pallas)
     np.testing.assert_array_equal(got.float().numpy(), want_xla)

@@ -17,7 +17,7 @@ from lmsu_tpu.ops.scatter import bev_scatter_max as jax_bev_scatter_max
 from lmsu_tpu.ops.scatter_sorted_pallas import (
     bev_scatter_max_sorted_pallas as jax_sorted_pallas)
 from lmsu_tpu_torch.ops.scatter import bev_scatter_max
-from lmsu_tpu_torch.ops.scatter_sorted import (bev_scatter_max_sorted, cell_keys,
+from lmsu_tpu_torch.ops.scatter_sorted import (bev_scatter_max_sorted_pallas, cell_keys,
                                                segment_max_bwd, segment_max_bwd_plain,
                                                segment_max_plain)
 
@@ -77,7 +77,7 @@ def test_sorted_backward_equals_jax_grad(rng, case, dtype):
     want = _jax_grad(jax_sorted_pallas, feats, idx, valid, grid, g, jdt)
 
     tf = torch.from_numpy(feats).to(tdt).requires_grad_(True)
-    out = bev_scatter_max_sorted(tf, torch.from_numpy(idx), torch.from_numpy(valid), grid)
+    out = bev_scatter_max_sorted_pallas(tf, torch.from_numpy(idx), torch.from_numpy(valid), grid)
     out.backward(torch.from_numpy(g).to(tdt))
     assert tf.grad.dtype == tdt
     np.testing.assert_array_equal(tf.grad.float().numpy(), want)

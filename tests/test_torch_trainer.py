@@ -158,3 +158,30 @@ def test_ce_trainer_evaluates_with_ema_weights(tmp_path):
     ref = Trainer(cfg, train_loader, val_loader, device="cpu", model=init)
     ref_loss, ref_metrics = ref.validate()
     assert val_loss == ref_loss and val_metrics["miou"] == ref_metrics["miou"]
+
+
+@pytest.mark.parametrize("impl", ["xla", "xla_fastbwd", "sorted", "pallas", "sorted_pallas"])
+def test_train_distill_cli_takes_each_scatter_impl(tmp_path, monkeypatch, impl):
+    """The training CLI takes the JAX CLIs' five --scatter-impl values into
+    the model config; only sorted_pallas turns on the loaders' by-cell point
+    sort. With pallas, one epoch at width 0.25 on the CPU writes the history
+    and both checkpoints."""
+    from lmsu_tpu_torch import train_distill
+    from lmsu_tpu_torch.data import rasterize
+    argv = ["--device", "cpu", "--scatter-impl", impl, "--epochs", "1", "--num-train", "8",
+            "--num-val", "4", "--width", "0.25", "--num-workers", "0",
+            "--save-dir", str(tmp_path)]
+    cfg, _ = train_distill.build_configs(train_distill.make_parser().parse_args(argv))
+    assert cfg.model.lidar.scatter_impl == impl
+    sorters = []
+    real = rasterize.make_point_sorter
+    monkeypatch.setattr(rasterize, "make_point_sorter",
+                        lambda *a: sorters.append(a) or real(*a))
+    if impl == "pallas":
+        train_distill.main(argv)
+        hist = json.loads((tmp_path / "training_history.json").read_text())
+        assert len(hist["train_loss"]) == 1 and np.isfinite(hist["train_loss"]).all()
+        assert {"latest.pth", "best.pth"} <= {f.name for f in tmp_path.iterdir()}
+    else:
+        train_distill.build_loaders(cfg, verbose=False)
+    assert bool(sorters) == (impl == "sorted_pallas")
