@@ -69,6 +69,12 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t itself, or a copy when its data is not 16-byte aligned (kernels
+    that read with 16-byte copies take it)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def check_cuda_args(*tensors) -> torch.device:
     """All tensors on one CUDA device and contiguous; returns that device."""
     dev = tensors[0].device

@@ -55,7 +55,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from lmsu_tpu_torch.ops._cuda import (_I, _L, _P, CudaKernel, check_cuda_args,
+from lmsu_tpu_torch.ops._cuda import (_I, _L, _P, CudaKernel, aligned16, check_cuda_args,
                                       dtype_code, ptr, stream_ptr)
 
 KERNEL = CudaKernel("ir_fused_infer.cu", {
@@ -198,7 +198,8 @@ PROJ_BWD = CudaKernel("ir_train_proj_bwd.cu", {
 DW_BWD = CudaKernel("ir_train_dw_bwd.cu", {
     "ir_train_dw_bwd": (_P,) * 22 + (_I,) * 11 + (_P,),
     "ir_train_dw_bwd_smem": (_I,) * 3,
-    "ir_train_dw_bwd_rows": (_I,) * 3})
+    "ir_train_dw_bwd_occupancy": (_I,) * 3,
+    "ir_train_dw_bwd_rows": (_I,) * 7})
 EXPAND_BWD = CudaKernel("ir_train_expand_bwd.cu", {
     "ir_train_expand_bwd": (_P,) * 13 + (_L,) + (_I,) * 5 + (_P,),
     "ir_train_expand_bwd_cblocks": (_I,)})
@@ -480,17 +481,14 @@ def dw_bwd(x, w1, s1, b1, m1, inv1, dw, dv2, u2, p2, q2, d, m2, inv2, stride):
     if not _on_card("dw_bwd", x):
         return dw_bwd_plain(x, w1, s1, b1, m1, inv1, dw, dv2, u2, p2, q2, d, m2, inv2, stride)
     has_expand = w1 is not None
-    if cin % 4 or (not has_expand and ce != cin):
-        raise ValueError(f"dw_bwd kernel takes Cin % 4 == 0 (and Ce == Cin at expansion "
-                         f"1), got Cin={cin}, Ce={ce}")
+    if cin % 8 or ce % 32 or (not has_expand and ce != cin):
+        raise ValueError(f"dw_bwd kernel takes Cin % 8 == 0, Ce % 32 == 0 (and Ce == Cin at "
+                         f"expansion 1), got Cin={cin}, Ce={ce}")
     if not (x.dtype == dv2.dtype == d.dtype):
         raise ValueError("x, dv2 and d must share a dtype")
     lib = DW_BWD.lib()
-    if lib.ir_train_dw_bwd_smem(cin, stride, int(has_expand)) > _SMEM_LIMIT:
-        raise ValueError(f"fused training block too wide for shared memory (Cin={cin}, "
-                         f"stride {stride}); use fused_train=False")
     dt = x.dtype
-    x, dv2, d = x.contiguous(), dv2.contiguous(), d.contiguous()
+    x, dv2, d = (aligned16(t.contiguous()) for t in (x, dv2, d))
     Ho, Wo = H // stride, W // stride
     taps = _w(dw, dt).reshape(9, ce)
     u2, p2, q2, m2, inv2 = _v(u2, p2, q2, m2, inv2)
@@ -501,7 +499,9 @@ def dw_bwd(x, w1, s1, b1, m1, inv1, dw, dv2, u2, p2, q2, d, m2, inv2, stride):
     else:
         w = s1 = b1 = m1 = inv1 = None
         dev = check_cuda_args(x, taps, dv2, u2, p2, q2, d, m2, inv2)
-    rows = lib.ir_train_dw_bwd_rows(B, Ho, Wo)
+    rows = lib.ir_train_dw_bwd_rows(B, Ho, Wo, ce, stride, int(has_expand), dtype_code(x))
+    if rows <= 0:
+        raise RuntimeError(f"ir_train_dw_bwd_rows: CUDA error {-rows}")
     part_dw = torch.empty(rows, 9 * ce, dtype=_F32, device=dev)
     part = torch.empty(2, rows, ce, dtype=_F32, device=dev)
     dv1 = torch.empty(B, H, W, ce, dtype=dt, device=dev)

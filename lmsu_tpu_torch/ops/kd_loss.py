@@ -7,25 +7,92 @@ inside the kernel) and carries `fused_feature_mse` (a Function whose
 backward is the plain transcription of `_mse_bwd`) and
 `kd_total_loss_fused`, a drop-in for ops/losses.py::kd_total_loss.
 
-On the H100 the kernel is bound by its 2*M*Ct*Cs multiply-adds on CUDA
-cores (f32); the design and its bound are in the .cu source note. Per-block
-partials are summed in a fixed order, so the loss is deterministic.
+On the H100 the kernel forms T.P on the bf16 tensor cores with split
+operands: every f32 value v is written as a sum of bf16 terms v0 + v1 + v2,
+each the bf16 rounding of what the earlier terms left (`split_bf16`), and
+the products T_i.P_j with i + j < KERNEL_TERMS are summed in f32 (three
+for bf16 taps, whose T is one exact term; six for f32 taps). That keeps
+f32-level products (the residual of three terms is below 2^-24 of the
+value). `mse_partials_emulated` repeats that arithmetic in plain PyTorch
+for the tests and chip_smoke.py; the main path never calls it. The design
+and its bound are in the .cu source note. Per-warp partials are summed in
+a fixed order, so the loss is deterministic.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from lmsu_tpu_torch.ops._cuda import (_I, _P, CudaKernel, check_cuda_args,
+from lmsu_tpu_torch.ops._cuda import (_I, _P, CudaKernel, aligned16, check_cuda_args,
                                       dtype_code, ptr, stream_ptr)
 from lmsu_tpu_torch.ops.losses import kd_logit_kl, weighted_cross_entropy
 
 KERNEL = CudaKernel("kd_feature_mse.cu", {
     "kd_feature_mse": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "kd_feature_mse_partials_per_sample": (_I, _I)})
+
+# bf16 terms per operand, and the kernel's products T_i . P_j with i + j <
+# KERNEL_TERMS. Chosen with `mse_partials_emulated` on a student within
+# 1e-3 of its projected teacher (tests/test_torch_kd_split.py): two terms
+# leave more than the 1e-5 limit of the loss in f32 there, three less than
+# a quarter of it.
+KERNEL_TERMS = 3
+_PAD = 64            # P's rows and columns are padded to multiples of this
+
+
+def split_bf16(x: torch.Tensor, terms: int = KERNEL_TERMS) -> List[torch.Tensor]:
+    """x (f32) as `terms` f32 tensors holding bf16 values whose sum is x up
+    to the last residual: each term is the bf16 rounding (to nearest even)
+    of what the earlier terms left, as the kernel splits its operands."""
+    out, rest = [], x.float()
+    for _ in range(terms):
+        head = rest.to(torch.bfloat16).float()
+        out.append(head)
+        rest = rest - head
+    return out
+
+
+def kernel_products(dtype: torch.dtype) -> int:
+    """Number of bf16 tensor-core products the kernel issues per T.P: T in
+    bf16 is one exact term, f32 T is split like P."""
+    t_terms = 1 if dtype == torch.bfloat16 else KERNEL_TERMS
+    return sum(1 for i in range(t_terms) for j in range(KERNEL_TERMS) if i + j < KERNEL_TERMS)
+
+
+def mse_partials_emulated(s3: torch.Tensor, t3: torch.Tensor, projection: torch.Tensor,
+                          terms: int = KERNEL_TERMS) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch (tests and chip_smoke.py
+    only): T and P split into bf16 terms, the products T_i . P_j with
+    i + j < terms summed in f32, then per-sample sums of (S - T.P)^2."""
+    ts = split_bf16(t3.float(), 1 if t3.dtype == torch.bfloat16 else terms)
+    ps = split_bf16(projection.float(), terms)
+    acc = None
+    for i, ti in enumerate(ts):
+        for j, pj in enumerate(ps):
+            if i + j < terms:
+                prod = ti @ pj
+                acc = prod if acc is None else acc + prod
+    return (s3.float() - acc).square().sum(dim=(1, 2))
+
+
+def fragment_terms(projection: torch.Tensor) -> torch.Tensor:
+    """P [Ct, Cs] f32 -> the kernel's shared-memory image [Ctp/16,
+    KERNEL_TERMS, Csp/8, 2, 8, 8] bf16, Ctp and Csp the next multiples of
+    64: P split once into its bf16 terms (`split_bf16`), padded with zeros;
+    for k-step s (16 rows) and term i, the warpgroup product's B operand
+    without swizzle, K-major: core matrix (n-group ng, k-half h) holds
+    P_i[16s + 8h + kk][8ng + nr] at [nr][kk] (8 rows of 16 bytes), and a
+    kernel block reads the 8 n-groups of its 64 columns as one 2 KB run."""
+    ct, cs = projection.shape
+    ctp, csp = -(-ct // _PAD) * _PAD, -(-cs // _PAD) * _PAD
+    terms = [F.pad(t, (0, csp - cs, 0, ctp - ct)).to(torch.bfloat16)
+             .reshape(ctp // 16, 2, 8, csp // 8, 8).permute(0, 3, 1, 4, 2)
+             for t in split_bf16(projection)]
+    return torch.stack(terms, dim=1).contiguous()
 
 
 def mse_partials_plain(s3: torch.Tensor, t3: torch.Tensor,
@@ -50,9 +117,12 @@ def mse_partials(s3: torch.Tensor, t3: torch.Tensor, projection: torch.Tensor
         raise ValueError("student and teacher taps must match in [B, M] and dtype")
     if projection.shape != (ct, cs):
         raise ValueError(f"projection must be [{ct}, {cs}], got {tuple(projection.shape)}")
-    s3 = s3.contiguous()
-    t3 = t3.contiguous()
-    p = projection.float().contiguous()
+    if cs % 8 or ct % 8 or ct > 512:
+        raise ValueError(f"kd_feature_mse kernel takes Cs % 8 == 0, Ct % 8 == 0 and "
+                         f"Ct <= 512; got Cs={cs}, Ct={ct}")
+    s3 = aligned16(s3.contiguous())
+    t3 = aligned16(t3.contiguous())
+    p = fragment_terms(projection)
     dev = check_cuda_args(s3, t3, p)
     n = KERNEL.lib().kd_feature_mse_partials_per_sample(ctypes.c_int(M), ctypes.c_int(cs))
     scratch = torch.empty(B, n, dtype=torch.float32, device=dev)
