@@ -17,8 +17,12 @@ Phases:
              where there is one, and the card's bound; each stage's fused
              forward + backward beside the unfused block's (cuDNN convs,
              train-mode BN), with K12's shared memory and resident blocks
-             per SM at each stage. K7 also on a near-teacher student (S =
-             T.P + 1e-3 N(0, 1)). The scatter kernels K4 and K6 (and K1 beside
+             per SM at each stage; K9 and K12 must compute e = x . W1 bit
+             for bit alike (each kernel's probe build writes its e; the
+             count of differing elements is printed and must be 0), and
+             in f32 K13's dW1 must be within 1e-4 of scale of a float64
+             dW1 computed on the card. K7 also on a near-teacher student
+             (S = T.P + 1e-3 N(0, 1)); K2 also at C=512 (a 4x teacher). The scatter kernels K4 and K6 (and K1 beside
              K4) also on a skewed cloud: 2,000 of the 5,000 points in one
              cell, as zero padding puts them.
   3. serving the weighted-fusion student at full width with the three
@@ -499,6 +503,25 @@ def check_masked(name, got, want, dtype, frac=1e-5):
     return diff.masked_fill(bad, 0).max().item(), flips
 
 
+def dw1_float64_error(x, w1, m1, inv1, u1, p1, q1, dv1, plain_dw1):
+    """K13's dW1 and its plain version's (`plain_dw1`) against dW1 = x^T de
+    in float64 on the card (e = x W1 and de = u1 dv1 - p1 - q1 (e - m1) inv1
+    in float64, from the same f32 inputs): each one's max abs difference over
+    max(1, max |dW1|)."""
+    from lmsu_tpu_torch.ops import ir_fused as irf
+    cin, ce = x.shape[-1], dv1.shape[-1]
+    _, dw1 = irf.expand_bwd(x, w1, m1, inv1, u1, p1, q1, dv1)
+    xm = x.reshape(-1, cin).double()
+    de = xm @ w1.double()
+    de.sub_(m1.double()).mul_(inv1.double() * -q1.double()).sub_(p1.double())
+    de.add_(dv1.reshape(-1, ce).double() * u1.double())
+    ref = xm.T @ de
+    del xm, de
+    scale = max(1.0, ref.abs().max().item())
+    return ((dw1.double() - ref).abs().max().item() / scale,
+            (plain_dw1.double() - ref).abs().max().item() / scale)
+
+
 def _ir_train_inputs(rng, dev, dtype, H, Cin, Cout, stride, exp, B):
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
     Ce = Cin * exp
@@ -512,34 +535,51 @@ def _ir_train_inputs(rng, dev, dtype, H, Cin, Cout, stride, exp, B):
     return x, w1, dw, w2, gb, dy
 
 
-def kernel_ir_train(rng, dev, dtype, B=TRAIN_B):
+def kernel_ir_train(rng, dev, dtype, B=TRAIN_B, stages=IR_STAGES, timed=True):
     """K8-K13 against their plain versions at every stage of the student at
-    batch B, each kernel on the inputs the plain chain gives it (batch
+    batch B (or at `stages`; untimed, without the block yardstick, when not
+    `timed`), each kernel on the inputs the plain chain gives it (batch
     statistics, BN folds and the vectors of _ir_train_backward), and each
     stage's fused forward + backward against the port's unfused block
     (cuDNN convs, train-mode BatchNorm) on the same input: the JAX package's
     own yardstick (scripts/profile_roofline.py:173-186). Bounds: each input
     read once, each output written once, and the operations at the card's
-    peak for the input type (bf16: the tensor cores'); the kernels compute
-    in f32 on CUDA cores for both, so their bf16 gap to the bound is the room
-    that tensor-core tiles would take."""
+    peak for the input type (bf16: the tensor cores'); K8, K10 and K11
+    compute in f32 on CUDA cores for both, so their bf16 gap to the bound is
+    the room that tensor-core tiles would take. K9, K12 and K13 run their
+    1x1 products on the bf16 tensor cores: their bounds count the products
+    they issue there (ir_fused.mma_products: 6 per f32 product, 1 per bf16)
+    at 989 TFLOP/s, beside the depthwise work on CUDA cores at 67 TFLOP/s
+    (the larger of the two, as the units overlap), against the bytes.
+
+    Also, at every stage with an expand: K9 and K12 must compute the same e
+    bit for bit (each kernel's probe writes the e of its own staging and
+    tiling; the count of differing elements is printed and must be 0), and
+    in f32 K13's dW1 must be within 1e-4 of scale of a float64 dW1 computed
+    on the card from the same inputs."""
     from lmsu_tpu_torch.models.layers import InvertedResidual
     from lmsu_tpu_torch.ops import ir_fused as irf
     out = {k: {"stages": []} for k in IR_TRAIN_KERNELS}
     blocks = []
     es = 4 if dtype == torch.float32 else 2
-    for H, Cin, Cout, stride, exp in IR_STAGES:
+    products = irf.mma_products(dtype)
+    for H, Cin, Cout, stride, exp in stages:
         Ce, Ho, has = Cin * exp, H // stride, exp != 1
         M1, M2 = B * H * H, B * Ho * Ho
         stage = f"{H}x{H} {Cin}->{Cout} s{stride} e{exp}"
         x, w1, dw, w2, (g1, be1, g2, be2, g3, be3), dy = _ir_train_inputs(
             rng, dev, dtype, H, Cin, Cout, stride, exp, B)
 
-        def record(name, run, plain, checks, nbytes, ops, **extra):
-            bound, by = bound_ms(nbytes, ops, dtype)
-            st = {"stage": stage, "ms": time_ms(run, reps=10, inner=3),
-                  "plain_ms": time_ms(plain, reps=3, inner=1), "bound_ms": bound,
-                  "bound_by": by, "max_abs_err": max(checks), **extra}
+        def record(name, run, plain, checks, nbytes, ops=None, tc=None, cuda=None, **extra):
+            if ops is not None:
+                bound, by = bound_ms(nbytes, ops, dtype)
+            else:  # tensor-core products and CUDA-core work, overlapping
+                t_ops = max(tc / PEAK_OPS[torch.bfloat16], cuda / PEAK_OPS[torch.float32]) * 1e3
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            st = {"stage": stage, "ms": time_ms(run, reps=10, inner=3) if timed else None,
+                  "plain_ms": time_ms(plain, reps=3, inner=1) if timed else None,
+                  "bound_ms": bound, "bound_by": by, "max_abs_err": max(checks), **extra}
             out[name]["stages"].append(st)
             torch.cuda.empty_cache()
 
@@ -558,13 +598,20 @@ def kernel_ir_train(rng, dev, dtype, B=TRAIN_B):
             s1 = b1 = m1 = inv1 = None
 
         args = (x, w1, s1, b1, dw, stride)
-        got, want = irf.expand_dw(*args), irf.expand_dw_plain(*args)
+        e9 = (torch.full((B, H, H, Ce), float("nan"), device=dev)
+              if has and dev.type == "cuda" else None)
+        got, want = irf.expand_dw(*args, probe=e9), irf.expand_dw_plain(*args)
         errs = [check_close(f"expand_dw {stage} {k}", g, w, dtype, scaled=True)
                 for k, g, w in zip(("d", "sum", "sq"), got, want)]
+        k9 = {}
+        if dev.type == "cuda":
+            lib, code = irf.EXPAND_DW.lib(), 0 if dtype == torch.float32 else 1
+            k9 = {"smem_bytes": lib.ir_train_expand_dw_smem(Cin, stride, int(has), code),
+                  "blocks_per_sm": lib.ir_train_expand_dw_occupancy(Cin, stride, int(has), code)}
         record("ir_train_expand_dw", lambda: irf.expand_dw(*args),
                lambda: irf.expand_dw_plain(*args), errs,
                M1 * Cin * es + M2 * Ce * es + (Cin * Ce * has + 13 * Ce) * 4,
-               2 * M1 * Cin * Ce * has + 18 * M2 * Ce)
+               tc=products * 2 * M1 * Cin * Ce * has, cuda=18 * 2 * M2 * Ce, **k9)
         d = want[0]
         m2, v2 = irf._bn_stats_finalize(want[1], want[2], M2)
         inv2 = torch.rsqrt(v2 + 1e-5)
@@ -591,19 +638,47 @@ def kernel_ir_train(rng, dev, dtype, B=TRAIN_B):
         p2, q2 = u2 * (r2a / M2), u2 * (r2b / M2)
 
         args = (x, w1, s1, b1, m1, inv1, dw, dv2, u2, p2, q2, d, m2, inv2, stride)
-        got, want = irf.dw_bwd(*args), irf.dw_bwd_plain(*args)
+        e12 = torch.full_like(e9, float("nan")) if e9 is not None else None
+        got, want = irf.dw_bwd(*args, probe=e12), irf.dw_bwd_plain(*args)
+        e_diff = None
+        if e9 is not None:
+            # K9's and K12's e, bit for bit (NaN, never written, differs too).
+            e_diff = int((e9.view(torch.int32) != e12.view(torch.int32)).sum().item())
+            log(f"[kernels] e of K9 vs K12 {stage} {dtype}: {e_diff} elements differ")
+            if e_diff:
+                raise AssertionError(f"K9 and K12 e differ at {e_diff} elements ({stage}, "
+                                     f"{dtype})")
+            del e9
         err_dv1, flips = check_masked(f"dw_bwd {stage} dv1", got[0], want[0], dtype)
+        log(f"[kernels] dw_bwd {stage} {dtype}: {flips} ReLU6 mask flips against the plain "
+            f"version")
         errs = [err_dv1,
                 check_close(f"dw_bwd {stage} dDW", got[1], want[1], dtype, scaled=True)]
         if has:
             e, _, _ = irf._expand_act(x, w1, s1, b1)
             en_max = ((e - m1) * inv1).abs().max().item()
-            del e
-            big = max(got[0].float().abs().max().item(), want[0].float().abs().max().item())
-            for k, g, w, f in (("ra", got[2], want[2], 1.0), ("rb", got[3], want[3], en_max)):
-                # each mask flip moves the sum by at most one dv1 (times en)
+            # Every element whose ReLU6 mask differs (exactly one side 0,
+            # however small the other), not only those check_masked counts:
+            # each moves ra by its dv1 and rb by at most that times max|en|
+            # (1.01: dv1 is compared as stored, the sums take it unrounded).
+            g0, w0 = got[0].float(), want[0].float()
+            differ = (g0 == 0) != (w0 == 0)
+            moved = 1.01 * torch.maximum(g0.abs(), w0.abs())[differ].sum().item()
+            mask_diffs = int(differ.sum().item())
+            # Where the kernel's e (its probe) rounds to another value of the
+            # input dtype than the plain version's, rb's term moves by dv1
+            # times the difference in en: 1.01 * sum |dv1| |de| inv1.
+            e_moved = 0.0
+            if e12 is not None:
+                e_moved = 1.01 * (torch.maximum(g0.abs(), w0.abs())
+                                  * (e12 - e).abs() * inv1).sum().item()
+            del g0, w0, differ, e, e12
+            log(f"[kernels] dw_bwd {stage} {dtype}: {mask_diffs} elements with the other ReLU6 "
+                f"mask (any size), moving ra by at most {moved:g}")
+            for k, g, w, f, ex in (("ra", got[2], want[2], 1.0, 0.0),
+                                   ("rb", got[3], want[3], en_max, e_moved)):
                 err = (g - w).abs().max().item()
-                tol = 1e-4 * max(1.0, w.abs().max().item()) + flips * big * f
+                tol = 1e-4 * max(1.0, w.abs().max().item()) + moved * f + ex
                 if not err <= tol:
                     raise AssertionError(f"dw_bwd {stage} {k} [{dtype}]: {err:g} > {tol:g}")
                 errs.append(err)
@@ -612,14 +687,15 @@ def kernel_ir_train(rng, dev, dtype, B=TRAIN_B):
         smem = per_sm = None
         if dev.type == "cuda":
             lib, code = irf.DW_BWD.lib(), 0 if dtype == torch.float32 else 1
-            smem = lib.ir_train_dw_bwd_smem(stride, int(has), code)
-            per_sm = lib.ir_train_dw_bwd_occupancy(stride, int(has), code)
+            smem = lib.ir_train_dw_bwd_smem(Cin, stride, int(has), code)
+            per_sm = lib.ir_train_dw_bwd_occupancy(Cin, stride, int(has), code)
             log(f"[kernels] ir_train_dw_bwd {stage} {dtype}: {smem} bytes of shared memory "
                 f"a block, {per_sm} blocks of 8 warps per SM")
         record("ir_train_dw_bwd", lambda: irf.dw_bwd(*args), lambda: irf.dw_bwd_plain(*args),
                errs, M1 * Cin * es + 2 * M2 * Ce * es + M1 * Ce * es
                + (Cin * Ce * has + 19 * Ce) * 4,
-               2 * M1 * Cin * Ce * has + 36 * M2 * Ce, mask_flips=flips, smem_bytes=smem,
+               tc=products * 2 * M1 * Cin * Ce * has, cuda=36 * 2 * M2 * Ce, mask_flips=flips,
+               mask_diffs=mask_diffs if has else 0, e_diff_vs_k9=e_diff, smem_bytes=smem,
                blocks_per_sm=per_sm)
         dv1, r1a, r1b = want[0], want[2], want[3]
         del got, want
@@ -630,12 +706,29 @@ def kernel_ir_train(rng, dev, dtype, B=TRAIN_B):
             got, want = irf.expand_bwd(*args), irf.expand_bwd_plain(*args)
             errs = [check_close(f"expand_bwd {stage} {k}", g, w, dtype, scaled=True)
                     for k, g, w in zip(("dx", "dW1"), got, want)]
+            f64 = f64_plain = None
+            if dtype == torch.float32:
+                f64, f64_plain = dw1_float64_error(*args, want[1])
+                log(f"[kernels] expand_bwd {stage} dW1 vs float64: {f64:g} of scale "
+                    f"(limit 1e-4; plain version {f64_plain:g})")
+                if not f64 <= 1e-4:
+                    raise AssertionError(f"expand_bwd {stage} dW1: {f64:g} of scale from "
+                                         f"float64")
             del got, want
+            ngroups = smem13 = None
+            if dev.type == "cuda":
+                lib, code = irf.EXPAND_BWD.lib(), 0 if es == 4 else 1
+                ngroups = lib.ir_train_expand_bwd_groups(Cin, Ce, code)
+                smem13 = lib.ir_train_expand_bwd_smem(Cin, Ce, code)
             record("ir_train_expand_bwd", lambda: irf.expand_bwd(*args),
                    lambda: irf.expand_bwd_plain(*args), errs,
                    M1 * Cin * es + M1 * Ce * es + M1 * Cin * 4 + (2 * Cin * Ce + 5 * Ce) * 4,
-                   6 * M1 * Cin * Ce)
+                   tc=3 * products * 2 * M1 * Cin * Ce, cuda=0, dw1_float64_rel_err=f64,
+                   plain_dw1_float64_rel_err=f64_plain, dx_partials=ngroups,
+                   smem_bytes=smem13)
         del args, d, dv2, dv1
+        if not timed:
+            continue
 
         # The block yardstick: fused forward + backward vs the unfused block.
         block = InvertedResidual(Cin, Cout, stride, exp).to(dev).train()
@@ -669,6 +762,8 @@ def kernel_ir_train(rng, dev, dtype, B=TRAIN_B):
                        "unfused_ms": eager_ms(unfused, reps=5, inner=1)})
         del block, xs, xc, leaves, x, dy
         torch.cuda.empty_cache()
+    if not timed:
+        return out, blocks
     for name, r in out.items():
         for k in ("ms", "plain_ms", "bound_ms"):
             r[k] = sum(st[k] for st in r["stages"])
@@ -692,14 +787,17 @@ def phase_kernels(dev):
     # K4 and K6 draw from a stream of their own, so that the other kernels'
     # inputs stay those of the runs before them.
     rng_k4_k6 = np.random.default_rng(4)
+    rng_c512 = np.random.default_rng(512)
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
         runs = [("scatter", C, b, kernel_scatter) for b in (B, TRAIN_B) for C in (128, 256)]
         runs += [("scatter_bwd", 128, b, kernel_scatter_bwd) for b in (B, TRAIN_B)]
         runs += [("kd_mse", 256, b, kernel_kd_mse) for b in (B, TRAIN_B)]
+        # K2 also at C=512 (a 4x teacher), which the general-C kernel takes
+        # (inputs from a stream of its own).
         runs += [("gate", 128, B, kernel_gate), ("gate", 128, TRAIN_B, kernel_gate),
-                 ("gate", 256, TRAIN_B, kernel_gate)]
+                 ("gate", 256, TRAIN_B, kernel_gate), ("gate", 512, B, kernel_gate)]
         for kind, fn in (("voxelize", kernel_unsorted), ("scatter_flat", kernel_flat)):
             runs += [(kind + tag, C, b, fn) for tag in ("", "_skew")
                      for b, C in ((B, 128), (TRAIN_B, 128), (TRAIN_B, 256))]
@@ -707,7 +805,9 @@ def phase_kernels(dev):
             kw = {"B": b} if kind == "kd_mse" else {"C": C, "B": b}
             if kind.endswith("_skew"):
                 kw["skew"] = True
-            r = fn(rng_k4_k6 if fn in (kernel_unsorted, kernel_flat) else rng, dev, dtype, **kw)
+            src = (rng_k4_k6 if fn in (kernel_unsorted, kernel_flat)
+                   else rng_c512 if C == 512 else rng)
+            r = fn(src, dev, dtype, **kw)
             res[(kind, name, C, b)] = r
             log(f"[kernels] {kind} {name} C={C} B={b}: {json.dumps(r)}")
             del r
@@ -718,6 +818,14 @@ def phase_kernels(dev):
         for k, r in irt.items():
             res[(k, name, 0, TRAIN_B)] = r
             log(f"[kernels] {k} {name} B={TRAIN_B}: {json.dumps(r)}")
+        # K8-K13's paths for wide blocks, checked (not timed) at B=2 on inputs
+        # of their own: the 2x teacher's last stage (K13 walks Cin in two
+        # register groups) and Cin 256 at stride 2 (K9 stages the halo in
+        # slices of Cin, K12 takes it through its ring).
+        wide, _ = kernel_ir_train(np.random.default_rng(256), dev, dtype, B=2, timed=False,
+                                  stages=[(16, 256, 256, 1, 6), (32, 256, 256, 2, 6)])
+        log(f"[kernels] K8-K13 wide blocks {name}, B=2: " + json.dumps(
+            {k: [(st["stage"], st["max_abs_err"]) for st in r["stages"]] for k, r in wide.items()}))
         res[("ir_block", name, 0, TRAIN_B)] = blocks
         log(f"[kernels] fused vs unfused block fwd+bwd {name} B={TRAIN_B}: "
             f"{json.dumps(blocks)}")
@@ -1290,8 +1398,8 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     log(smi)
     log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from lmsu_tpu_torch.inference import pin_f32_precision
+    pin_f32_precision()
     dev = torch.device("cuda", 0)
 
     secs = build_all()

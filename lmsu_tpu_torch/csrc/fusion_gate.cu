@@ -37,6 +37,9 @@ constexpr int kRowPad = kRows + 4;  // row stride of the transposed tile (bank s
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kK = 32;          // W1 input channels staged per chunk
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
@@ -188,6 +191,84 @@ int launch(const void* cam, const void* lid, const float* w1, const float* b1,
   return (int)cudaGetLastError();
 }
 
+// Any other C: the same product, with the output channels in tiles of 128
+// (4 a lane) and the 2C input channels in chunks of kK staged per tile (the
+// rows' chunk transposed, W1's chunk for the tile), element loads, masked
+// past C; each row's gate logit summed over the tiles in registers, then
+// the blend reads cam and lid again. Off the main path (the student's and
+// the 2x teacher's C are templated above); it lifts the channel limit, e.g.
+// for a 4x teacher (C = 512).
+constexpr int kNTile = 128;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fusion_gate_any_c(const T* __restrict__ cam, const T* __restrict__ lid,
+                  const float* __restrict__ w1, const float* __restrict__ b1,
+                  const float* __restrict__ w2, const float* __restrict__ b2,
+                  T* __restrict__ out, int M, int C) {
+  __shared__ float xs[kK][kRowPad];
+  __shared__ float ws[kK][kNTile + 1];
+  const int row0 = blockIdx.x * kRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int twoC = 2 * C;
+  float dsum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int n0 = 0; n0 < C; n0 += kNTile) {
+    float acc[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+    for (int k0 = 0; k0 < twoC; k0 += kK) {
+      __syncthreads();  // the previous chunk consumed
+      for (int i = threadIdx.x; i < kRows * kK; i += kThreads) {
+        const int r = i / kK, kk = i - r * kK, k = k0 + kk, row = row0 + r;
+        float v = 0.f;
+        if (row < M && k < twoC)
+          v = to_float(k < C ? cam[(size_t)row * C + k] : lid[(size_t)row * C + k - C]);
+        xs[kk][r] = v;
+      }
+      for (int i = threadIdx.x; i < kNTile * kK; i += kThreads) {
+        const int j = i / kK, kk = i - j * kK;
+        ws[kk][j] = (n0 + j < C && k0 + kk < twoC) ? w1[(size_t)(n0 + j) * twoC + k0 + kk] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < kK; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float w = ws[kk][lane + 32 * j];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) acc[r][j] = fmaf(xs[kk][warp * 8 + r], w, acc[r][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + lane + 32 * j;
+        if (col < C) part = fmaf(fmaxf(acc[r][j] + b1[col], 0.f), w2[col] - w2[C + col], part);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+      dsum[r] += part;
+    }
+  }
+  const float b2d = b2[0] - b2[1];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = row0 + warp * 8 + r;
+    if (row >= M) continue;
+    const float g = 1.f / (1.f + expf(-(dsum[r] + b2d)));
+    for (int col = lane; col < C; col += 32) {
+      const float c = to_float(cam[(size_t)row * C + col]);
+      const float l = to_float(lid[(size_t)row * C + col]);
+      out[(size_t)row * C + col] = from_f<T>(g * c + (1.f - g) * l);
+    }
+  }
+}
+
 template <typename T>
 int launch_c(const void* cam, const void* lid, const float* w1, const float* b1,
              const float* w2, const float* b2, void* out, int M, int C, cudaStream_t s) {
@@ -196,7 +277,11 @@ int launch_c(const void* cam, const void* lid, const float* w1, const float* b1,
     case 64: return launch<T, 2>(cam, lid, w1, b1, w2, b2, out, M, s);
     case 128: return launch<T, 4>(cam, lid, w1, b1, w2, b2, out, M, s);
     case 256: return launch<T, 8>(cam, lid, w1, b1, w2, b2, out, M, s);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      fusion_gate_any_c<T><<<(M + kRows - 1) / kRows, kThreads, 0, s>>>(
+          static_cast<const T*>(cam), static_cast<const T*>(lid), w1, b1, w2, b2,
+          static_cast<T*>(out), M, C);
+      return (int)cudaGetLastError();
   }
 }
 
@@ -204,11 +289,11 @@ int launch_c(const void* cam, const void* lid, const float* w1, const float* b1,
 
 // cam, lid, out [M, C] (dtype 0 = f32, 1 = bf16); w1 [C, 2C], b1 [C],
 // w2 [2, C], b2 [2] f32 (the torch layouts of attention.0 and attention.2).
-// C is 32, 64, 128 or 256.
+// Any C >= 1 (32, 64, 128 and 256 take the templated kernel).
 extern "C" int fusion_gate_fwd(const void* cam, const void* lid, const void* w1,
                                const void* b1, const void* w2, const void* b2,
                                void* out, int M, int C, int dtype, void* stream) {
-  if (M <= 0) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fw1 = static_cast<const float*>(w1);
   const float* fb1 = static_cast<const float*>(b1);

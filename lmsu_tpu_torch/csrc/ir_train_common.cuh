@@ -5,9 +5,10 @@
 // - element conversions and the input-dtype rounding the TPU kernels apply;
 // - tile_mma: a 16 x 16-thread register-tile product over shared memory,
 //   the body of every GEMM in these kernels (f32 on CUDA cores);
-// - stage_x_halo / expand_halo: the input halo tile of one image and its
-//   expand 1x1 (e = x . W1, rounded to the input dtype) for one chunk of 32
-//   hidden channels, as ir_fused_infer.cu stages them;
+// - expand_step: the expand 1x1 (e = x . W1) on the tensor cores, one
+//   device function for K9, K12 and K13 (and mma_step, the split-operand
+//   product step under it, which K13 also uses for dW1 and dx);
+// - cp.async helpers;
 // - sum_rows: the fixed-order reduction of per-block partials (no float
 //   atomics, so every cross-block sum is deterministic).
 
@@ -15,12 +16,15 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace irt {
 
 constexpr int kThreads = 256;  // every kernel of the path: 8 warps, 16 x 16
 constexpr int kT = 8;          // spatial kernels: output tile side
 constexpr int kKC = 32;        // spatial kernels: hidden channels per block
+constexpr int kSmemBlock = 232448;                 // shared memory a block may opt in to
+constexpr int kSmemTwoBlocks = 233472 / 2 - 1024;  // a block's share when two share an SM
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -91,96 +95,228 @@ __device__ __forceinline__ void tile_mma(float (&acc)[TM][TN], const float* A, i
   }
 }
 
-// Row stride of the transposed halo tile: a multiple of 4 (16-byte loads)
-// with ppad % 32 == 4, which spreads the transposing stores over banks.
-__host__ __device__ inline int halo_ppad(int pin) {
-  int ppad = (pin + 3) / 4 * 4;
-  while (ppad % 32 != 4) ppad += 4;
-  return ppad;
+// -- the shared expand on the tensor cores ------------------------------------
+//
+// K9, K12 and K13 compute e = x . W1 (rounded to the input dtype) with one
+// device function, expand_step, on warp-level mma.sync.m16n8k16 (bf16 in,
+// f32 accumulate): one call adds one k-step (16 input channels) of a 16-pixel
+// x 8-channel tile. The ReLU6 mask of K12's backward must equal the
+// activation K9 took in the forward, so e must not depend on the caller's
+// tiling: given the same x row and W1 column, the products, their order and
+// the accumulator schedule below are fixed, and a caller walks the k-steps
+// in increasing order from acc = 0.
+//
+// f32 operands are split into kTerms bf16 terms (split3, as K7's
+// kd_feature_mse.cu; ops/kd_loss.py::split_bf16), each the bf16 rounding of
+// what the earlier terms left; bf16 products are exact in f32, and the
+// products a_i . b_j with i + j < kTerms give f32-level sums
+// (ops/ir_fused.py::expand_e_emulated repeats this arithmetic on the CPU and
+// chose three terms: two leave more than the limit of e at the main path's
+// widths, tests/test_torch_ir_expand_split.py). bf16 operands are one exact
+// term each. The tensor cores' f32 sums drift toward zero over many steps
+// (as K7 found), so each k-step's products go to a fresh accumulator
+// that is added to the running sum once, rounded to nearest (__fadd_rn).
+//
+// Fragments (PTX ISA, mma.m16n8k16 .bf16): lane = 4 g + t holds A at rows
+// g, g + 8 and k 2t, 2t + 1 (+ 8), B at column g and k 2t, 2t + 1 (+ 8), and
+// the sum at rows g, g + 8 and columns 2t, 2t + 1. B operands come
+// pre-split from the wrapper (ops/ir_fused.py::mma_fragments): for n-tile j
+// and k-step s, term i of lane l is the uint2 at ((j * ksteps + s) * terms
+// + i) * 32 + l.
+
+constexpr int kTerms = 3;
+
+template <typename T> struct Mma;
+template <> struct Mma<float> {
+  using Pair = float2;                // two consecutive-k values of one operand
+  static constexpr int terms = kTerms;  // bf16 terms of an operand
+};
+template <> struct Mma<__nv_bfloat16> {
+  using Pair = uint32_t;              // a bf16x2, lower k in the low half
+  static constexpr int terms = 1;
+};
+
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Stages image b's halo tile (tin x tin pixels from (iy0, ix0), all Cin
-// channels; zero outside the image) transposed into xs [Cin][ppad], and the
-// W1 columns [k0, k0 + kKC) into w1s [Cin][kKC] (zero past Ce). Cin % 4 == 0.
-template <typename T>
-__device__ __forceinline__ void stage_x_halo(const T* __restrict__ xb, const float* __restrict__ w1,
-                                             float* xs, float* w1s, int H, int W, int Cin, int Ce,
-                                             int iy0, int ix0, int tin, int ppad, int k0) {
-  const int tid = threadIdx.x;
-  const int pin = tin * tin;
-  const int c4 = Cin / 4;
-  for (int i0 = tid; i0 < pin * c4; i0 += 4 * kThreads) {
-    float4 v[4];
+// (x0, x1) -> kTerms bf16x2 terms, x0 in the low half; each term the bf16
+// rounding of what the earlier ones left (the differences are exact in f32).
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t (&o)[kTerms]) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = __fsub_rn(x0, hf.x), r1 = __fsub_rn(x1, hf.y);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  o[0] = bf2_bits(h);
+  o[1] = bf2_bits(m);
+  o[2] = bf2_bits(__floats2bfloat162_rn(__fsub_rn(r0, mf.x), __fsub_rn(r1, mf.y)));
+}
+
+// A thread's four A pairs (rows g, g + 8 at k 2t; then at k 2t + 8) or two
+// B pairs (k 2t; k 2t + 8) as bf16 terms.
+template <int N>
+__device__ __forceinline__ void terms_of(uint32_t (&o)[kTerms][N], const float2 (&v)[N]) {
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = i0 + u * kThreads;
-      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < pin * c4) {
-        const int p = i / c4, q = i - p * c4;
-        const int iy = iy0 + p / tin, ix = ix0 + p % tin;
-        if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-          v[u] = load4(xb + ((size_t)iy * W + ix) * Cin + 4 * q);
-      }
-    }
+  for (int f = 0; f < N; ++f) {
+    uint32_t q[kTerms];
+    split3(v[f].x, v[f].y, q);
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = i0 + u * kThreads;
-      if (i < pin * c4) {
-        const int p = i / c4, q = i - p * c4;
-        float* d = xs + 4 * q * ppad + p;
-        d[0] = v[u].x; d[ppad] = v[u].y; d[2 * ppad] = v[u].z; d[3 * ppad] = v[u].w;
-      }
-    }
+    for (int i = 0; i < kTerms; ++i) o[i][f] = q[i];
   }
-  for (int i = tid; i < Cin * kKC; i += kThreads) {
-    const int ci = i / kKC, k = i - ci * kKC;
-    w1s[i] = k0 + k < Ce ? w1[(size_t)ci * Ce + k0 + k] : 0.f;
+}
+template <int N>
+__device__ __forceinline__ void terms_of(uint32_t (&o)[1][N], const uint32_t (&v)[N]) {
+#pragma unroll
+  for (int f = 0; f < N; ++f) o[0][f] = v[f];
+}
+
+// d += a . b over one m16n8k16 step.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k-step with split operands: acc += (sum of a_i . b_j over i + j <
+// kTerms, smallest first, from a fresh zero accumulator), rounded to nearest.
+template <int AT, int BT>
+__device__ __forceinline__ void mma_step(float (&acc)[4], const uint32_t (&a)[AT][4],
+                                         const uint32_t (&b)[BT][2]) {
+  float tmp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int s = kTerms - 1; s >= 0; --s)
+#pragma unroll
+    for (int i = kTerms - 1; i >= 0; --i) {
+      const int j = s - i;
+      if (j >= 0 && i < AT && j < BT) mma_bf16(tmp, a[i], b[j][0], b[j][1]);
+    }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) acc[r] = __fadd_rn(acc[r], tmp[r]);
+}
+
+// This lane's pre-split B fragment of one (n-tile, k-step): `f` points at
+// term 0 of lane 0 (terms 32 uint2 apart).
+template <typename T>
+__device__ __forceinline__ void load_b(uint32_t (&b)[Mma<T>::terms][2],
+                                       const uint2* __restrict__ f, int lane) {
+#pragma unroll
+  for (int i = 0; i < Mma<T>::terms; ++i) {
+    const uint2 v = __ldg(f + 32 * i + lane);
+    b[i][0] = v.x;
+    b[i][1] = v.y;
   }
 }
 
-// Expands the staged halo tile for one chunk: e = x . W1 rounded to T, then
-// e_act = relu6(e * s1 + b1) rounded to T (ir_fused.py:352-359). Writes
-// e_act to ea [pin][kKC] (zero outside the image and past Ce: the depthwise
-// conv pads e_act with zeros) and, when e_raw is not null, e to e_raw
-// [pin][kKC]. Each thread computes a 4-pixel x 2-channel register tile.
+// The shared expand: one k-step of e = x . W1 for a 16 x 8 tile, from the
+// thread's x terms (terms_of the four pairs the caller read from its own
+// staging; split once and used for every n-tile of the k-step) and its W1
+// fragment (load_b). e = round_to<T>(acc) after the last k-step.
 template <typename T>
-__device__ __forceinline__ void expand_halo(const float* xs, const float* w1s,
-                                            const float* __restrict__ s1,
-                                            const float* __restrict__ b1, float* ea, float* e_raw,
-                                            int H, int W, int Cin, int Ce, int iy0, int ix0,
-                                            int tin, int ppad, int k0) {
-  const int tid = threadIdx.x;
-  const int pin = tin * tin;
-  const int kl = tid & 15;  // channel pair 2*kl, 2*kl+1
-  const int pg = tid >> 4;  // pixel group (4 pixels)
-  const int c0 = k0 + 2 * kl;
-  const float sc0 = c0 < Ce ? s1[c0] : 0.f, bc0 = c0 < Ce ? b1[c0] : 0.f;
-  const float sc1 = c0 + 1 < Ce ? s1[c0 + 1] : 0.f, bc1 = c0 + 1 < Ce ? b1[c0 + 1] : 0.f;
-  for (int p0 = pg * 4; p0 < pin; p0 += 64) {
-    float a[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 4
-    for (int ci = 0; ci < Cin; ++ci) {
-      const float4 xv = *reinterpret_cast<const float4*>(xs + ci * ppad + p0);
-      const float2 wv = *reinterpret_cast<const float2*>(w1s + ci * kKC + 2 * kl);
-      a[0][0] = fmaf(xv.x, wv.x, a[0][0]); a[0][1] = fmaf(xv.x, wv.y, a[0][1]);
-      a[1][0] = fmaf(xv.y, wv.x, a[1][0]); a[1][1] = fmaf(xv.y, wv.y, a[1][1]);
-      a[2][0] = fmaf(xv.z, wv.x, a[2][0]); a[2][1] = fmaf(xv.z, wv.y, a[2][1]);
-      a[3][0] = fmaf(xv.w, wv.x, a[3][0]); a[3][1] = fmaf(xv.w, wv.y, a[3][1]);
-    }
+__device__ __forceinline__ void expand_step(float (&acc)[4], const uint32_t (&a)[Mma<T>::terms][4],
+                                            const uint32_t (&w)[Mma<T>::terms][2]) {
+  mma_step<Mma<T>::terms, Mma<T>::terms>(acc, a, w);
+}
+
+// How K9 and K12 share a halo's 16-pixel m-tiles and a 32-channel chunk's
+// four 8-channel n-tiles among a block's 8 warps: warp w takes all four
+// n-tiles of m-tiles w + 8 u, so each x fragment is split once and serves
+// four n-tiles, and each W1 fragment all the warp's m-tiles. Which
+// warp computes a tile does not change e: a pixel and a channel land in the
+// same fragment position (16-pixel m-tiles of the same halo, 8-channel
+// n-tiles of the same chunk) in both kernels.
+template <int PIN>
+struct HaloTiling {
+  static constexpr int MT = (PIN + 15) / 16;
+  static constexpr int NPW = 4;                   // n-tiles a warp
+  static constexpr int UPW = (MT + 7) / 8;        // m-tiles a warp
+  __device__ static int m0(int warp) { return warp; }
+  __device__ static int n0(int) { return 0; }
+};
+
+// A warp's W1 fragments of one k-step (HaloTiling): w_at(j) points at
+// n-tile j's. Loaded ahead of a barrier, they arrive while it waits.
+template <typename T, typename HT, typename WAt>
+__device__ __forceinline__ void halo_load_w(uint32_t (&w)[HT::NPW][Mma<T>::terms][2], int lane,
+                                            WAt w_at) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int p = p0 + r;
-      if (p >= pin) break;
-      const int iy = iy0 + p / tin, ix = ix0 + p % tin;
-      const bool inside = iy >= 0 && iy < H && ix >= 0 && ix < W;
-      const float e0 = round_to<T>(a[r][0]), e1 = round_to<T>(a[r][1]);
-      float2 v;
-      v.x = (inside && c0 < Ce) ? round_to<T>(relu6(scale_shift(e0, sc0, bc0))) : 0.f;
-      v.y = (inside && c0 + 1 < Ce) ? round_to<T>(relu6(scale_shift(e1, sc1, bc1))) : 0.f;
-      *reinterpret_cast<float2*>(ea + p * kKC + 2 * kl) = v;
-      if (e_raw) *reinterpret_cast<float2*>(e_raw + p * kKC + 2 * kl) = make_float2(e0, e1);
+  for (int j = 0; j < HT::NPW; ++j) load_b<T>(w[j], w_at(j), lane);
+}
+
+// One k-step of a warp's share of a halo expand: acc[u][j] (m-tile m0 + 8 u,
+// n-tile n0 + j) += this k-step of e, from x_at(r, k), the x pair of halo
+// row r at the k-step's columns k, k + 1 in the caller's staging (zero past
+// the halo), and the warp's W1 fragments w. Every (m-tile, n-tile) gets the
+// same expand_step.
+template <typename T, typename HT, typename XAt>
+__device__ __forceinline__ void halo_expand_step(float (&acc)[HT::UPW][HT::NPW][4], int m0,
+                                                 int lane,
+                                                 const uint32_t (&w)[HT::NPW][Mma<T>::terms][2],
+                                                 XAt x_at) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int u = 0; u < HT::UPW; ++u) {
+    const int mt = m0 + 8 * u;
+    if (mt < HT::MT) {
+      typename Mma<T>::Pair xa[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) xa[f] = x_at(16 * mt + g + 8 * (f & 1), 2 * t + 8 * (f >> 1));
+      uint32_t a[Mma<T>::terms][4];
+      terms_of(a, xa);
+#pragma unroll
+      for (int j = 0; j < HT::NPW; ++j) expand_step<T>(acc[u][j], a, w[j]);
     }
   }
+}
+
+// One pair of row r, columns c and c + 1, of a row-major shared-memory
+// matrix of T with row stride ld (elements).
+__device__ __forceinline__ float2 pair_at(const float* m, int r, int c, int ld) {
+  return *reinterpret_cast<const float2*>(m + r * ld + c);
+}
+__device__ __forceinline__ uint32_t pair_at(const __nv_bfloat16* m, int r, int c, int ld) {
+  return *reinterpret_cast<const uint32_t*>(m + r * ld + c);
+}
+template <typename T> __device__ __forceinline__ typename Mma<T>::Pair zero_pair();
+template <> __device__ __forceinline__ float2 zero_pair<float>() { return make_float2(0.f, 0.f); }
+template <> __device__ __forceinline__ uint32_t zero_pair<__nv_bfloat16>() { return 0u; }
+
+// Row width (elements) of a staged tile of c channels of T: c padded to 16
+// (a k-step), then to at least 128 bytes, which x_chunk's swizzle needs.
+__host__ __device__ inline int row_ld(int c, int es) {
+  const int per = 128 / es;
+  return ((c + 15) / 16 * 16 + per - 1) / per * per;
+}
+
+// Physical 16-byte chunk of logical chunk c of staged row r (rows of
+// row_ld): for f32 a half-warp's float2 fragment reads of rows g..g+3 land
+// on four 8-bank groups, for bf16 a warp's 32-bit reads (or one ldmatrix
+// phase) of rows g..g+7 on eight 4-bank groups.
+template <typename T> __device__ __forceinline__ int x_chunk(int r, int c) {
+  return sizeof(T) == 4 ? c ^ ((r & 3) << 1) : c ^ (r & 7);
+}
+
+// Two values (rounded to T) to consecutive elements of shared memory.
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// cp.async helpers (16-byte copies; zero-filled when !valid).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 // out[g][c] = sum of in[r][c] over rows r of group g ([g * rpg, (g+1) * rpg)

@@ -16,23 +16,30 @@
 // mask at :501). At expansion 1 the sums are 0, as there.
 //
 // e must equal K9's (ir_train_expand_dw.cu) bit for bit, or the backward's
-// ReLU6 mask can disagree with the forward's activation: each element of e
-// is one fmaf chain over ci = 0..Cin-1 from 0, rounded to the input dtype,
-// as expand_halo (ir_train_common.cuh) computes it. Here the chain runs over
-// Cin in chunks of 8, carried in registers, in the same order.
+// ReLU6 mask can disagree with the forward's activation: both compute it
+// with the shared expand_step (ir_train_common.cuh) on the tensor cores,
+// k-steps of 16 input channels in increasing order, from the same x values
+// and W1 fragments, and the same halo pixel and channel land in the same
+// fragment position in both (16-pixel m-tiles of the same halo, 8-channel
+// n-tiles of the same 32-channel chunk). Both kernels' probe builds write e
+// so that chip_smoke.py can compare the two bit for bit.
 //
 // Design. A work item is (image, 8x8 output tile, 32 hidden channels),
 // ordered image, tile, channel chunk (fastest), so consecutive items of a
 // block share the input halo and find it in L2. Persistent blocks, as many
 // as the SMs hold (ir_train_dw_bwd_occupancy), each walk a contiguous range
 // of items. Per item, with the next item's loads in flight (cp.async):
-//   A  the expand: x's halo tile ((7s+3)^2 pixels) and W1's rows arrive in
-//      Cin chunks of 8 through a two-slot ring, the next chunk (or the next
-//      item's first) loading while this one is multiplied; each thread
-//      carries a 4-channel x ceil(pin/32)-pixel register tile of e (8
-//      loads per 32 fmaf per chunk row), and e is kept once, in the input
-//      dtype; e_act = round(relu6(e * s1 + b1)) is recomputed where it is
-//      read (zero outside the image);
+//   A  the expand, on the tensor cores (expand_step, the tiles shared among
+//      the warps as in K9; W1's fragments read through L1). Where it leaves
+//      two blocks an SM (every stride-1 stage; stride 2 at Cin 32, and in
+//      bf16 at Cin 64), x's whole halo tile ((7s+3)^2 pixels, all Cin) is
+//      staged once per tile and serves the tile's consecutive items, the
+//      next tile's loading (cp.async) once every warp has expanded (FULL);
+//      else it arrives in Cin chunks of 16 through a two-slot ring
+//      (XOR-swizzled 16-byte chunks), the next chunk (or the next item's
+//      first) loading while this one is multiplied. e is kept once, in the
+//      input dtype; e_act = round(relu6(e * s1 + b1)) is recomputed where it
+//      is read (zero outside the image);
 //   B  dd on the 10x10 output halo, from d, dv2 and the item's 18 channel
 //      vectors, which were staged during the previous item;
 //   C  tap sums (warp = output column, lane = channel; each halo row's
@@ -44,99 +51,62 @@
 // device memory (read at the item's start, written at its end, by the
 // same thread: no atomics), and the next item's d, dv2 and vectors start
 // loading into the space those sums used. sum_rows adds the blocks' rows
-// in a fixed order, so every sum is deterministic. Shared memory per block:
-// 98.2 KB f32 / 57.7 KB bf16 at stride 2, 62.0 / 39.6 KB at stride 1
-// (ir_train_dw_bwd_smem), against 34.0-174.8 KB in the first version: 2 or
-// 3 resident blocks of 8 warps per SM at every stage, against 1 or 2 at
-// stages 2-5.
+// in a fixed order, so every sum is deterministic. Shared memory per block
+// at the student's stages 1-5 (ir_train_dw_bwd_smem): 53.5 / 114.7 / 79.1 /
+// 114.7 / 104.7 KB f32, 34.3 / 83.4 / 47.1 / 83.4 / 59.9 KB bf16; 2 resident
+// blocks of 8 warps per SM (at most 128 registers a thread).
 //
-// Bound on the H100: operations for stages 2-5, 2*B*H*W*Cin*Ce (the expand
-// recompute) + 36*B*Ho*Wo*Ce (tap sums and the transposed conv) multiply-adds
-// on CUDA cores (f32), against reading x, d and dv2 and writing dv1; bytes
-// for the expansion-1 stage. The halo recompute adds (7s+3)^2/(8s)^2 - 1 of
+// Bound on the H100: the expand recompute's products on the tensor cores
+// (2*B*H*W*Cin*Ce each; 6 in f32, 1 in bf16) at 989 TFLOP/s plus
+// 36*B*Ho*Wo*Ce multiply-adds (tap sums and the transposed conv) on CUDA
+// cores, against reading x, d and dv2 and writing dv1; bytes for the
+// expansion-1 stage. The halo recompute adds (7s+3)^2/(8s)^2 - 1 of
 // the expand work (56% at stride 1, 13% at stride 2).
 
 #include "ir_train_common.cuh"
-
-#include <stdint.h>
 
 namespace {
 
 using namespace irt;
 
-constexpr int kCK = 8;            // input channels per ring chunk
+constexpr int kCK = 16;           // input channels per ring chunk: one k-step
 constexpr int kDH = kT + 2;       // dd halo side: output rows/cols o0-1 .. o0+8
 constexpr int kNDH = kDH * kDH;
 constexpr int kNV = 18;           // channel vectors: 9 taps, s1 b1 m1 inv1, u2 p2 q2 m2 inv2
 constexpr int kNS = 11;           // per-channel sums: 9 taps, ra, rb
 
-template <typename T, int S, bool EXP>
+// Shared memory, in order: x (FULL: the whole halo [PIN][ldx], staged once
+// per tile; else a two-slot ring of [PIN][kCK] chunks), e
+// [PIN][kKC], dd [kNDH][kKC] f32, the staging of d and dv2 (later the
+// warps' sums) and the channel vectors [kNV][kKC] f32.
+template <typename T, int S, bool EXP, bool FULL>
 struct Layout {
   static constexpr int TIN = S * (kT - 1) + 3;
   static constexpr int PIN = TIN * TIN;
-  static constexpr int R = (PIN + 31) / 32;  // expand pixel rows per thread
   static constexpr int ES = (int)sizeof(T);
-  static constexpr int RING_X = EXP ? PIN * kCK * ES : 0;  // one slot
-  static constexpr int RING_W = EXP ? kCK * kKC * 4 : 0;
   static constexpr int STG_IN = 2 * kNDH * kKC * ES;
   static constexpr int RED = 8 * kNS * kKC * 4;
   static constexpr int STG = STG_IN > RED ? STG_IN : RED;
-  static constexpr int O_RX = 0;
-  static constexpr int O_RW = O_RX + 2 * RING_X;
-  static constexpr int O_E = O_RW + 2 * RING_W;
-  static constexpr int O_DD = O_E + PIN * kKC * ES;
-  static constexpr int O_STG = O_DD + kNDH * kKC * 4;
-  static constexpr int O_VEC = O_STG + STG;
-  static constexpr int BYTES = O_VEC + kNV * kKC * 4;
-  static_assert(RING_X % 16 == 0 && O_E % 16 == 0 && O_DD % 16 == 0 && O_STG % 16 == 0,
+  static constexpr int E_B = PIN * kKC * ES, DD_B = kNDH * kKC * 4;
+  static constexpr int REST = E_B + DD_B + STG + kNV * kKC * 4;
+  __host__ __device__ static int x_bytes(int ldx) {
+    return !EXP ? 0 : FULL ? PIN * ldx * ES : 2 * PIN * kCK * ES;
+  }
+  __host__ __device__ static int bytes(int ldx) { return x_bytes(ldx) + REST; }
+  static_assert(E_B % 16 == 0 && DD_B % 16 == 0 && STG % 16 == 0 && (PIN * kCK * ES) % 16 == 0,
                 "16-byte aligned regions");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Eight consecutive elements of one smem row as f32.
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-// Four values (already rounded to T) to one smem row.
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
+// Physical 16-byte chunk of logical chunk c in ring row r (rows of 16
+// channels): a half-warp's float2 fragment reads (f32, rows g..g+3) or a
+// warp's 32-bit reads (bf16, rows g..g+7) then hit all banks.
+template <typename T> __device__ __forceinline__ int ring_chunk(int r, int c) {
+  return sizeof(T) == 4 ? c ^ (((r >> 1) & 1) << 1) : c ^ ((r >> 2) & 1);
 }
 
 struct Params {
   const void* x;
-  const float* w1;
+  const uint2* w1f;       // W1's fragments (ops/ir_fused.py::mma_fragments)
   const float* vec[kNV];  // dw rows 0-8 ([9][Ce]), s1, b1, m1, inv1, u2, p2, q2, m2, inv2
   const void* dv2;
   const void* d;
@@ -144,25 +114,31 @@ struct Params {
   float* part_dw;         // [grid][9 * Ce]
   float* part_a;          // [grid][Ce]
   float* part_b;          // [grid][Ce]
+  float* probe;           // [B][H][W][Ce] f32 e of every tile's own pixels, or null
   int H, W, Ho, Wo, Cin, Ce, tiles_x, tiles, nch;
+  int ksteps;             // k-steps per n-tile in w1f
+  int ldx;                // row width of the staged halo (FULL)
   long long items;
 };
 
-template <typename T, int S, bool EXP>
-__global__ void __launch_bounds__(kThreads, S == 1 ? 3 : 2)
+// PROBE (chip_smoke.py's check of e against K9) also writes e to P.probe;
+// the main path's build has no trace of it.
+template <typename T, int S, bool EXP, bool FULL, bool PROBE>
+__global__ void __launch_bounds__(kThreads, 2)
 dw_bwd_kernel(const Params P) {
-  using L = Layout<T, S, EXP>;
-  constexpr int TIN = L::TIN, PIN = L::PIN, R = L::R;
+  using L = Layout<T, S, EXP, FULL>;
+  constexpr int TIN = L::TIN, PIN = L::PIN;
+  constexpr int E = 16 / (int)sizeof(T);  // elements a 16-byte copy
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  T* ring_x = reinterpret_cast<T*>(smem + L::O_RX);        // [2][PIN][kCK]
-  float* ring_w = reinterpret_cast<float*>(smem + L::O_RW);  // [2][kCK][kKC]
-  T* ebuf = reinterpret_cast<T*>(smem + L::O_E);             // [PIN][kKC] e (x at e1)
-  float* ddb = reinterpret_cast<float*>(smem + L::O_DD);     // [kNDH][kKC] dd
-  T* stg_d = reinterpret_cast<T*>(smem + L::O_STG);          // [kNDH][kKC] d
+  const int o_e = L::x_bytes(P.ldx), o_dd = o_e + L::E_B, o_stg = o_dd + L::DD_B;
+  T* ring_x = reinterpret_cast<T*>(smem);                    // [2][PIN][kCK], or the halo
+  T* ebuf = reinterpret_cast<T*>(smem + o_e);                // [PIN][kKC] e (x at e1)
+  float* ddb = reinterpret_cast<float*>(smem + o_dd);        // [kNDH][kKC] dd
+  T* stg_d = reinterpret_cast<T*>(smem + o_stg);             // [kNDH][kKC] d
   T* stg_v = stg_d + kNDH * kKC;                             // [kNDH][kKC] dv2
-  float* red = reinterpret_cast<float*>(smem + L::O_STG);    // [8][kNS][kKC], after B
-  float* vec = reinterpret_cast<float*>(smem + L::O_VEC);    // [kNV][kKC]
+  float* red = reinterpret_cast<float*>(smem + o_stg);       // [8][kNS][kKC], after B
+  float* vec = reinterpret_cast<float*>(smem + o_stg + L::STG);  // [kNV][kKC]
 
   const T* __restrict__ x = static_cast<const T*>(P.x);
   const T* __restrict__ dv2 = static_cast<const T*>(P.dv2);
@@ -170,39 +146,49 @@ dw_bwd_kernel(const Params P) {
   T* __restrict__ dv1 = static_cast<T*>(P.dv1);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int H = P.H, W = P.W, Ho = P.Ho, Wo = P.Wo, Cin = P.Cin, Ce = P.Ce;
-  const int nc = EXP ? Cin / kCK : 0;
+  const int nc = EXP ? (Cin + kCK - 1) / kCK : 0;
   const long long first = P.items * blockIdx.x / gridDim.x;
   const long long last = P.items * (blockIdx.x + 1) / gridDim.x;
 
-  struct Item { int b, oy0, ox0, k0; };
+  struct Item { int b, oy0, ox0, k0; long long tile; };
   auto decode = [&](long long it) {
     Item r;
     const long long rest = it / P.nch;
     r.k0 = (int)(it - rest * P.nch) * kKC;
+    r.tile = rest;  // image * tiles + tile
     const int tile = (int)(rest % P.tiles);
     r.b = (int)(rest / P.tiles);
     r.oy0 = (tile / P.tiles_x) * kT;
     r.ox0 = (tile % P.tiles_x) * kT;
     return r;
   };
-  // x's halo, channels [cc * kCK, +kCK), and W1's rows for them.
+  // FULL: x's whole halo for the item's tile (zero past Cin and outside
+  // the image).
+  auto issue_halo = [&](const Item& it) {
+    const int cpp = (Cin + 15) / 16 * 16 / E;
+    for (int i = tid; i < PIN * cpp; i += kThreads) {
+      const int p = i / cpp, c = i - p * cpp;
+      const int iy = it.oy0 * S - 1 + p / TIN, ix = it.ox0 * S - 1 + p % TIN;
+      const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W && c * E < Cin;
+      cp_async16(ring_x + p * P.ldx + x_chunk<T>(p, c) * E,
+                 ok ? (const void*)(x + (((size_t)it.b * H + iy) * W + ix) * Cin + c * E)
+                    : P.x,
+                 ok);
+    }
+  };
+  // x's halo, channels [cc * kCK, +kCK) (zero past Cin).
   auto issue_x = [&](const Item& it, int cc, int slot) {
-    constexpr int CPP = kCK * (int)sizeof(T) / 16;  // 16-byte copies per pixel
+    constexpr int CPP = kCK / E;            // 16-byte copies per pixel
     T* dst = ring_x + (size_t)slot * PIN * kCK;
     for (int i = tid; i < PIN * CPP; i += kThreads) {
       const int p = i / CPP, c = i - p * CPP;
       const int iy = it.oy0 * S - 1 + p / TIN, ix = it.ox0 * S - 1 + p % TIN;
-      const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W;
-      cp_async16(dst + p * kCK + c * (16 / (int)sizeof(T)),
+      const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W && cc * kCK + c * E < Cin;
+      cp_async16(dst + p * kCK + ring_chunk<T>(p, c) * E,
                  ok ? (const void*)(x + (((size_t)it.b * H + iy) * W + ix) * Cin + cc * kCK +
-                                    c * (16 / (int)sizeof(T)))
+                                    c * E)
                     : P.x,
                  ok);
-    }
-    if (tid < kCK * kKC / 4) {
-      const int ci = tid / (kKC / 4), c = tid % (kKC / 4);
-      cp_async16(ring_w + (size_t)slot * kCK * kKC + ci * kKC + 4 * c,
-                 P.w1 + (size_t)(cc * kCK + ci) * Ce + it.k0 + 4 * c, true);
     }
   };
   // d and dv2 on the output halo, the channel vectors, and (expansion 1) x's
@@ -250,13 +236,15 @@ dw_bwd_kernel(const Params P) {
 
   {
     const Item it = decode(first);
-    if (EXP) issue_x(it, 0, 0);
+    if (FULL) issue_halo(it);
+    else if (EXP) issue_x(it, 0, 0);
     cp_commit();
     issue_stage(it);
     cp_commit();
   }
   int q = 0;  // ring chunks consumed so far
-  const int kq = tid & 7, pg = tid >> 3;
+  long long prev_tile = -1;  // the tile whose halo is staged (FULL)
+  const int g = lane >> 2, t4 = lane & 3;  // fragment row and column
   for (long long item = first; item < last; ++item) {
     const Item it = decode(item);
     const bool has_next = item + 1 < last;
@@ -274,53 +262,88 @@ dw_bwd_kernel(const Params P) {
       old[u] = sum_ptr[u] ? *sum_ptr[u] : 0.f;
     }
 
-    // A: the expand, e = round(x . W1), one fmaf chain per element.
+    // A: the expand, e = round(x . W1), through the shared expand_step, the
+    // m-tiles and n-tiles shared among the warps as in K9 (HaloTiling).
     if (EXP) {
-      float acc[R][4];
+      using HT = HaloTiling<PIN>;
+      const int m0 = HT::m0(warp), n0 = HT::n0(warp);
+      float acc[HT::UPW][HT::NPW][4];
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+      for (int u = 0; u < HT::UPW; ++u)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-      for (int cc = 0; cc < nc; ++cc, ++q) {
-        if (cc == 0) cp_wait<1>(); else cp_wait<0>();
-        __syncthreads();
-        if (cc + 1 < nc) issue_x(it, cc + 1, (q + 1) & 1);
-        else if (has_next) issue_x(decode(item + 1), 0, (q + 1) & 1);
-        cp_commit();
-        const T* xs = ring_x + (size_t)(q & 1) * PIN * kCK;
-        const float* ws = ring_w + (size_t)(q & 1) * kCK * kKC;
-        float w[kCK][4];
+        for (int j = 0; j < HT::NPW; ++j)
 #pragma unroll
-        for (int ci = 0; ci < kCK; ++ci) {
-          const float4 v = *reinterpret_cast<const float4*>(ws + ci * kKC + 4 * kq);
-          w[ci][0] = v.x; w[ci][1] = v.y; w[ci][2] = v.z; w[ci][3] = v.w;
+          for (int r = 0; r < 4; ++r) acc[u][j][r] = 0.f;
+      auto w_at = [&](int cc) {
+        return [&, cc](int j) {
+          return P.w1f + ((size_t)(it.k0 / 8 + n0 + j) * P.ksteps + cc) * Mma<T>::terms * 32;
+        };
+      };
+      if constexpr (FULL) {
+        // The halo of a new tile has landed (issued after the previous
+        // item's expand); a tile's items all expand from it.
+        if (it.tile != prev_tile) {
+          cp_wait<0>();
+          __syncthreads();
         }
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int p = min(pg + 32 * r, PIN - 1);
-          float xv[kCK];
-          load8(xs + p * kCK, xv);
-#pragma unroll
-          for (int ci = 0; ci < kCK; ++ci)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(xv[ci], w[ci][c], acc[r][c]);
+        for (int cc = 0; cc < nc; ++cc) {
+          uint32_t w[HT::NPW][Mma<T>::terms][2];
+          halo_load_w<T, HT>(w, lane, w_at(cc));
+          halo_expand_step<T, HT>(acc, m0, lane, w, [&](int r, int k) {
+            k += 16 * cc;
+            return r < PIN ? pair_at(ring_x, r, x_chunk<T>(r, k / E) * E + k % E, P.ldx)
+                           : zero_pair<T>();
+          });
+        }
+      } else {
+        for (int cc = 0; cc < nc; ++cc, ++q) {
+          // This chunk's W1 fragments load while the block waits for its x.
+          uint32_t w[HT::NPW][Mma<T>::terms][2];
+          halo_load_w<T, HT>(w, lane, w_at(cc));
+          if (cc == 0) cp_wait<1>(); else cp_wait<0>();
+          __syncthreads();
+          if (cc + 1 < nc) issue_x(it, cc + 1, (q + 1) & 1);
+          else if (has_next) issue_x(decode(item + 1), 0, (q + 1) & 1);
+          cp_commit();
+          const T* xs = ring_x + (size_t)(q & 1) * PIN * kCK;
+          halo_expand_step<T, HT>(acc, m0, lane, w, [&](int r, int k) {
+            return r < PIN ? pair_at(xs, r, ring_chunk<T>(r, k / E) * E + k % E, kCK)
+                           : zero_pair<T>();
+          });
         }
       }
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int p = pg + 32 * r;
-        if (p < PIN) {
-          float v[4];
+      for (int u = 0; u < HT::UPW; ++u) {
+        const int mt = m0 + 8 * u;
 #pragma unroll
-          for (int c = 0; c < 4; ++c) v[c] = round_to<T>(acc[r][c]);
-          store4(ebuf + p * kKC + 4 * kq, v);
-        }
+        for (int j = 0; j < HT::NPW; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * mt + g + 8 * h;
+            if (mt >= HT::MT || r >= PIN) continue;
+            const int cl = 8 * (n0 + j) + 2 * t4;
+            const float e0 = round_to<T>(acc[u][j][2 * h]), e1 = round_to<T>(acc[u][j][2 * h + 1]);
+            store_pair(ebuf + r * kKC + cl, e0, e1);
+            const int hy = r / TIN, hx = r - hy * TIN;
+            const int iy = it.oy0 * S - 1 + hy, ix = it.ox0 * S - 1 + hx;
+            if (PROBE && hy >= 1 && hy <= kT * S && hx >= 1 && hx <= kT * S && iy < H &&
+                ix < W)
+              store_pair(P.probe + (((size_t)it.b * H + iy) * W + ix) * Ce + it.k0 + cl, e0, e1);
+          }
       }
-      cp_wait<1>();  // this item's stage; the next item's first x chunk may fly
+      if (FULL) cp_wait<0>();  // this item's stage
+      else cp_wait<1>();  // this item's stage; the next item's first x chunk may fly
     } else {
       cp_wait<0>();
     }
     __syncthreads();
+    if (FULL) {
+      // Every warp has expanded from the halo: the next tile's may load.
+      const Item nx = has_next ? decode(item + 1) : it;
+      if (nx.tile != it.tile) issue_halo(nx);
+      cp_commit();
+      prev_tile = it.tile;
+    }
 
     // B: dd on the output halo.
     {
@@ -436,46 +459,59 @@ dw_bwd_kernel(const Params P) {
   cp_wait<0>();
 }
 
-template <typename T, int S, bool EXP>
-cudaError_t prepare(int* per_sm) {
-  using L = Layout<T, S, EXP>;
-  cudaError_t e = cudaFuncSetAttribute(dw_bwd_kernel<T, S, EXP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+template <typename T, int S, bool EXP, bool FULL>
+cudaError_t prepare(int ldx, int* per_sm, int* bytes) {
+  using L = Layout<T, S, EXP, FULL>;
+  *bytes = L::bytes(ldx);
+  if (*bytes > kSmemBlock) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(dw_bwd_kernel<T, S, EXP, FULL, false>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, *bytes);
+  if (e == cudaSuccess && EXP)
+    e = cudaFuncSetAttribute(dw_bwd_kernel<T, S, EXP, FULL, EXP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, *bytes);
   if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, dw_bwd_kernel<T, S, EXP>,
-                                                       kThreads, L::BYTES);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, dw_bwd_kernel<T, S, EXP, FULL, false>, kThreads, *bytes);
+}
+
+// The whole halo once per tile (FULL) at stride 1, and at stride 2 where it
+// still leaves two blocks an SM; else the ring.
+template <typename T>
+bool full_halo(int Cin, int stride) {
+  return stride == 1 || Layout<T, 2, true, true>::bytes(row_ld(Cin, sizeof(T))) <= kSmemTwoBlocks;
 }
 
 template <typename T>
-int smem_of(int stride, int has_expand) {
-  if (stride == 1)
-    return has_expand ? Layout<T, 1, true>::BYTES : Layout<T, 1, false>::BYTES;
-  return has_expand ? Layout<T, 2, true>::BYTES : Layout<T, 2, false>::BYTES;
+cudaError_t prepare_t(int Cin, int stride, int has_expand, int* per_sm, int* bytes) {
+  const int ldx = row_ld(Cin, sizeof(T));
+  if (!has_expand)
+    return stride == 1 ? prepare<T, 1, false, false>(ldx, per_sm, bytes)
+                       : prepare<T, 2, false, false>(ldx, per_sm, bytes);
+  if (stride == 1) return prepare<T, 1, true, true>(ldx, per_sm, bytes);
+  return full_halo<T>(Cin, 2) ? prepare<T, 2, true, true>(ldx, per_sm, bytes)
+                              : prepare<T, 2, true, false>(ldx, per_sm, bytes);
 }
 
-// Blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -error.
-int occupancy(int stride, int has_expand, int dtype) {
-  int n = 0;
-  cudaError_t e = cudaErrorInvalidValue;
-  if (dtype == 0) {
-    if (stride == 1) e = has_expand ? prepare<float, 1, true>(&n) : prepare<float, 1, false>(&n);
-    else e = has_expand ? prepare<float, 2, true>(&n) : prepare<float, 2, false>(&n);
-  } else if (dtype == 1) {
-    using BF = __nv_bfloat16;
-    if (stride == 1) e = has_expand ? prepare<BF, 1, true>(&n) : prepare<BF, 1, false>(&n);
-    else e = has_expand ? prepare<BF, 2, true>(&n) : prepare<BF, 2, false>(&n);
-  }
-  return e == cudaSuccess ? n : -(int)e;
+// Blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the
+// shared memory a block uses.
+cudaError_t occupancy(int Cin, int stride, int has_expand, int dtype, int* per_sm, int* bytes) {
+  if (dtype == 0) return prepare_t<float>(Cin, stride, has_expand, per_sm, bytes);
+  if (dtype == 1) return prepare_t<__nv_bfloat16>(Cin, stride, has_expand, per_sm, bytes);
+  return cudaErrorInvalidValue;
 }
 
 long long n_items(int B, int Ho, int Wo, int Ce) {
   return (long long)B * ((Ho + kT - 1) / kT) * ((Wo + kT - 1) / kT) * (Ce / kKC);
 }
 
-// Persistent grid: as many blocks as the SMs hold, at most one per item.
-long long grid_size(int B, int Ho, int Wo, int Ce, int stride, int has_expand, int dtype) {
-  const int per_sm = occupancy(stride, has_expand, dtype);
-  if (per_sm <= 0) return per_sm < 0 ? per_sm : -(long long)cudaErrorInvalidConfiguration;
+// Persistent grid: as many blocks as the SMs hold, at most one per item; or
+// -(CUDA error).
+long long grid_size(int B, int Ho, int Wo, int Cin, int Ce, int stride, int has_expand,
+                    int dtype, int* bytes) {
+  int per_sm = 0;
+  const cudaError_t e = occupancy(Cin, stride, has_expand, dtype, &per_sm, bytes);
+  if (e != cudaSuccess) return -(long long)e;
+  if (per_sm <= 0) return -(long long)cudaErrorInvalidConfiguration;
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
@@ -485,67 +521,91 @@ long long grid_size(int B, int Ho, int Wo, int Ce, int stride, int has_expand, i
   return items < g ? items : g;
 }
 
-template <typename T, int S, bool EXP>
-cudaError_t run(const Params& p, int grid, cudaStream_t s) {
-  dw_bwd_kernel<T, S, EXP><<<grid, kThreads, Layout<T, S, EXP>::BYTES, s>>>(p);
+template <typename T, int S, bool EXP, bool FULL>
+cudaError_t run(const Params& p, int grid, int bytes, cudaStream_t s) {
+  if (EXP && p.probe)
+    dw_bwd_kernel<T, S, EXP, FULL, EXP><<<grid, kThreads, bytes, s>>>(p);
+  else
+    dw_bwd_kernel<T, S, EXP, FULL, false><<<grid, kThreads, bytes, s>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const Params& p, int grid, int stride, int has_expand, cudaStream_t s) {
-  if (stride == 1) return has_expand ? run<T, 1, true>(p, grid, s) : run<T, 1, false>(p, grid, s);
-  return has_expand ? run<T, 2, true>(p, grid, s) : run<T, 2, false>(p, grid, s);
+cudaError_t dispatch(const Params& p, int grid, int bytes, int stride, int has_expand,
+                     cudaStream_t s) {
+  if (!has_expand)
+    return stride == 1 ? run<T, 1, false, false>(p, grid, bytes, s)
+                       : run<T, 2, false, false>(p, grid, bytes, s);
+  if (stride == 1) return run<T, 1, true, true>(p, grid, bytes, s);
+  return full_halo<T>(p.Cin, 2) ? run<T, 2, true, true>(p, grid, bytes, s)
+                                : run<T, 2, true, false>(p, grid, bytes, s);
 }
 
 }  // namespace
 
-// Shared memory one block uses.
-extern "C" int ir_train_dw_bwd_smem(int stride, int has_expand, int dtype) {
-  if (stride != 1 && stride != 2) return -1;
-  return dtype == 0 ? smem_of<float>(stride, has_expand) : smem_of<__nv_bfloat16>(stride, has_expand);
+// Shared memory one block uses, or -(CUDA error) (cudaErrorInvalidValue:
+// more than a block may have).
+extern "C" int ir_train_dw_bwd_smem(int Cin, int stride, int has_expand, int dtype) {
+  if (Cin <= 0 || (stride != 1 && stride != 2)) return -(int)cudaErrorInvalidValue;
+  int per_sm = 0, bytes = 0;
+  const cudaError_t e = occupancy(Cin, stride, has_expand, dtype, &per_sm, &bytes);
+  return e == cudaSuccess || e == cudaErrorInvalidValue ? bytes : -(int)e;
 }
 
 // Resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // or -(CUDA error).
-extern "C" int ir_train_dw_bwd_occupancy(int stride, int has_expand, int dtype) {
-  if (stride != 1 && stride != 2) return -(int)cudaErrorInvalidValue;
-  return occupancy(stride, has_expand, dtype);
+extern "C" int ir_train_dw_bwd_occupancy(int Cin, int stride, int has_expand, int dtype) {
+  if (Cin <= 0 || (stride != 1 && stride != 2)) return -(int)cudaErrorInvalidValue;
+  int per_sm = 0, bytes = 0;
+  const cudaError_t e = occupancy(Cin, stride, has_expand, dtype, &per_sm, &bytes);
+  return e == cudaSuccess ? per_sm : -(int)e;
 }
 
 // Number of partial rows: the persistent grid's blocks, one row each; or
 // -(CUDA error).
-extern "C" int ir_train_dw_bwd_rows(int B, int Ho, int Wo, int Ce, int stride, int has_expand,
-                                    int dtype) {
-  if (B <= 0 || Ho <= 0 || Wo <= 0 || Ce <= 0 || Ce % kKC || (stride != 1 && stride != 2))
+extern "C" int ir_train_dw_bwd_rows(int B, int Ho, int Wo, int Cin, int Ce, int stride,
+                                    int has_expand, int dtype) {
+  if (B <= 0 || Ho <= 0 || Wo <= 0 || Cin <= 0 || Ce <= 0 || Ce % kKC ||
+      (stride != 1 && stride != 2))
     return -(int)cudaErrorInvalidValue;
-  return (int)grid_size(B, Ho, Wo, Ce, stride, has_expand, dtype);
+  int bytes = 0;
+  return (int)grid_size(B, Ho, Wo, Cin, Ce, stride, has_expand, dtype, &bytes);
 }
 
 // x [B, H, W, Cin], dv2 and d [B, Ho, Wo, Ce], dv1 [B, H, W, Ce] out, NHWC
-// (dtype 0 = f32, 1 = bf16, all the same, 16-byte aligned); w1 [Cin, Ce]
-// f32 holding input-dtype values and s1/b1/m1/inv1 [Ce] f32 (unused, may be
-// null, when has_expand is 0; then Ce == Cin); dw [9, Ce] f32 holding
+// (dtype 0 = f32, 1 = bf16, all the same, 16-byte aligned); w1f W1's mma
+// fragments (ops/ir_fused.py::mma_fragments, `ksteps` k-steps per n-tile)
+// and s1/b1/m1/inv1 [Ce] f32 (unused, may be null, when has_expand is 0;
+// then Ce == Cin); dw [9, Ce] f32 holding
 // input-dtype values; u2/p2/q2/m2/inv2 [Ce] f32; part_dw [rows][9*Ce],
 // part_a/part_b [rows][Ce] f32 (rows = ir_train_dw_bwd_rows); scratch
-// [ceil(rows/rpg)][9*Ce] f32; ddw [9, Ce], ra/rb [Ce] f32 out. H and W even at
-// stride 2 (Ho = H/2); Cin % 8 == 0, Ce % 32 == 0.
-extern "C" int ir_train_dw_bwd(const void* x, const void* w1, const void* s1, const void* b1,
+// [ceil(rows/rpg)][9*Ce] f32; ddw [9, Ce], ra/rb [Ce] f32 out; probe null,
+// or [B, H, W, Ce] f32 that receives e (rounded to the input dtype) of
+// every pixel. H and W even at stride 2 (Ho = H/2); Cin % 8 == 0, Ce % 32
+// == 0.
+extern "C" int ir_train_dw_bwd(const void* x, const void* w1f, const void* s1, const void* b1,
                                const void* m1, const void* inv1, const void* dw, const void* dv2,
                                const void* u2, const void* p2, const void* q2, const void* d,
                                const void* m2, const void* inv2, void* dv1, void* part_dw,
                                void* part_a, void* part_b, void* scratch, void* ddw, void* ra,
-                               void* rb, int B, int H, int W, int Ho, int Wo, int Cin, int Ce,
-                               int stride, int has_expand, int rpg, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Ce <= 0 || Cin % kCK || Ce % kKC ||
+                               void* rb, void* probe, int B, int H, int W, int Ho, int Wo,
+                               int Cin, int Ce, int ksteps, int stride, int has_expand, int rpg,
+                               int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Ce <= 0 || Cin % 8 || Ce % kKC ||
+      (has_expand && (!w1f || ksteps * 16 < Cin)) ||
       (stride != 1 && stride != 2) || Ho * stride != H || Wo * stride != W ||
       (!has_expand && Ce != Cin) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const long long grid = grid_size(B, Ho, Wo, Ce, stride, has_expand, dtype);
+  int bytes = 0;
+  const long long grid = grid_size(B, Ho, Wo, Cin, Ce, stride, has_expand, dtype, &bytes);
   if (grid <= 0) return grid < 0 ? (int)-grid : (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p;
   p.x = x;
-  p.w1 = static_cast<const float*>(w1);
+  p.w1f = static_cast<const uint2*>(w1f);
+  p.probe = static_cast<float*>(probe);
+  p.ksteps = ksteps;
+  p.ldx = row_ld(Cin, dtype == 0 ? 4 : 2);
   const float* dwf = static_cast<const float*>(dw);
   for (int t = 0; t < 9; ++t) p.vec[t] = dwf + (size_t)t * Ce;
   const void* v[] = {s1, b1, m1, inv1, u2, p2, q2, m2, inv2};
@@ -562,8 +622,8 @@ extern "C" int ir_train_dw_bwd(const void* x, const void* w1, const void* s1, co
   p.tiles = p.tiles_x * ((Ho + kT - 1) / kT);
   p.nch = Ce / kKC;
   p.items = n_items(B, Ho, Wo, Ce);
-  cudaError_t e = dtype == 0 ? dispatch<float>(p, (int)grid, stride, has_expand, s)
-                             : dispatch<__nv_bfloat16>(p, (int)grid, stride, has_expand, s);
+  cudaError_t e = dtype == 0 ? dispatch<float>(p, (int)grid, bytes, stride, has_expand, s)
+                             : dispatch<__nv_bfloat16>(p, (int)grid, bytes, stride, has_expand, s);
   if (e != cudaSuccess) return (int)e;
   float* sc = static_cast<float*>(scratch);
   e = sum_rows(p.part_dw, grid, 9LL * Ce, rpg, sc, static_cast<float*>(ddw), s);

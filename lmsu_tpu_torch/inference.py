@@ -21,6 +21,17 @@ import torch
 from lmsu_tpu_torch.config import ModelConfig
 from lmsu_tpu_torch.data.rasterize import make_point_sorter
 from lmsu_tpu_torch.models import create_model
+from lmsu_tpu_torch.models.factory import check_kernel_shapes
+
+
+def pin_f32_precision() -> None:
+    """Full f32 for f32 work on the card: cuDNN convolutions and cuBLAS
+    matmuls without TF32 (PyTorch's default lets cuDNN use TF32, which keeps
+    about three decimal digits). The port's f32 is held against the JAX
+    package at "highest" precision, so the CLIs and chip_smoke.py set this
+    once at start-up; the JAX package has no flag for it either."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -42,6 +53,7 @@ class Predictor:
         self.device = resolve_device(device)
         self.config = config
         self.model = create_model(config, seed=seed)
+        check_kernel_shapes(self.model, self.device, train=False)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()

@@ -16,6 +16,8 @@ import torch.nn as nn
 
 from lmsu_tpu_torch.config import ModelConfig
 from lmsu_tpu_torch.models.fusion import CompleteSegmentationModel
+from lmsu_tpu_torch.models.layers import InvertedResidual
+from lmsu_tpu_torch.ops.ir_fused import check_fused_infer, check_fused_train
 
 # What this slice of the port runs; other values are not ported yet.
 _SUPPORTED = {"fusion_type": ("weighted",), "output_mode": ("same",)}
@@ -49,6 +51,24 @@ def create_model(config: Optional[ModelConfig] = None, *, seed: int = 0
                 if m.bias is not None:
                     m.bias.zero_()
     return model
+
+
+def check_kernel_shapes(model: nn.Module, device: torch.device, train: bool = True) -> None:
+    """Before a model runs on a CUDA device, refuses by name each fused
+    InvertedResidual whose widths its kernels do not take: K3 for
+    fused_inference, and when the model will train, K9, K12 and K13 for
+    fused_train. The plain versions that CPU tensors take have no limits."""
+    if torch.device(device).type != "cuda":
+        return
+    for name, m in model.named_modules():
+        if not isinstance(m, InvertedResidual):
+            continue
+        cin, cout = m.widths
+        ce = m.conv[3 if m.has_expand else 0].weight.shape[0]
+        if train and m.fused_train:
+            check_fused_train(name, cin, ce, m.has_expand, m.stride)
+        if m.fused_inference:
+            check_fused_infer(name, cin, ce, cout, m.stride)
 
 
 def count_parameters(model: nn.Module) -> int:

@@ -151,6 +151,7 @@ class InvertedResidual(nn.Module):
         self.use_residual = stride == 1 and in_ch == out_ch
         self.fused_inference = fused_inference
         self.fused_train = fused_train
+        self.widths = (in_ch, out_ch)
         layers: List[nn.Module] = []
         if self.has_expand:
             layers += conv_bn_act(in_ch, hidden, 1, act=ReLU6())

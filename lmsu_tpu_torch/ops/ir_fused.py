@@ -57,6 +57,7 @@ import torch.nn.functional as F
 
 from lmsu_tpu_torch.ops._cuda import (_I, _L, _P, CudaKernel, aligned16, check_cuda_args,
                                       dtype_code, ptr, stream_ptr)
+from lmsu_tpu_torch.ops.kd_loss import split_bf16
 
 KERNEL = CudaKernel("ir_fused_infer.cu", {
     "ir_fused_infer": (_P,) * 12 + (_I,) * 13 + (_P,)})
@@ -121,6 +122,27 @@ def _smem_bytes(stride: int, cin: int, cout: int) -> int:
     return 4 * (cin * ppad + pin * 32 + cin * 32 + 32 * 68 + 32 * cout)
 
 
+def fused_infer_limits(cin: int, ce: int, cout: int, stride: int) -> list:
+    """What K3 cannot take for a block with these widths (empty when it
+    takes it)."""
+    bad = []
+    if cout > 256:
+        bad.append(f"Cout={cout} > 256 (K3 keeps a pixel's outputs in registers)")
+    if cin % 4 or ce % 4 or cout % 4:
+        bad.append(f"channel counts Cin={cin}, Ce={ce}, Cout={cout} are not multiples of 4")
+    if _smem_bytes(stride, cin, cout) > _SMEM_LIMIT:
+        bad.append(f"Cin={cin}, Cout={cout} at stride {stride} overflow a block's shared memory")
+    return bad
+
+
+def check_fused_infer(stage: str, cin: int, ce: int, cout: int, stride: int) -> None:
+    """Refuses, by stage, a block that fused_inference's kernel cannot run."""
+    bad = fused_infer_limits(cin, ce, cout, stride)
+    if bad:
+        raise ValueError(f"{stage}: CameraEncoderConfig(fused_inference=True) cannot run this "
+                         f"block on the card: {'; '.join(bad)}; use fused_inference=False")
+
+
 def _hidden_split(blocks: int, smem: int, ce: int, device: torch.device) -> int:
     """How many blocks share one tile's hidden chunks: enough that the grid
     fills every SM as far as shared memory lets blocks co-reside (the 32x32
@@ -144,9 +166,9 @@ def fused_ir_infer(x: torch.Tensor, p: IRParams, stride: int = 1) -> torch.Tenso
     has_expand = p.w1 is not None
     if not has_expand and Ce != Cin:
         raise ValueError("expansion-1 block must have Ce == Cin")
-    if Cout > 256 or Cin % 4 or Ce % 4 or Cout % 4:
-        raise ValueError(f"fused_ir_infer kernel takes channel counts that are multiples "
-                         f"of 4 and Cout <= 256, got Cin={Cin}, Ce={Ce}, Cout={Cout}")
+    bad = fused_infer_limits(Cin, Ce, Cout, stride)
+    if bad:
+        raise ValueError(f"fused_ir_infer kernel cannot take this block: {'; '.join(bad)}")
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     dt = x.dtype
     x = x.contiguous()
@@ -162,9 +184,6 @@ def fused_ir_infer(x: torch.Tensor, p: IRParams, stride: int = 1) -> torch.Tenso
         w1 = s1 = b1 = None
         dev = check_cuda_args(x, dw, w2, *f32)
     smem = _smem_bytes(stride, Cin, Cout)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"fused IR block too wide for shared memory (Cin={Cin}, "
-                         f"Cout={Cout}, stride {stride}); use fused_inference=False")
     nsplit = _hidden_split(B * -(-Ho // 8) * -(-Wo // 8), smem, Ce, dev)
     out = torch.empty(B, Ho, Wo, Cout, dtype=dt, device=dev)
     partial = (torch.empty(nsplit, B, Ho, Wo, Cout, dtype=torch.float32, device=dev)
@@ -187,22 +206,24 @@ STATS1 = CudaKernel("ir_train_stats1.cu", {
     "ir_train_stats1": (_P,) * 7 + (_L,) + (_I,) * 4 + (_P,),
     "ir_train_stats1_rows": (_L,)})
 EXPAND_DW = CudaKernel("ir_train_expand_dw.cu", {
-    "ir_train_expand_dw": (_P,) * 11 + (_I,) * 11 + (_P,),
-    "ir_train_expand_dw_smem": (_I,) * 3,
-    "ir_train_expand_dw_rows": (_I,) * 3})
+    "ir_train_expand_dw": (_P,) * 12 + (_I,) * 10 + (_P,),
+    "ir_train_expand_dw_smem": (_I,) * 4,
+    "ir_train_expand_dw_occupancy": (_I,) * 4,
+    "ir_train_expand_dw_rows": (_I,) * 8})
 PROJ = CudaKernel("ir_train_proj.cu", {
     "ir_train_proj": (_P,) * 5 + (_L,) + (_I,) * 3 + (_P,)})
 PROJ_BWD = CudaKernel("ir_train_proj_bwd.cu", {
     "ir_train_proj_bwd": (_P,) * 15 + (_L,) + (_I,) * 5 + (_P,),
     "ir_train_proj_bwd_rows": (_L,)})
 DW_BWD = CudaKernel("ir_train_dw_bwd.cu", {
-    "ir_train_dw_bwd": (_P,) * 22 + (_I,) * 11 + (_P,),
-    "ir_train_dw_bwd_smem": (_I,) * 3,
-    "ir_train_dw_bwd_occupancy": (_I,) * 3,
-    "ir_train_dw_bwd_rows": (_I,) * 7})
+    "ir_train_dw_bwd": (_P,) * 23 + (_I,) * 12 + (_P,),
+    "ir_train_dw_bwd_smem": (_I,) * 4,
+    "ir_train_dw_bwd_occupancy": (_I,) * 4,
+    "ir_train_dw_bwd_rows": (_I,) * 8})
 EXPAND_BWD = CudaKernel("ir_train_expand_bwd.cu", {
-    "ir_train_expand_bwd": (_P,) * 13 + (_L,) + (_I,) * 5 + (_P,),
-    "ir_train_expand_bwd_cblocks": (_I,)})
+    "ir_train_expand_bwd": (_P,) * 14 + (_L,) + (_I,) * 7 + (_P,),
+    "ir_train_expand_bwd_groups": (_I,) * 3,
+    "ir_train_expand_bwd_smem": (_I,) * 3})
 
 _F32 = torch.float32
 
@@ -276,6 +297,119 @@ def _dw_taps(dw, dt):
     return _rnd(dw, dt).permute(2, 0, 1).unsqueeze(1)
 
 
+# The shared expand of K9, K12 and K13 (csrc/ir_train_common.cuh::expand_step)
+# ---------------------------------------------------------------------------
+
+# bf16 terms of each f32 operand: products x_i . W_j with i + j < EXPAND_TERMS
+# (six for f32, one exact product for bf16). Chosen with `expand_e_emulated`
+# at the student's widths (tests/test_torch_ir_expand_split.py): two terms
+# leave e more than 1e-6 of its scale from the float64 product, three well
+# inside it.
+EXPAND_TERMS = 3
+_FRAG_PAD = 64  # fragment arrays pad K and N to multiples of this
+
+
+def mma_products(dtype: torch.dtype) -> int:
+    """bf16 tensor-core products the kernels issue per f32-level product:
+    f32 operands are split into EXPAND_TERMS terms, bf16 ones are exact."""
+    terms = 1 if dtype == torch.bfloat16 else EXPAND_TERMS
+    return sum(1 for i in range(terms) for j in range(terms) if i + j < terms)
+
+
+def _terms(v: torch.Tensor, dt: torch.dtype, terms: int = EXPAND_TERMS) -> list:
+    """v (holding dt values) as the kernels' bf16 terms, as f32 tensors."""
+    return [v.float()] if dt == torch.bfloat16 else split_bf16(v.float(), terms)
+
+
+def mma_fragments(b: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """A [K, N] B operand (values of dt) -> the kernels' pre-split fragment
+    array [Np/8, Kp/16, terms, 32, 4] bf16 (Kp, Np: K, N padded with zeros
+    to multiples of 64; terms 3 for f32, 1 for bf16): for n-tile j, k-step s
+    and term i, lane 4 g + t holds b_i[16 s + 2 t + (0, 1, 8, 9)][8 j + g],
+    the B fragment of mma.m16n8k16 (ir_train_common.cuh::load_b)."""
+    k, n = b.shape
+    kp, np_ = -(-k // _FRAG_PAD) * _FRAG_PAD, -(-n // _FRAG_PAD) * _FRAG_PAD
+    t = torch.stack([F.pad(v, (0, np_ - n, 0, kp - k)) for v in _terms(b, dt)])
+    t = t.reshape(t.shape[0], kp // 16, 2, 4, 2, np_ // 8, 8)     # i, s, h, t, e, j, g
+    return t.permute(5, 1, 0, 6, 3, 2, 4).reshape(np_ // 8, kp // 16, -1, 32, 4) \
+        .to(torch.bfloat16).contiguous()
+
+
+def _fragments(w: torch.Tensor, dt: torch.dtype) -> Tuple[torch.Tensor, int]:
+    """mma_fragments(w) and its k-steps per n-tile."""
+    f = mma_fragments(w, dt)
+    return f, f.shape[1]
+
+
+def expand_e_emulated(x: torch.Tensor, w1: torch.Tensor,
+                      terms: int = EXPAND_TERMS) -> torch.Tensor:
+    """The shared expand's arithmetic in plain PyTorch (tests only; the main
+    path never calls it): e = x @ W1 rounded to x's dtype, as f32, with f32
+    operands split into `terms` bf16 terms, per 16-channel k-step the
+    products x_i W_j (i + j < terms) summed smallest first into a fresh f32
+    sum, and each k-step's sum added to the running total."""
+    dt = x.dtype
+    cin = x.shape[-1]
+    xs = _terms(x.reshape(-1, cin), dt, terms)
+    ws = _terms(_rnd(w1, dt), dt, terms)
+    pairs = [(i, s - i) for s in range(terms - 1, -1, -1) for i in range(terms - 1, -1, -1)
+             if 0 <= s - i < len(ws) and i < len(xs)]
+    acc = None
+    for k0 in range(0, cin, 16):
+        tmp = None
+        for i, j in pairs:
+            prod = xs[i][:, k0:k0 + 16] @ ws[j][k0:k0 + 16]
+            tmp = prod if tmp is None else tmp + prod
+        acc = tmp if acc is None else acc + tmp
+    return _rnd(acc, dt).reshape(*x.shape[:-1], -1)
+
+
+# Shape limits of K9, K12 and K13 on the card (the JAX package's kernels
+# have none): refused by name when a model is built, not mid-step.
+
+def _k13_smem(cin: int, cg: int, nbuf: int, es: int) -> int:
+    """csrc/ir_train_expand_bwd.cu::smem_of."""
+    k16 = -(-cin // 16) * 16
+    ldt = -(-k16 // 64) * 64
+    nt = 3 if es == 4 else 1
+    x = nbuf * 64 * k16 * 4 + nt * 64 * ldt * 2 if es == 4 else nbuf * 64 * ldt * 2
+    return x + nt * 64 * 64 * 2 + cin * cg * 4 + 5 * cg * 4
+
+
+def _k12_smem(cin: int, stride: int, es: int) -> int:
+    """csrc/ir_train_dw_bwd.cu::Layout::bytes with an expand: stride 1
+    stages the whole halo (100 pixels, Cin padded to 128 bytes), stride 2 a
+    ring of 16-channel chunks."""
+    if stride == 2:
+        return 114688 if es == 4 else 64896
+    per = 128 // es
+    ldx = -(-(-(-cin // 16) * 16) // per) * per
+    return 100 * ldx * es + (53504 if es == 4 else 34304)
+
+
+def fused_train_limits(cin: int, ce: int, has_expand: bool, stride: int = 1) -> list:
+    """What K9, K12 or K13 cannot take for a block with these widths (empty
+    when the kernels take it)."""
+    bad = []
+    if cin % 8:
+        bad.append(f"Cin={cin} is not a multiple of 8 (K9, K12, K13 copy x in 16-byte rows)")
+    if ce % 32:
+        bad.append(f"Ce={ce} is not a multiple of 32 (K12 walks 32-channel items)")
+    if has_expand and _k12_smem(cin, stride, 4) > _SMEM_LIMIT:
+        bad.append(f"Cin={cin} at stride 1 overflows K12's shared memory with the halo")
+    if has_expand and _k13_smem(cin, 64, 0, 4) > _SMEM_LIMIT:
+        bad.append(f"Cin={cin} leaves K13 no 64-channel group in a block's shared memory")
+    return bad
+
+
+def check_fused_train(stage: str, cin: int, ce: int, has_expand: bool, stride: int = 1) -> None:
+    """Refuses, by stage, a block that fused_train's kernels cannot run."""
+    bad = fused_train_limits(cin, ce, has_expand, stride)
+    if bad:
+        raise ValueError(f"{stage}: CameraEncoderConfig(fused_train=True) cannot run this block "
+                         f"on the card: {'; '.join(bad)}; use fused_train=False")
+
+
 # K8 ----------------------------------------------------------------------
 
 
@@ -323,40 +457,41 @@ def expand_dw_plain(x, w1, s1, b1, dw, stride):
     return d, d32.sum((0, 1, 2)), (d32 * d32).sum((0, 1, 2))
 
 
-def expand_dw(x, w1, s1, b1, dw, stride):
-    """K9 (`_expand_dw_kernel`); w1, s1, b1 None at expansion 1."""
+def expand_dw(x, w1, s1, b1, dw, stride, *, probe: Optional[torch.Tensor] = None):
+    """K9 (`_expand_dw_kernel`); w1, s1, b1 None at expansion 1. `probe`
+    (CUDA, with w1): an f32 [B, H, W, Ce] tensor that the kernel also fills
+    with e, rounded to x's dtype (chip_smoke.py compares it with K12's)."""
     B, H, W, cin = x.shape
     _check_spatial(H, W, stride)
     ce = dw.shape[-1]
     _check_shapes("expand_dw", w1=(w1, (cin, ce)), s1=(s1, (ce,)), b1=(b1, (ce,)),
-                  dw=(dw, (3, 3, ce)))
+                  dw=(dw, (3, 3, ce)), probe=(probe, (B, H, W, ce)))
     if not _on_card("expand_dw", x):
         return expand_dw_plain(x, w1, s1, b1, dw, stride)
     has_expand = w1 is not None
-    if cin % 4 or (not has_expand and ce != cin):
-        raise ValueError(f"expand_dw kernel takes Cin % 4 == 0 (and Ce == Cin at "
+    if cin % 8 or (not has_expand and ce != cin):
+        raise ValueError(f"expand_dw kernel takes Cin % 8 == 0 (and Ce == Cin at "
                          f"expansion 1), got Cin={cin}, Ce={ce}")
-    lib = EXPAND_DW.lib()
-    if lib.ir_train_expand_dw_smem(cin, stride, int(has_expand)) > _SMEM_LIMIT:
-        raise ValueError(f"fused training block too wide for shared memory (Cin={cin}, "
-                         f"stride {stride}); use fused_train=False")
     dt = x.dtype
-    x = x.contiguous()
+    x = aligned16(x.contiguous())
     Ho, Wo = H // stride, W // stride
     taps = _w(dw, dt).reshape(9, ce)
     if has_expand:
-        w, (sv, bv) = _w(w1, dt), _v(s1, b1)
-        dev = check_cuda_args(x, w, sv, bv, taps)
+        (wf, ks), (sv, bv) = _fragments(_w(w1, dt), dt), _v(s1, b1)
+        dev = check_cuda_args(x, wf, sv, bv, taps)
     else:
-        w = sv = bv = None
+        wf, ks, sv, bv = None, 0, None, None
         dev = check_cuda_args(x, taps)
-    rows = lib.ir_train_expand_dw_rows(B, Ho, Wo)
+    rows = EXPAND_DW.lib().ir_train_expand_dw_rows(B, H, W, cin, ce, stride, int(has_expand),
+                                                   dtype_code(x))
+    if rows <= 0:
+        raise RuntimeError(f"ir_train_expand_dw_rows: CUDA error {-rows}")
     part = torch.empty(2, rows, ce, dtype=_F32, device=dev)
     out = torch.empty(2, ce, dtype=_F32, device=dev)
     d = torch.empty(B, Ho, Wo, ce, dtype=dt, device=dev)
-    EXPAND_DW.launch("ir_train_expand_dw", ptr(x), ptr(w), ptr(sv), ptr(bv), ptr(taps), ptr(d),
+    EXPAND_DW.launch("ir_train_expand_dw", ptr(x), ptr(wf), ptr(sv), ptr(bv), ptr(taps), ptr(d),
                      ptr(part[0]), ptr(part[1]), ptr(_scratch(dev, (rows, ce))), ptr(out[0]),
-                     ptr(out[1]), B, H, W, Ho, Wo, cin, ce, stride, int(has_expand),
+                     ptr(out[1]), ptr(probe), B, H, W, cin, ce, ks, stride, int(has_expand),
                      _REDUCE_ROWS, dtype_code(x), stream_ptr(dev))
     return d, out[0], out[1]
 
@@ -468,13 +603,16 @@ def dw_bwd_plain(x, w1, s1, b1, m1, inv1, dw, dv2, u2, p2, q2, d, m2, inv2, stri
     return dv1.to(dt).contiguous(), ddw, ra, rb
 
 
-def dw_bwd(x, w1, s1, b1, m1, inv1, dw, dv2, u2, p2, q2, d, m2, inv2, stride):
-    """K12 (`_dw_bwd_kernel`); w1, s1, b1, m1, inv1 None at expansion 1."""
+def dw_bwd(x, w1, s1, b1, m1, inv1, dw, dv2, u2, p2, q2, d, m2, inv2, stride, *,
+           probe: Optional[torch.Tensor] = None):
+    """K12 (`_dw_bwd_kernel`); w1, s1, b1, m1, inv1 None at expansion 1.
+    `probe` as for expand_dw: the kernel also writes its e there."""
     B, H, W, cin = x.shape
     _check_spatial(H, W, stride)
     ce = dw.shape[-1]
     om = (B, H // stride, W // stride, ce)
     _check_shapes("dw_bwd", w1=(w1, (cin, ce)), dw=(dw, (3, 3, ce)), dv2=(dv2, om), d=(d, om),
+                  probe=(probe, (B, H, W, ce)),
                   **{k: (v, (ce,)) for k, v in (("s1", s1), ("b1", b1), ("m1", m1),
                                                 ("inv1", inv1), ("u2", u2), ("p2", p2),
                                                 ("q2", q2), ("m2", m2), ("inv2", inv2))})
@@ -493,13 +631,14 @@ def dw_bwd(x, w1, s1, b1, m1, inv1, dw, dv2, u2, p2, q2, d, m2, inv2, stride):
     taps = _w(dw, dt).reshape(9, ce)
     u2, p2, q2, m2, inv2 = _v(u2, p2, q2, m2, inv2)
     if has_expand:
-        w = _w(w1, dt)
+        w, ks = _fragments(_w(w1, dt), dt)
         s1, b1, m1, inv1 = _v(s1, b1, m1, inv1)
         dev = check_cuda_args(x, w, s1, b1, m1, inv1, taps, dv2, u2, p2, q2, d, m2, inv2)
     else:
         w = s1 = b1 = m1 = inv1 = None
+        ks = 0
         dev = check_cuda_args(x, taps, dv2, u2, p2, q2, d, m2, inv2)
-    rows = lib.ir_train_dw_bwd_rows(B, Ho, Wo, ce, stride, int(has_expand), dtype_code(x))
+    rows = lib.ir_train_dw_bwd_rows(B, Ho, Wo, cin, ce, stride, int(has_expand), dtype_code(x))
     if rows <= 0:
         raise RuntimeError(f"ir_train_dw_bwd_rows: CUDA error {-rows}")
     part_dw = torch.empty(rows, 9 * ce, dtype=_F32, device=dev)
@@ -510,9 +649,9 @@ def dw_bwd(x, w1, s1, b1, m1, inv1, dw, dv2, u2, p2, q2, d, m2, inv2, stride):
     DW_BWD.launch("ir_train_dw_bwd", ptr(x), ptr(w), ptr(s1), ptr(b1), ptr(m1), ptr(inv1),
                   ptr(taps), ptr(dv2), ptr(u2), ptr(p2), ptr(q2), ptr(d), ptr(m2), ptr(inv2),
                   ptr(dv1), ptr(part_dw), ptr(part[0]), ptr(part[1]),
-                  ptr(_scratch(dev, (rows, 9 * ce))), ptr(ddw), ptr(r[0]), ptr(r[1]), B, H, W,
-                  Ho, Wo, cin, ce, stride, int(has_expand), _REDUCE_ROWS, dtype_code(x),
-                  stream_ptr(dev))
+                  ptr(_scratch(dev, (rows, 9 * ce))), ptr(ddw), ptr(r[0]), ptr(r[1]),
+                  ptr(probe), B, H, W, Ho, Wo, cin, ce, ks, stride, int(has_expand),
+                  _REDUCE_ROWS, dtype_code(x), stream_ptr(dev))
     return dv1, ddw, r[0], r[1]
 
 
@@ -541,24 +680,29 @@ def expand_bwd(x, w1, m1, inv1, u1, p1, q1, dv1):
                                                 ("p1", p1), ("q1", q1))})
     if not _on_card("expand_bwd", x):
         return expand_bwd_plain(x, w1, m1, inv1, u1, p1, q1, dv1)
-    if cin > 128 or dv1.dtype != x.dtype:
-        raise ValueError(f"expand_bwd kernel takes Cin <= 128 and x, dv1 of one dtype, got "
-                         f"Cin={cin}, {x.dtype} and {dv1.dtype}")
-    x, dv1 = x.contiguous(), dv1.contiguous()
+    if cin % 8 or ce % 8 or dv1.dtype != x.dtype:
+        raise ValueError(f"expand_bwd kernel takes Cin % 8 == 0, Ce % 8 == 0 and x, dv1 of one "
+                         f"dtype, got Cin={cin}, Ce={ce}, {x.dtype} and {dv1.dtype}")
+    dt = x.dtype
+    x, dv1 = aligned16(x.contiguous()), aligned16(dv1.contiguous())
     M = x.numel() // cin
-    w = _w(w1, x.dtype)
+    w = _w(w1, dt)
+    (wf, ks), (wtf, kst) = _fragments(w, dt), _fragments(w.T, dt)
     vs = _v(m1, inv1, u1, p1, q1)
-    dev = check_cuda_args(x, w, *vs, dv1)
-    ncb = EXPAND_BWD.lib().ir_train_expand_bwd_cblocks(ce)
+    dev = check_cuda_args(x, wf, wtf, *vs, dv1)
+    ngroups = EXPAND_BWD.lib().ir_train_expand_bwd_groups(cin, ce, dtype_code(x))
+    if ngroups <= 0:
+        raise ValueError(f"expand_bwd kernel: Cin={cin} leaves no 64-channel group in a "
+                         f"block's shared memory")
     nstrip = -(-M // _STRIP_ROWS)
-    dxp = torch.empty(ncb, M, cin, dtype=_F32, device=dev)
+    dxp = torch.empty(ngroups, M, cin, dtype=_F32, device=dev) if ngroups > 1 else None
     dw1p = torch.empty(nstrip, cin * ce, dtype=_F32, device=dev)
-    scratch = _scratch(dev, (ncb, M * cin), (nstrip, cin * ce))
+    scratch = _scratch(dev, (ngroups, M * cin), (nstrip, cin * ce))
     dx = torch.empty(x.shape, dtype=_F32, device=dev)
     dw1 = torch.empty(cin, ce, dtype=_F32, device=dev)
-    EXPAND_BWD.launch("ir_train_expand_bwd", ptr(x), ptr(w), *(ptr(v) for v in vs), ptr(dv1),
-                      ptr(dxp), ptr(dw1p), ptr(scratch), ptr(dx), ptr(dw1), M, cin, ce,
-                      _STRIP_ROWS, _REDUCE_ROWS, dtype_code(x), stream_ptr(dev))
+    EXPAND_BWD.launch("ir_train_expand_bwd", ptr(x), ptr(wf), ptr(wtf), *(ptr(v) for v in vs),
+                      ptr(dv1), ptr(dxp), ptr(dw1p), ptr(scratch), ptr(dx), ptr(dw1), M, cin,
+                      ce, ks, kst, _STRIP_ROWS, _REDUCE_ROWS, dtype_code(x), stream_ptr(dev))
     return dx, dw1
 
 

@@ -95,6 +95,26 @@ def fragment_terms(projection: torch.Tensor) -> torch.Tensor:
     return torch.stack(terms, dim=1).contiguous()
 
 
+def kd_feature_mse_limits(cs: int, ct: int) -> list:
+    """What K7 cannot take for student / teacher tap widths (empty when it
+    takes them)."""
+    bad = []
+    if cs % 8 or ct % 8:
+        bad.append(f"Cs={cs}, Ct={ct} are not multiples of 8 (16-byte rows)")
+    if ct > 512:
+        bad.append(f"Ct={ct} > 512 (P's three bf16 terms fill a block's shared memory)")
+    return bad
+
+
+def check_kd_feature_mse(tap: str, cs: int, ct: int, teacher_width_mult: float) -> None:
+    """Refuses, by tap, a feature-matching width K7 cannot take."""
+    bad = kd_feature_mse_limits(cs, ct)
+    if bad:
+        raise ValueError(f"KD tap {tap!r} with KDConfig.teacher_width_mult="
+                         f"{teacher_width_mult:g}: the feature-MSE kernel (KDConfig.use_pallas) "
+                         f"cannot take it on the card: {'; '.join(bad)}; use use_pallas=False")
+
+
 def mse_partials_plain(s3: torch.Tensor, t3: torch.Tensor,
                        projection: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernel: S [B, M, Cs], T [B, M, Ct], P [Ct, Cs]
@@ -117,9 +137,9 @@ def mse_partials(s3: torch.Tensor, t3: torch.Tensor, projection: torch.Tensor
         raise ValueError("student and teacher taps must match in [B, M] and dtype")
     if projection.shape != (ct, cs):
         raise ValueError(f"projection must be [{ct}, {cs}], got {tuple(projection.shape)}")
-    if cs % 8 or ct % 8 or ct > 512:
-        raise ValueError(f"kd_feature_mse kernel takes Cs % 8 == 0, Ct % 8 == 0 and "
-                         f"Ct <= 512; got Cs={cs}, Ct={ct}")
+    bad = kd_feature_mse_limits(cs, ct)
+    if bad:
+        raise ValueError(f"kd_feature_mse kernel cannot take these taps: {'; '.join(bad)}")
     s3 = aligned16(s3.contiguous())
     t3 = aligned16(t3.contiguous())
     p = fragment_terms(projection)

@@ -91,7 +91,10 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    from lmsu_tpu_torch.inference import pin_f32_precision
     from lmsu_tpu_torch.serving import make_server
+
+    pin_f32_precision()
 
     engine = build_engine(args)
     print("Warming up (kernel build, one forward per batch size)...", flush=True)

@@ -138,10 +138,11 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> float:
-    from lmsu_tpu_torch.inference import resolve_device
+    from lmsu_tpu_torch.inference import pin_f32_precision, resolve_device
     from lmsu_tpu_torch.training import DistillationTrainer, Trainer
     args = make_parser().parse_args(argv)
     resolve_device(args.device)
+    pin_f32_precision()
     cfg, tcfg_model = build_configs(args)
 
     teacher_sd = None

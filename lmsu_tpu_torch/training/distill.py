@@ -36,7 +36,8 @@ import torch
 
 from lmsu_tpu_torch.config import ExperimentConfig, ModelConfig, teacher_config
 from lmsu_tpu_torch.models import create_model
-from lmsu_tpu_torch.ops.kd_loss import kd_total_loss_fused
+from lmsu_tpu_torch.models.factory import check_kernel_shapes
+from lmsu_tpu_torch.ops.kd_loss import check_kd_feature_mse, kd_total_loss_fused
 from lmsu_tpu_torch.ops.losses import kd_total_loss
 from lmsu_tpu_torch.ops.metrics import confusion_matrix
 from lmsu_tpu_torch.training.trainer import Trainer
@@ -99,8 +100,12 @@ class DistillationTrainer(Trainer):
         if sd is not None:
             self.teacher.load_state_dict(sd, strict=True)
         self.teacher.to(self.device).eval().requires_grad_(False)
+        check_kernel_shapes(self.teacher, self.device, train=False)
         self._teacher_sd = None
         s_ch, t_ch = tap_channels(self.config.model), tap_channels(self.teacher_config)
+        if self.kd.use_pallas and self.device.type == "cuda":
+            for tap in self.kd.feature_taps:
+                check_kd_feature_mse(tap, s_ch[tap], t_ch[tap], self.kd.teacher_width_mult)
         gen = torch.Generator().manual_seed(seed + 2)
         self.proj = torch.nn.ParameterDict()
         for tap in self.kd.feature_taps:

@@ -33,6 +33,7 @@ import torch
 from lmsu_tpu_torch.config import ExperimentConfig
 from lmsu_tpu_torch.inference import resolve_device
 from lmsu_tpu_torch.models import create_model
+from lmsu_tpu_torch.models.factory import check_kernel_shapes
 from lmsu_tpu_torch.ops.losses import weighted_cross_entropy
 from lmsu_tpu_torch.ops.metrics import confusion_matrix, iou_from_confusion
 from lmsu_tpu_torch.training import checkpoint as ckpt
@@ -113,6 +114,7 @@ class Trainer:
         tc = config.train
         self.model = (model if model is not None
                       else create_model(config.model, seed=tc.seed)).to(self.device)
+        check_kernel_shapes(self.model, self.device)
         self.steps_per_epoch = max(1, len(train_loader))
         self.class_weights = (torch.tensor(tc.class_weights, dtype=torch.float32,
                                            device=self.device)

@@ -126,16 +126,28 @@ def test_folded_params_refold_after_weight_change(rng):
 
 
 def test_whole_encoder_fused_and_unfused_match_jax(rng):
-    """TwinLite (default widths) with randomised BN statistics: every stage
-    of the port's encoder, both paths, against the JAX encoder in eval."""
+    """TwinLite (default widths) with randomised BN statistics, running
+    means centred (N(0, 0.2), as chip_smoke.py::randomize_bn draws them) and
+    variances U(0.5, 2.0): every stage of the port's encoder, both paths,
+    against the JAX encoder in eval. Each compared map must vary over
+    pixels (means drawn from the variances' law zero the stem's ReLU6 and
+    leave every stage spatially constant)."""
     x = rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)
     enc = JaxTwinLite(JaxCameraConfig())
     v = enc.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)
+
+    def stat(path, a):
+        if path[-1].key == "mean":
+            return rng.normal(0, 0.2, a.shape).astype(np.float32)
+        return rng.uniform(0.5, 2.0, a.shape).astype(np.float32)
+
     v = {"params": jax.tree_util.tree_map(np.asarray, v["params"]),
-         "batch_stats": jax.tree_util.tree_map(
-             lambda a: rng.uniform(0.5, 2.0, a.shape).astype(np.float32), v["batch_stats"])}
+         "batch_stats": jax.tree_util.tree_map_with_path(stat, v["batch_stats"])}
     with jax.default_matmul_precision("highest"):
         want = enc.apply(v, jnp.asarray(x), train=False)
+    for k in want:
+        w = np.asarray(want[k], np.float64)
+        assert w.std(axis=(1, 2)).max() > 1e-2 * max(1.0, np.abs(w).max()), k
     p, s = v["params"], v["batch_stats"]
     sd = {}
     _conv_bn_sd(sd, "stem.0", "stem.1", p["stem"], s["stem"])

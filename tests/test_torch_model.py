@@ -53,7 +53,10 @@ def _configs(opt_ins: bool, scatter: str = ""):
 
 @pytest.fixture(scope="module")
 def jax_variables():
-    """JAX-initialised variables with randomised BN statistics (numpy)."""
+    """JAX-initialised variables with randomised BN statistics (numpy):
+    running means centred, N(0, 0.2), and variances U(0.5, 2.0), as
+    chip_smoke.py::randomize_bn draws them. (Means drawn from the variances'
+    law, U(0.5, 1.5), zero every ReLU of the head and leave constant logits.)"""
     jcfg, _ = _configs(False)
     r = np.random.default_rng(0)
     v = init_model(jax_create_model(jcfg), jax.random.PRNGKey(0), image_size=(IMG, IMG),
@@ -61,10 +64,41 @@ def jax_variables():
     v = jax.tree_util.tree_map(np.asarray, jax.device_get(v))
     v["params"] = jax.tree_util.tree_map(
         lambda a: a + r.normal(0, 0.05, a.shape).astype(np.float32), v["params"])
-    v["batch_stats"] = {k: jax.tree_util.tree_map(
-        lambda a: r.uniform(0.5, 1.5, a.shape).astype(np.float32), s)
-        for k, s in v["batch_stats"].items()}
+
+    def stat(path, a):
+        if path[-1].key == "mean":
+            return r.normal(0, 0.2, a.shape).astype(np.float32)
+        return r.uniform(0.5, 2.0, a.shape).astype(np.float32)
+
+    v["batch_stats"] = jax.tree_util.tree_map_with_path(stat, v["batch_stats"])
     return v
+
+
+def assert_varies(logits):
+    """Each image's map of each class varies over pixels (a fixture that
+    zeroes the signal would compare constants)."""
+    std = np.asarray(logits, np.float64).std(axis=(1, 2))
+    assert std.min() > 1e-2 * max(1.0, np.abs(logits).max()), std
+
+
+def _inputs(rng, jcfg, sort=True):
+    images = rng.integers(0, 256, (2, IMG, IMG, 3)).astype(np.uint8)
+    pts = rng.normal(0, 30, (2, NPTS, 4)).astype(np.float32)
+    pv = rng.uniform(size=(2, NPTS)) > 0.2
+    if sort:
+        # Sorted once on the host for both sides (the sorted kernels' contract).
+        sorter = make_point_sorter(GRID, jcfg.lidar.point_cloud_range)
+        rows = [sorter({"points": pts[i], "point_valid": pv[i]}) for i in range(2)]
+        pts = np.stack([r["points"] for r in rows])
+        pv = np.stack([r["point_valid"] for r in rows])
+    return images, pts, pv
+
+
+def _jax_logits(jcfg, variables, images, pts, pv):
+    with jax.default_matmul_precision("highest"):
+        return np.asarray(jax_create_model(jcfg).apply(
+            variables, jnp.asarray(images), jnp.asarray(pts), train=False,
+            point_valid=jnp.asarray(pv)).astype(jnp.float32))
 
 
 def test_full_width_weighted_student_parameter_count():
@@ -96,19 +130,9 @@ def test_logits_match_jax(jax_variables, rng, opt_ins, scatter):
     """With the "pallas" scatter the points stay in their order: neither
     package's Predictor sorts for it."""
     jcfg, pcfg = _configs(opt_ins, scatter)
-    images = rng.integers(0, 256, (2, IMG, IMG, 3)).astype(np.uint8)
-    pts = rng.normal(0, 30, (2, NPTS, 4)).astype(np.float32)
-    pv = rng.uniform(size=(2, NPTS)) > 0.2
-    if scatter != "pallas":
-        # Sorted once on the host for both sides (the sorted kernels' contract).
-        sorter = make_point_sorter(GRID, jcfg.lidar.point_cloud_range)
-        rows = [sorter({"points": pts[i], "point_valid": pv[i]}) for i in range(2)]
-        pts = np.stack([r["points"] for r in rows])
-        pv = np.stack([r["point_valid"] for r in rows])
-    with jax.default_matmul_precision("highest"):
-        want = np.asarray(jax_create_model(jcfg).apply(
-            jax_variables, jnp.asarray(images), jnp.asarray(pts), train=False,
-            point_valid=jnp.asarray(pv)))
+    images, pts, pv = _inputs(rng, jcfg, sort=scatter != "pallas")
+    want = _jax_logits(jcfg, jax_variables, images, pts, pv)
+    assert_varies(want)
     pred = Predictor(pcfg, from_jax_variables(jax_variables, pcfg), device="cpu")
     assert (pred._sorter is not None) == (pcfg.lidar.scatter_impl == "sorted_pallas")
     got = pred(images, pts, pv)
@@ -118,6 +142,26 @@ def test_logits_match_jax(jax_variables, rng, opt_ins, scatter):
     top2 = np.sort(want, axis=-1)
     margin = top2[..., -1] - top2[..., -2]
     assert not ((got.argmax(-1) != want.argmax(-1)) & (margin > 1e-3)).any()
+
+
+def test_bf16_logits_match_jax_bf16(jax_variables, rng):
+    """compute_dtype=bfloat16 on both sides, kernel opt-ins on. Limit, from
+    JAX's own bf16-vs-f32 gap G on the same input: |port - JAX| <= 2 G (a
+    triangle through the f32 logits, each bf16 path as far from them as
+    JAX's is)."""
+    jcfg, pcfg = _configs(True)
+    images, pts, pv = _inputs(rng, jcfg)
+    f32 = _jax_logits(jcfg, jax_variables, images, pts, pv)
+    jcfg16 = dataclasses.replace(jcfg, compute_dtype=jnp.bfloat16)
+    want = _jax_logits(jcfg16, jax_variables, images, pts, pv)
+    gap = np.abs(want - f32).max()
+    assert_varies(want)
+    assert 0 < gap < 0.1 * np.abs(f32).max()
+    pred = Predictor(dataclasses.replace(pcfg, compute_dtype=torch.bfloat16),
+                     from_jax_variables(jax_variables, pcfg), device="cpu")
+    got = pred(images, pts, pv)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert np.abs(got.float().numpy() - want).max() <= 2 * gap
 
 
 def test_bf16_compute_runs_and_tracks_f32(jax_variables, rng):
