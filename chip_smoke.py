@@ -20,9 +20,13 @@ Phases:
              per SM at each stage; K9 and K12 must compute e = x . W1 bit
              for bit alike (each kernel's probe build writes its e; the
              count of differing elements is printed and must be 0), and
-             in f32 K13's dW1 must be within 1e-4 of scale of a float64
-             dW1 computed on the card. K7 also on a near-teacher student
-             (S = T.P + 1e-3 N(0, 1)); K2 also at C=512 (a 4x teacher). The scatter kernels K4 and K6 (and K1 beside
+             in f32 K13's dW1 and K11's dW2 must be within 1e-4 of scale
+             of a float64 dW1 / dW2 computed on the card; K10's and K11's
+             shared memory and resident blocks per SM are printed too; K11
+             also on ties (v2 exactly 0 and 6: dv2's zeros must be the
+             plain version's) and, beside K10, with Cout 1000 in chunks. K7
+             also on a near-teacher student (S = T.P + 1e-3 N(0, 1)); K2
+             also at C=512 (a 4x teacher). The scatter kernels K4 and K6 (and K1 beside
              K4) also on a skewed cloud: 2,000 of the 5,000 points in one
              cell, as zero padding puts them.
   3. serving the weighted-fusion student at full width with the three
@@ -522,6 +526,97 @@ def dw1_float64_error(x, w1, m1, inv1, u1, p1, q1, dv1, plain_dw1):
             (plain_dw1.double() - ref).abs().max().item() / scale)
 
 
+def dw2_float64_error(d, dy, s2, b2, dw2, plain_dw2):
+    """K11's dW2 (`dw2`) and its plain version's (`plain_dw2`) against dW2 =
+    d_act^T dy in float64 on the card (d_act = relu6(d s2 + b2) in float64,
+    from the same f32 inputs): each one's max abs difference over max(1,
+    max |dW2|)."""
+    ce, cout = d.shape[-1], dy.shape[-1]
+    d_act = d.reshape(-1, ce).double().mul_(s2.double()).add_(b2.double()).clamp_(0.0, 6.0)
+    ref = d_act.T @ dy.reshape(-1, cout).double()
+    del d_act
+    scale = max(1.0, ref.abs().max().item())
+    return ((dw2.double() - ref).abs().max().item() / scale,
+            (plain_dw2.double() - ref).abs().max().item() / scale)
+
+
+def check_proj_bwd_edges(rng, dev, dtype) -> dict:
+    """K11 on the card at what the student's stages do not reach. (a) Ties:
+    stage 2's widths (Ce 192, Cout 64) at B=2 with v2 = d s2 + b2 exactly 0
+    in channels 0-7 and exactly 6 in channels 8-23: dv2 must be zero exactly
+    where the plain version's is (all of channels 0-23), and every output
+    within check_close's limits. (b) Cout in chunks: Ce 768 -> Cout 1000
+    (wider than a group of W2^T's fragments takes in shared memory, in both
+    types; the last chunk ragged) on 16,384 pixels, so that each block walks
+    several tiles and chunks: K10 and K11 against their plain versions, and
+    in f32 K11's dW2 within 1e-4 of scale of float64; K11 and its plain
+    version timed there."""
+    from lmsu_tpu_torch.ops import ir_fused as irf
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    code = 0 if dtype == torch.float32 else 1
+    out = {}
+    m, ce, cout = 2 * 64 * 64, 192, 64
+    d = rng.normal(0, 2, (m, ce)).astype(np.float32)
+    s2, b2 = rng.uniform(0.5, 1.5, ce).astype(np.float32), rng.normal(0, 0.2, ce).astype(np.float32)
+    s2[:8], s2[8:16], s2[16:24] = 1.0, 1.0, 0.5
+    d[:, 8:16], b2[8:16] = 4.0, 2.0
+    d[:, 16:24], b2[16:24] = 12.0, 0.0
+    d[:, :8] = d[0, :8]
+    d = t(d).to(dtype)
+    s2, b2 = t(s2), t(b2)
+    b2[:8] = -d[0, :8].float()
+    v2 = d.float() * s2 + b2
+    if not ((v2[:, :8] == 0).all() and (v2[:, 8:24] == 6).all()):
+        raise AssertionError("check_proj_bwd_edges: the tie inputs do not give v2 = 0 and 6")
+    dy = t(rng.normal(0, 1, (m, cout))).to(dtype)
+    m2, inv2 = d.float().mean(0), torch.rsqrt(d.float().var(0, unbiased=False) + 1e-5)
+    w2 = t(rng.normal(0, np.sqrt(2.0 / ce), (ce, cout)))
+    args = (d, dy, s2, b2, m2, inv2, w2)
+    got, want = irf.proj_bwd(*args), irf.proj_bwd_plain(*args)
+    errs = [check_close(f"proj_bwd ties {k}", g, w, dtype, scaled=True)
+            for k, g, w in zip(("dv2", "dW2", "ra", "rb"), got, want)]
+    zero, zero_plain = got[0] == 0, want[0] == 0
+    passed = zero[:, 24:].logical_not().float().mean().item()
+    if not (zero[:, :24].all() and torch.equal(zero, zero_plain) and passed > 0.3):
+        raise AssertionError(f"proj_bwd ties [{dtype}]: dv2's zeros differ from the plain "
+                             f"version's ({int((zero != zero_plain).sum())} elements)")
+    out["ties"] = {"max_abs_err": max(errs), "dv2_zero_mismatch": 0,
+                   "nonzero_share_random_channels": passed}
+
+    m, ce, cout = 16384, 768, 1000
+    d = t(rng.normal(0, 1, (m, ce))).to(dtype)
+    s2, b2 = t(rng.uniform(0.5, 1.5, ce)), t(rng.normal(0, 0.2, ce))
+    m2, inv2 = d.float().mean(0), torch.rsqrt(d.float().var(0, unbiased=False) + 1e-5)
+    dy = t(rng.normal(0, 1, (m, cout))).to(dtype)
+    w2 = t(rng.normal(0, np.sqrt(2.0 / ce), (ce, cout)))
+    args = (d, dy, s2, b2, m2, inv2, w2)
+    y_err = check_close("proj chunks", irf.proj(d, s2, b2, w2), irf.proj_plain(d, s2, b2, w2),
+                        dtype, scaled=True)
+    got, want = irf.proj_bwd(*args), irf.proj_bwd_plain(*args)
+    errs = [check_close(f"proj_bwd chunks {k}", g, w, dtype, scaled=True)
+            for k, g, w in zip(("dv2", "dW2", "ra", "rb"), got, want)]
+    lib = irf.PROJ_BWD.lib()
+    chunks = {"channel_groups": lib.ir_train_proj_bwd_groups(ce, cout, code),
+              "cout_chunks": lib.ir_train_proj_bwd_chunks(ce, cout, code),
+              "spans": lib.ir_train_proj_bwd_rows(m, ce, cout, code),
+              "smem_bytes": lib.ir_train_proj_bwd_smem(ce, cout, code)}
+    if chunks["cout_chunks"] < 2:
+        raise AssertionError(f"proj_bwd chunks [{dtype}]: Cout={cout} ran in one chunk")
+    f64 = None
+    if dtype == torch.float32:
+        f64, _ = dw2_float64_error(d, dy, s2, b2, got[1], want[1])
+        if not f64 <= 1e-4:
+            raise AssertionError(f"proj_bwd chunks dW2: {f64:g} of scale from float64")
+    out["chunks"] = {"shape": [m, ce, cout], "proj_max_abs_err": y_err,
+                     "max_abs_err": max(errs), "dw2_float64_rel_err": f64,
+                     "ms": time_ms(lambda: irf.proj_bwd(*args), reps=5, inner=2),
+                     "plain_ms": time_ms(lambda: irf.proj_bwd_plain(*args), reps=3, inner=1),
+                     **chunks}
+    del got, want, args, d, dy
+    torch.cuda.empty_cache()
+    return out
+
+
 def _ir_train_inputs(rng, dev, dtype, H, Cin, Cout, stride, exp, B):
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
     Ce = Cin * exp
@@ -544,19 +639,22 @@ def kernel_ir_train(rng, dev, dtype, B=TRAIN_B, stages=IR_STAGES, timed=True):
     (cuDNN convs, train-mode BatchNorm) on the same input: the JAX package's
     own yardstick (scripts/profile_roofline.py:173-186). Bounds: each input
     read once, each output written once, and the operations at the card's
-    peak for the input type (bf16: the tensor cores'); K8, K10 and K11
-    compute in f32 on CUDA cores for both, so their bf16 gap to the bound is
-    the room that tensor-core tiles would take. K9, K12 and K13 run their
-    1x1 products on the bf16 tensor cores: their bounds count the products
-    they issue there (ir_fused.mma_products: 6 per f32 product, 1 per bf16)
-    at 989 TFLOP/s, beside the depthwise work on CUDA cores at 67 TFLOP/s
-    (the larger of the two, as the units overlap), against the bytes.
+    peak for the input type (bf16: the tensor cores'); K8 computes in f32
+    on CUDA cores for both, so its bf16 gap to the bound is the room that
+    tensor-core tiles would take. K9-K13 run their 1x1 products on the bf16
+    tensor cores: their bounds count the products they issue there
+    (ir_fused.mma_products: 6 per f32 product, 1 per bf16) at 989 TFLOP/s,
+    beside their elementwise work on CUDA cores at 67 TFLOP/s (the depthwise
+    of K9 and K12, BN2 + ReLU6 of K10 and K11; the larger of the two, as the
+    units overlap), against the bytes.
 
     Also, at every stage with an expand: K9 and K12 must compute the same e
     bit for bit (each kernel's probe writes the e of its own staging and
     tiling; the count of differing elements is printed and must be 0), and
     in f32 K13's dW1 must be within 1e-4 of scale of a float64 dW1 computed
-    on the card from the same inputs."""
+    on the card from the same inputs; at every stage, so must K11's f32 dW2
+    of a float64 dW2. K10's and K11's (and K12's) shared memory a block and
+    resident blocks per SM are printed for each stage."""
     from lmsu_tpu_torch.models.layers import InvertedResidual
     from lmsu_tpu_torch.ops import ir_fused as irf
     out = {k: {"stages": []} for k in IR_TRAIN_KERNELS}
@@ -618,20 +716,51 @@ def kernel_ir_train(rng, dev, dtype, B=TRAIN_B, stages=IR_STAGES, timed=True):
         s2, b2 = irf.fold_bn(g2, be2, m2, v2)
         del got, want
 
+        code = 0 if dtype == torch.float32 else 1
         args = (d, s2, b2, w2)
         errs = [check_close(f"proj {stage}", irf.proj(*args), irf.proj_plain(*args), dtype,
                             scaled=True)]
+        k10 = {}
+        if dev.type == "cuda":
+            lib = irf.PROJ.lib()
+            k10 = {"smem_bytes": lib.ir_train_proj_smem(Ce, Cout, code),
+                   "blocks_per_sm": lib.ir_train_proj_occupancy(Ce, Cout, code)}
+            log(f"[kernels] ir_train_proj {stage} {dtype}: {k10['smem_bytes']} bytes of shared "
+                f"memory a block, {k10['blocks_per_sm']} blocks of 8 warps per SM")
+        # The product on the tensor cores (mma_products per f32-level
+        # product) beside BN2 + ReLU6 of each d element on CUDA cores.
         record("ir_train_proj", lambda: irf.proj(*args), lambda: irf.proj_plain(*args), errs,
-               M2 * Ce * es + M2 * Cout * 4 + (Ce * Cout + 2 * Ce) * 4, 2 * M2 * Ce * Cout)
+               M2 * Ce * es + M2 * Cout * 4 + (Ce * Cout + 2 * Ce) * 4,
+               tc=products * 2 * M2 * Ce * Cout, cuda=4 * M2 * Ce, **k10)
 
         args = (d, dy, s2, b2, m2, inv2, w2)
         got, want = irf.proj_bwd(*args), irf.proj_bwd_plain(*args)
         errs = [check_close(f"proj_bwd {stage} {k}", g, w, dtype, scaled=True)
                 for k, g, w in zip(("dv2", "dW2", "ra", "rb"), got, want)]
+        f64 = f64_plain = None
+        if dtype == torch.float32:
+            f64, f64_plain = dw2_float64_error(d, dy, s2, b2, got[1], want[1])
+            log(f"[kernels] proj_bwd {stage} dW2 vs float64: {f64:g} of scale (limit 1e-4; "
+                f"plain version {f64_plain:g})")
+            if not f64 <= 1e-4:
+                raise AssertionError(f"proj_bwd {stage} dW2: {f64:g} of scale from float64")
+        k11 = {}
+        if dev.type == "cuda":
+            lib = irf.PROJ_BWD.lib()
+            k11 = {"smem_bytes": lib.ir_train_proj_bwd_smem(Ce, Cout, code),
+                   "blocks_per_sm": lib.ir_train_proj_bwd_occupancy(Ce, Cout, code),
+                   "channel_groups": lib.ir_train_proj_bwd_groups(Ce, Cout, code),
+                   "cout_chunks": lib.ir_train_proj_bwd_chunks(Ce, Cout, code)}
+            log(f"[kernels] ir_train_proj_bwd {stage} {dtype}: {k11['channel_groups']} channel "
+                f"groups, {k11['smem_bytes']} bytes of shared memory a block, "
+                f"{k11['blocks_per_sm']} blocks of 16 warps per SM")
+        # Two products (dd_hat, dW2) on the tensor cores beside d_act, the
+        # mask, dv2, dn and the two sums of each d element on CUDA cores.
         record("ir_train_proj_bwd", lambda: irf.proj_bwd(*args),
                lambda: irf.proj_bwd_plain(*args), errs,
                2 * M2 * Ce * es + M2 * Cout * es + (2 * Ce * Cout + 6 * Ce) * 4,
-               4 * M2 * Ce * Cout)
+               tc=products * 2 * 2 * M2 * Ce * Cout, cuda=12 * M2 * Ce,
+               dw2_float64_rel_err=f64, plain_dw2_float64_rel_err=f64_plain, **k11)
         dv2, r2a, r2b = want[0], want[2], want[3]
         del got, want
         u2 = g2 * inv2
@@ -826,6 +955,8 @@ def phase_kernels(dev):
                                   stages=[(16, 256, 256, 1, 6), (32, 256, 256, 2, 6)])
         log(f"[kernels] K8-K13 wide blocks {name}, B=2: " + json.dumps(
             {k: [(st["stage"], st["max_abs_err"]) for st in r["stages"]] for k, r in wide.items()}))
+        edges = check_proj_bwd_edges(np.random.default_rng(711), dev, dtype)
+        log(f"[kernels] K11 at ties and with Cout in chunks {name}: {json.dumps(edges)}")
         res[("ir_block", name, 0, TRAIN_B)] = blocks
         log(f"[kernels] fused vs unfused block fwd+bwd {name} B={TRAIN_B}: "
             f"{json.dumps(blocks)}")
@@ -1301,7 +1432,7 @@ def profile_steps(step, reps: int = 2):
             for n in ("scatter_sorted_fwd_kernel", "scatter_sorted_fwd_flat_kernel",
                       "voxelize_scatter_max_kernel", "scatter_sorted_bwd", "fusion_gate",
                       "kd_mse_tc", "kd_mse_reduce", "stats1_kernel", "expand_dw_kernel",
-                      "proj_kernel", "dv2_kernel", "dw2_kernel", "dw_bwd_kernel",
+                      "proj_kernel", "proj_bwd_kernel", "dw_bwd_kernel",
                       "expand_bwd_kernel", "colsum_kernel")}
     return {"wall_ms": wall, "device_ms": device_ms,
             "idle_share": max(0.0, 1.0 - device_ms / wall), "our_kernels_ms": ours,

@@ -4,11 +4,12 @@
 //
 // - element conversions and the input-dtype rounding the TPU kernels apply;
 // - tile_mma: a 16 x 16-thread register-tile product over shared memory,
-//   the body of every GEMM in these kernels (f32 on CUDA cores);
+//   K8's GEMM (f32 on CUDA cores);
 // - expand_step: the expand 1x1 (e = x . W1) on the tensor cores, one
 //   device function for K9, K12 and K13 (and mma_step, the split-operand
-//   product step under it, which K13 also uses for dW1 and dx);
-// - cp.async helpers;
+//   product step under it, which K13 also uses for dW1 and dx, and K10 and
+//   K11 for the projection);
+// - smem_b, ldmatrix and cp.async helpers;
 // - sum_rows: the fixed-order reduction of per-block partials (no float
 //   atomics, so every cross-block sum is deterministic).
 
@@ -210,6 +211,18 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[Mma<T>::terms][2],
   }
 }
 
+// The same fragment from a block's copy of the fragment array in shared
+// memory (K10 and K11 stage W2's there).
+template <typename T>
+__device__ __forceinline__ void smem_b(uint32_t (&b)[Mma<T>::terms][2], const uint2* f, int lane) {
+#pragma unroll
+  for (int i = 0; i < Mma<T>::terms; ++i) {
+    const uint2 v = f[32 * i + lane];
+    b[i][0] = v.x;
+    b[i][1] = v.y;
+  }
+}
+
 // The shared expand: one k-step of e = x . W1 for a 16 x 8 tile, from the
 // thread's x terms (terms_of the four pairs the caller read from its own
 // staging; split once and used for every n-tile of the k-step) and its W1
@@ -317,6 +330,22 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N> __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// ldmatrix: lane l gives the row address of row (l & 7) of matrix l >> 3;
+// .trans hands each lane the transposed fragment (a pixel-major tile read as
+// the K operand of a product over pixels).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&d)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&d)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(d[0]), "=r"(d[1]) : "r"(smem_u32(p)));
 }
 
 // out[g][c] = sum of in[r][c] over rows r of group g ([g * rpg, (g+1) * rpg)

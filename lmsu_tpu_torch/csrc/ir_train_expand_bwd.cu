@@ -60,19 +60,6 @@ constexpr int kNV = 5;     // m1, inv1, u1, p1, q1
 // stores to eight rows, hit all banks.
 __device__ __forceinline__ int sw(int r, int c) { return x_chunk<__nv_bfloat16>(r, c); }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&d)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&d)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(d[0]), "=r"(d[1]) : "r"(smem_u32(p)));
-}
-
 __device__ __forceinline__ float2 load_pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }

@@ -199,7 +199,6 @@ def fused_ir_infer(x: torch.Tensor, p: IRParams, stride: int = 1) -> torch.Tenso
 # -- training: kernels K8-K13 and their plain versions ------------------------
 
 _REDUCE_ROWS = 256     # rows per group in the kernels' fixed-order partial sums
-_SPLIT_ROWS = 2048     # pixels per split of K11's dW2 sum
 _STRIP_ROWS = 1024     # pixels per block span of K13 (a multiple of 64)
 
 STATS1 = CudaKernel("ir_train_stats1.cu", {
@@ -211,10 +210,16 @@ EXPAND_DW = CudaKernel("ir_train_expand_dw.cu", {
     "ir_train_expand_dw_occupancy": (_I,) * 4,
     "ir_train_expand_dw_rows": (_I,) * 8})
 PROJ = CudaKernel("ir_train_proj.cu", {
-    "ir_train_proj": (_P,) * 5 + (_L,) + (_I,) * 3 + (_P,)})
+    "ir_train_proj": (_P,) * 5 + (_L,) + (_I,) * 5 + (_P,),
+    "ir_train_proj_smem": (_I,) * 3,
+    "ir_train_proj_occupancy": (_I,) * 3})
 PROJ_BWD = CudaKernel("ir_train_proj_bwd.cu", {
-    "ir_train_proj_bwd": (_P,) * 15 + (_L,) + (_I,) * 5 + (_P,),
-    "ir_train_proj_bwd_rows": (_L,)})
+    "ir_train_proj_bwd": (_P,) * 15 + (_L,) + (_I,) * 6 + (_P,),
+    "ir_train_proj_bwd_rows": (_L,) + (_I,) * 3,
+    "ir_train_proj_bwd_groups": (_I,) * 3,
+    "ir_train_proj_bwd_chunks": (_I,) * 3,
+    "ir_train_proj_bwd_smem": (_I,) * 3,
+    "ir_train_proj_bwd_occupancy": (_I,) * 3})
 DW_BWD = CudaKernel("ir_train_dw_bwd.cu", {
     "ir_train_dw_bwd": (_P,) * 23 + (_I,) * 12 + (_P,),
     "ir_train_dw_bwd_smem": (_I,) * 4,
@@ -341,26 +346,40 @@ def _fragments(w: torch.Tensor, dt: torch.dtype) -> Tuple[torch.Tensor, int]:
     return f, f.shape[1]
 
 
-def expand_e_emulated(x: torch.Tensor, w1: torch.Tensor,
-                      terms: int = EXPAND_TERMS) -> torch.Tensor:
-    """The shared expand's arithmetic in plain PyTorch (tests only; the main
-    path never calls it): e = x @ W1 rounded to x's dtype, as f32, with f32
-    operands split into `terms` bf16 terms, per 16-channel k-step the
-    products x_i W_j (i + j < terms) summed smallest first into a fresh f32
-    sum, and each k-step's sum added to the running total."""
-    dt = x.dtype
-    cin = x.shape[-1]
-    xs = _terms(x.reshape(-1, cin), dt, terms)
-    ws = _terms(_rnd(w1, dt), dt, terms)
+def mma_matmul_emulated(a: torch.Tensor, b: torch.Tensor, dt: torch.dtype,
+                        terms: int = EXPAND_TERMS, k_split: Optional[int] = None
+                        ) -> torch.Tensor:
+    """a [M, K] @ b [K, N] (both holding dt values) as the kernels' mma_step
+    forms it, in plain PyTorch (tests only; the main path never calls it):
+    f32 operands split into `terms` bf16 terms, per 16-deep k-step the
+    products a_i b_j (i + j < terms) summed smallest first into a fresh f32
+    sum, and each k-step's sum added to the running total in f32. With
+    `k_split`, K is cut into spans of that many (a multiple of 16) summed
+    apart, and the spans' sums added in order (K11's dW2 partials)."""
+    depth = a.shape[1]
+    if k_split is not None and k_split < depth:
+        parts = [mma_matmul_emulated(a[:, k0:k0 + k_split], b[k0:k0 + k_split], dt, terms)
+                 for k0 in range(0, depth, k_split)]
+        return torch.stack(parts).sum(0)
+    xs, ws = _terms(a, dt, terms), _terms(b, dt, terms)
     pairs = [(i, s - i) for s in range(terms - 1, -1, -1) for i in range(terms - 1, -1, -1)
              if 0 <= s - i < len(ws) and i < len(xs)]
     acc = None
-    for k0 in range(0, cin, 16):
+    for k0 in range(0, depth, 16):
         tmp = None
         for i, j in pairs:
             prod = xs[i][:, k0:k0 + 16] @ ws[j][k0:k0 + 16]
             tmp = prod if tmp is None else tmp + prod
         acc = tmp if acc is None else acc + tmp
+    return acc
+
+
+def expand_e_emulated(x: torch.Tensor, w1: torch.Tensor,
+                      terms: int = EXPAND_TERMS) -> torch.Tensor:
+    """The shared expand's arithmetic (mma_matmul_emulated): e = x @ W1
+    rounded to x's dtype, as f32."""
+    dt = x.dtype
+    acc = mma_matmul_emulated(x.reshape(-1, x.shape[-1]).float(), _rnd(w1, dt), dt, terms)
     return _rnd(acc, dt).reshape(*x.shape[:-1], -1)
 
 
@@ -511,15 +530,24 @@ def proj(d, s2, b2, w2):
     _check_shapes("proj", s2=(s2, (ce,)), b2=(b2, (ce,)), w2=(w2, (ce, cout)))
     if not _on_card("proj", d):
         return proj_plain(d, s2, b2, w2)
-    d = d.contiguous()
+    d = aligned16(d.contiguous())
     M = d.numel() // ce
-    w = _w(w2, d.dtype)
+    wf, ks = _fragments(_w(w2, d.dtype), d.dtype)
     sv, bv = _v(s2, b2)
-    dev = check_cuda_args(d, sv, bv, w)
+    dev = check_cuda_args(d, sv, bv, wf)
     y = torch.empty(*d.shape[:-1], cout, dtype=_F32, device=dev)
-    PROJ.launch("ir_train_proj", ptr(d), ptr(sv), ptr(bv), ptr(w), ptr(y), M, ce, cout,
-                dtype_code(d), stream_ptr(dev))
+    PROJ.launch("ir_train_proj", ptr(d), ptr(sv), ptr(bv), ptr(wf), ptr(y), M, ce, cout, ks,
+                wf.shape[0], dtype_code(d), stream_ptr(dev))
     return y
+
+
+def proj_emulated(d, s2, b2, w2, terms: int = EXPAND_TERMS):
+    """K10's arithmetic in plain PyTorch (tests only): proj_plain with the
+    product formed as the kernel forms it (mma_matmul_emulated)."""
+    ce = d.shape[-1]
+    d_act = _rnd(_relu6(d.float() * s2.float() + b2.float()), d.dtype).reshape(-1, ce)
+    y = mma_matmul_emulated(d_act, _rnd(w2, d.dtype), d.dtype, terms)
+    return y.reshape(*d.shape[:-1], -1)
 
 
 # K11 ---------------------------------------------------------------------
@@ -539,6 +567,24 @@ def proj_bwd_plain(d, dy, s2, b2, m2, inv2, w2):
     return dv2.to(dt).reshape(d.shape), dw2, dv2.sum(0), (dv2 * dn).sum(0)
 
 
+def proj_bwd_emulated(d, dy, s2, b2, m2, inv2, w2, span: int, terms: int = EXPAND_TERMS):
+    """K11's arithmetic in plain PyTorch (tests only): proj_bwd_plain with
+    dd_hat = dy W2^T and dW2 = d_act^T dy formed as the kernel forms them
+    (mma_matmul_emulated; dW2 summed over spans of `span` pixels, then the
+    spans' partials added). The mask is the plain version's own expression,
+    v2 = d * s2 + b2 elementwise, as in the kernel."""
+    dt = d.dtype
+    ce, cout = d.shape[-1], dy.shape[-1]
+    d32 = d.reshape(-1, ce).float()
+    dy32 = dy.reshape(-1, cout).float()
+    v2 = d32 * s2.float() + b2.float()
+    d_act = _rnd(_relu6(v2), dt)
+    dw2 = mma_matmul_emulated(d_act.T.contiguous(), dy32, dt, terms, k_split=span)
+    dv2 = mma_matmul_emulated(dy32, _rnd(w2, dt).T.contiguous(), dt, terms) * _mask(v2)
+    dn = (d32 - m2.float()) * inv2.float()
+    return dv2.to(dt).reshape(d.shape), dw2, dv2.sum(0), (dv2 * dn).sum(0)
+
+
 def proj_bwd(d, dy, s2, b2, m2, inv2, w2):
     """K11 (`_proj_bwd_kernel`)."""
     ce, cout = d.shape[-1], w2.shape[-1]
@@ -549,22 +595,21 @@ def proj_bwd(d, dy, s2, b2, m2, inv2, w2):
         return proj_bwd_plain(d, dy, s2, b2, m2, inv2, w2)
     if dy.dtype != d.dtype:
         raise ValueError(f"d and dy must share a dtype, got {d.dtype} and {dy.dtype}")
-    d, dy = d.contiguous(), dy.contiguous()
+    d, dy = aligned16(d.contiguous()), aligned16(dy.contiguous())
     M = d.numel() // ce
-    w = _w(w2, d.dtype)
+    wtf, kst = _fragments(_w(w2, d.dtype).T, d.dtype)
     vs = _v(s2, b2, m2, inv2)
-    dev = check_cuda_args(d, dy, w, *vs)
-    rows = PROJ_BWD.lib().ir_train_proj_bwd_rows(M)
-    nsplit = -(-M // _SPLIT_ROWS)
+    dev = check_cuda_args(d, dy, wtf, *vs)
+    rows = PROJ_BWD.lib().ir_train_proj_bwd_rows(M, ce, cout, dtype_code(d))
     part = torch.empty(2, rows, ce, dtype=_F32, device=dev)
-    part_w = torch.empty(nsplit, ce * cout, dtype=_F32, device=dev)
-    scratch = _scratch(dev, (rows, ce), (nsplit, ce * cout))
+    part_w = torch.empty(rows, ce * cout, dtype=_F32, device=dev)
+    scratch = _scratch(dev, (rows, ce), (rows, ce * cout))
     dv2 = torch.empty_like(d)
     dw2 = torch.empty(ce, cout, dtype=_F32, device=dev)
     r = torch.empty(2, ce, dtype=_F32, device=dev)
-    PROJ_BWD.launch("ir_train_proj_bwd", ptr(d), ptr(dy), *(ptr(v) for v in vs), ptr(w),
+    PROJ_BWD.launch("ir_train_proj_bwd", ptr(d), ptr(dy), *(ptr(v) for v in vs), ptr(wtf),
                     ptr(dv2), ptr(part[0]), ptr(part[1]), ptr(part_w), ptr(scratch), ptr(dw2),
-                    ptr(r[0]), ptr(r[1]), M, ce, cout, _SPLIT_ROWS, _REDUCE_ROWS,
+                    ptr(r[0]), ptr(r[1]), M, ce, cout, kst, wtf.shape[0], _REDUCE_ROWS,
                     dtype_code(d), stream_ptr(dev))
     return dv2, dw2, r[0], r[1]
 
