@@ -19,16 +19,22 @@ Phases:
              train-mode BN), with K12's shared memory and resident blocks
              per SM at each stage; K9 and K12 must compute e = x . W1 bit
              for bit alike (each kernel's probe build writes its e; the
-             count of differing elements is printed and must be 0), and
+             count of differing elements is printed and must be 0), K8's
+             probe e is compared with K9's the same way (the count is
+             printed; K8 itself is held by its sums), and
              in f32 K13's dW1 and K11's dW2 must be within 1e-4 of scale
              of a float64 dW1 / dW2 computed on the card; K10's and K11's
              shared memory and resident blocks per SM are printed too; K11
              also on ties (v2 exactly 0 and 6: dv2's zeros must be the
              plain version's) and, beside K10, with Cout 1000 in chunks. K7
              also on a near-teacher student (S = T.P + 1e-3 N(0, 1)); K2
-             also at C=512 (a 4x teacher). The scatter kernels K4 and K6 (and K1 beside
-             K4) also on a skewed cloud: 2,000 of the 5,000 points in one
-             cell, as zero padding puts them.
+             also at C=512 (a 4x teacher; whether it is no slower than its
+             plain version is printed), with each shape's tile rows, shared
+             memory and resident blocks, and at six other widths at B=2
+             (padded K, rows that are not 16-byte multiples, x streamed past
+             a 32-row tile). The scatter kernels K4 and K6 (and
+             K1 beside K4) also on a skewed cloud: 2,000 of the 5,000 points
+             in one cell, as zero padding puts them.
   3. serving the weighted-fusion student at full width with the three
              kernel opt-ins, seeded random weights and randomised BN
              statistics, behind ServingEngine (batch 8) with 8 client
@@ -52,7 +58,9 @@ Phases:
              history and checkpoints. Then the fused training path
              (CameraEncoderConfig.fused_train): one B=8 f32 step against
              the same step with K8-K13's plain versions and against the
-             unfused step (loss, gradients, BN running statistics), and the
+             unfused step (loss, gradients, BN running statistics; the
+             gate's ReLU-mask entries that differ between the steps are
+             counted and their part of its W1 gradient taken out), and the
              in-loop step at B=128 in f32 and bf16 (loss must fall, K8-K13
              must launch). Then scatter_impl="pallas": one B=8 f32 step on
              the kernel path against the plain path, and the in-loop step at
@@ -420,6 +428,13 @@ def kernel_kd_mse(rng, dev, dtype, B=B, M=GRID * GRID, cs=128, ct=256):
 
 
 def kernel_gate(rng, dev, dtype, C=128, B=B):
+    """K2 against its plain version at cam/lid [B, 64, 64, C]. Bound: the
+    products the kernel issues on the tensor cores (fusion_gate.gate_products
+    per f32-level product: 6 for f32 features, 3 for bf16, W1 being f32 in
+    both) at 989 TFLOP/s beside the epilogue's CUDA-core work (bias, ReLU,
+    the logit's multiply-add, the blend: 8 operations a row and channel) at
+    67 TFLOP/s, the larger of the two, against the bytes (cam, lid read,
+    out written, the f32 weights read)."""
     from lmsu_tpu_torch.ops import fusion_gate as fg
     M = B * GRID * GRID
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
@@ -433,13 +448,57 @@ def kernel_gate(rng, dev, dtype, C=128, B=B):
     err = check_close("fusion_gate", fg.fusion_gate(*args), fg.fusion_gate_plain(*args), dtype)
     es = cam.element_size()
     nbytes = 3 * M * C * es + (2 * C * C + 3 * C + 2) * 4
-    ops = 2 * M * 2 * C * C + 2 * M * C + 6 * M * C
-    bound, by = bound_ms(nbytes, ops, dtype)
-    return {"ms": time_ms(lambda: fg.fusion_gate(*args)),
-            "eager_ms": eager_ms(lambda: fg.fusion_gate(*args)),
-            "plain_ms": time_ms(lambda: fg.fusion_gate_plain(*args)),
-            "library_ms": None, "bound_ms": bound, "bound_by": by, "max_abs_err": err,
-            "shape": f"cam/lid [{B},{GRID},{GRID},{C}], w1 [{C},{2 * C}]"}
+    tc = fg.gate_products(dtype) * 2 * M * 2 * C * C
+    t_ops = max(tc / PEAK_OPS[torch.bfloat16], 8 * M * C / PEAK_OPS[torch.float32]) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    r = {"ms": time_ms(lambda: fg.fusion_gate(*args)),
+         "eager_ms": eager_ms(lambda: fg.fusion_gate(*args)),
+         "plain_ms": time_ms(lambda: fg.fusion_gate_plain(*args)),
+         "library_ms": None, "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+         "bf16_products": fg.gate_products(dtype),
+         "shape": f"cam/lid [{B},{GRID},{GRID},{C}], w1 [{C},{2 * C}]"}
+    if dev.type == "cuda":
+        lib, code = fg.KERNEL.lib(), 0 if dtype == torch.float32 else 1
+        r.update(tile_rows=lib.fusion_gate_rows(C, code), warps=lib.fusion_gate_warps(C, code),
+                 streams=lib.fusion_gate_streams(C, code), smem_bytes=lib.fusion_gate_smem(C, code),
+                 blocks_per_sm=lib.fusion_gate_occupancy(C, code))
+        log(f"[kernels] fusion_gate C={C} {dtype}: tiles of {r['tile_rows']} rows, "
+            f"{r['smem_bytes']} bytes of shared memory a block, {r['blocks_per_sm']} blocks of "
+            f"{r['warps']} warps per SM")
+    if C == 512:
+        log(f"[kernels] fusion_gate C=512 B={B} {dtype}: {r['ms']:.4f} ms against the plain "
+            f"version's {r['plain_ms']:.4f} ms (no slower: {r['ms'] <= r['plain_ms']})")
+    return r
+
+
+def check_gate_widths(rng, dev, dtype, B=2, widths=(40, 42, 44, 642, 1100, 1104)):
+    """K2 against its plain version (check_close, with both timed at B=2)
+    at C off the main path: 40 and 44 pad each half of K to 48 channels; 42,
+    642 and in bf16 44 and 1,100 have rows that are not 16-byte multiples
+    (staged and blended element by element); past a 32-row tile's shared
+    memory (642, 1,100 and 1,104 in f32, 1,100 and 1,104 in bf16) x streams
+    through the kernel's ring. At least one width must stream."""
+    from lmsu_tpu_torch.ops import fusion_gate as fg
+    lib, code = fg.KERNEL.lib(), 0 if dtype == torch.float32 else 1
+    out = {}
+    for C in widths:
+        M = B * GRID * GRID
+        t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+        cam = t(rng.uniform(-2, 2, (B, GRID, GRID, C))).to(dtype)
+        lid = t(rng.uniform(-2, 2, (B, GRID, GRID, C))).to(dtype)
+        args = (cam, lid, t(rng.normal(0, (2 * C) ** -0.5, (C, 2 * C, 1, 1))),
+                t(rng.normal(0, 0.1, C)), t(rng.normal(0, C ** -0.5, (2, C, 1, 1))),
+                t(rng.normal(0, 0.1, 2)))
+        err = check_close(f"fusion_gate C={C}", fg.fusion_gate(*args),
+                          fg.fusion_gate_plain(*args), dtype)
+        out[C] = {"rows": M, "max_abs_err": err, "streams": lib.fusion_gate_streams(C, code),
+                  "tile_rows": lib.fusion_gate_rows(C, code),
+                  "ms": time_ms(lambda: fg.fusion_gate(*args)),
+                  "plain_ms": time_ms(lambda: fg.fusion_gate_plain(*args))}
+    if not any(r["streams"] == 1 for r in out.values()):
+        raise AssertionError(f"no width streamed x through K2's ring: {out}")
+    return out
 
 
 def random_ir_params(rng, dev, Cin, Cout, exp):
@@ -638,19 +697,18 @@ def kernel_ir_train(rng, dev, dtype, B=TRAIN_B, stages=IR_STAGES, timed=True):
     stage's fused forward + backward against the port's unfused block
     (cuDNN convs, train-mode BatchNorm) on the same input: the JAX package's
     own yardstick (scripts/profile_roofline.py:173-186). Bounds: each input
-    read once, each output written once, and the operations at the card's
-    peak for the input type (bf16: the tensor cores'); K8 computes in f32
-    on CUDA cores for both, so its bf16 gap to the bound is the room that
-    tensor-core tiles would take. K9-K13 run their 1x1 products on the bf16
-    tensor cores: their bounds count the products they issue there
+    read once, each output written once. K8-K13 run their 1x1 products on
+    the bf16 tensor cores: their bounds count the products they issue there
     (ir_fused.mma_products: 6 per f32 product, 1 per bf16) at 989 TFLOP/s,
-    beside their elementwise work on CUDA cores at 67 TFLOP/s (the depthwise
-    of K9 and K12, BN2 + ReLU6 of K10 and K11; the larger of the two, as the
-    units overlap), against the bytes.
+    beside their elementwise work on CUDA cores at 67 TFLOP/s (K8's
+    rounding, squares and sums, the depthwise of K9 and K12, BN2 + ReLU6 of
+    K10 and K11; the larger of the two, as the units overlap), against the
+    bytes.
 
     Also, at every stage with an expand: K9 and K12 must compute the same e
     bit for bit (each kernel's probe writes the e of its own staging and
-    tiling; the count of differing elements is printed and must be 0), and
+    tiling; the count of differing elements is printed and must be 0), K8's
+    e is compared with K9's the same way (the count is printed), and
     in f32 K13's dW1 must be within 1e-4 of scale of a float64 dW1 computed
     on the card from the same inputs; at every stage, so must K11's f32 dW2
     of a float64 dW2. K10's and K11's (and K12's) shared memory a block and
@@ -681,14 +739,27 @@ def kernel_ir_train(rng, dev, dtype, B=TRAIN_B, stages=IR_STAGES, timed=True):
             out[name]["stages"].append(st)
             torch.cuda.empty_cache()
 
+        e8 = (torch.full((B, H, H, Ce), float("nan"), device=dev)
+              if has and dev.type == "cuda" else None)
         if has:
             args = (x, w1)
-            got, want = irf.stats1(*args), irf.stats1_plain(*args)
+            got, want = irf.stats1(*args, probe=e8), irf.stats1_plain(*args)
             errs = [check_close(f"stats1 {stage} {k}", g, w, dtype, scaled=True)
                     for k, g, w in zip(("sum", "sq"), got, want)]
+            k8 = {}
+            if dev.type == "cuda":
+                lib, code = irf.STATS1.lib(), 0 if dtype == torch.float32 else 1
+                k8 = {"smem_bytes": lib.ir_train_stats1_smem(Cin, Ce, code),
+                      "blocks_per_sm": lib.ir_train_stats1_occupancy(Cin, Ce, code)}
+                log(f"[kernels] ir_train_stats1 {stage} {dtype}: {k8['smem_bytes']} bytes of "
+                    f"shared memory a block, {k8['blocks_per_sm']} blocks of 8 warps per SM")
+            # The expand on the tensor cores (mma_products per f32-level
+            # product) beside rounding, squaring and summing each e on CUDA
+            # cores.
             record("ir_train_stats1", lambda: irf.stats1(*args),
                    lambda: irf.stats1_plain(*args), errs,
-                   M1 * Cin * es + Cin * Ce * 4 + 2 * Ce * 4, 2 * M1 * Cin * Ce + 3 * M1 * Ce)
+                   M1 * Cin * es + Cin * Ce * 4 + 2 * Ce * 4,
+                   tc=products * 2 * M1 * Cin * Ce, cuda=3 * M1 * Ce, **k8)
             m1, v1 = irf._bn_stats_finalize(*want, M1)
             inv1 = torch.rsqrt(v1 + 1e-5)
             s1, b1 = irf.fold_bn(g1, be1, m1, v1)
@@ -701,6 +772,13 @@ def kernel_ir_train(rng, dev, dtype, B=TRAIN_B, stages=IR_STAGES, timed=True):
         got, want = irf.expand_dw(*args, probe=e9), irf.expand_dw_plain(*args)
         errs = [check_close(f"expand_dw {stage} {k}", g, w, dtype, scaled=True)
                 for k, g, w in zip(("d", "sum", "sq"), got, want)]
+        if e8 is not None:
+            # K8's e against K9's, bit for bit: printed, not a gate (K8 is
+            # held by its sums).
+            e8_diff = int((e8.view(torch.int32) != e9.view(torch.int32)).sum().item())
+            log(f"[kernels] e of K8 vs K9 {stage} {dtype}: {e8_diff} elements differ")
+            out["ir_train_stats1"]["stages"][-1]["e_diff_vs_k9"] = e8_diff
+            del e8
         k9 = {}
         if dev.type == "cuda":
             lib, code = irf.EXPAND_DW.lib(), 0 if dtype == torch.float32 else 1
@@ -923,8 +1001,7 @@ def phase_kernels(dev):
         runs = [("scatter", C, b, kernel_scatter) for b in (B, TRAIN_B) for C in (128, 256)]
         runs += [("scatter_bwd", 128, b, kernel_scatter_bwd) for b in (B, TRAIN_B)]
         runs += [("kd_mse", 256, b, kernel_kd_mse) for b in (B, TRAIN_B)]
-        # K2 also at C=512 (a 4x teacher), which the general-C kernel takes
-        # (inputs from a stream of its own).
+        # K2 also at C=512 (a 4x teacher; inputs from a stream of its own).
         runs += [("gate", 128, B, kernel_gate), ("gate", 128, TRAIN_B, kernel_gate),
                  ("gate", 256, TRAIN_B, kernel_gate), ("gate", 512, B, kernel_gate)]
         for kind, fn in (("voxelize", kernel_unsorted), ("scatter_flat", kernel_flat)):
@@ -955,6 +1032,8 @@ def phase_kernels(dev):
                                   stages=[(16, 256, 256, 1, 6), (32, 256, 256, 2, 6)])
         log(f"[kernels] K8-K13 wide blocks {name}, B=2: " + json.dumps(
             {k: [(st["stage"], st["max_abs_err"]) for st in r["stages"]] for k, r in wide.items()}))
+        widths = check_gate_widths(np.random.default_rng(40), dev, dtype)
+        log(f"[kernels] fusion_gate other widths {name}, B=2: {json.dumps(widths)}")
         edges = check_proj_bwd_edges(np.random.default_rng(711), dev, dtype)
         log(f"[kernels] K11 at ties and with Cout in chunks {name}: {json.dumps(edges)}")
         res[("ir_block", name, 0, TRAIN_B)] = blocks
@@ -1295,7 +1374,52 @@ def kd_step(dev, batch, cfg, perturb: float = 0.0, twins: bool = False):
     return float(loss), {k: p.grad.detach().double() for k, p in tr.params.items()}, stats
 
 
-def hold_step(what, got, want, noise=None) -> dict:
+GATE_W1 = "model.fusion.attention.0.weight"  # the student's fused gate's W1
+
+
+@contextlib.contextmanager
+def gate_backward_taps(taps: list):
+    """While on, each backward of the fused gate (fusion_gate_bwd) also
+    appends to `taps` what a jump of its ReLU mask is made of, by the
+    backward's own expressions on its own inputs: the mask a > 0 [M, C], dd
+    (the loss's derivative by the gate's logit) [M], w2d [C] and [cam | lid]
+    [M, 2C], f32."""
+    from lmsu_tpu_torch.ops import fusion_gate as fg
+    bwd = fg.fusion_gate_bwd
+
+    def tapped(cam, lid, w1, b1, w2, b2, g_out):
+        with torch.no_grad():
+            C = cam.shape[-1]
+            camf, lidf = cam.reshape(-1, C).float(), lid.reshape(-1, C).float()
+            go = g_out.reshape(-1, C).float()
+            w = w1.reshape(C, 2 * C).float()
+            w2f = w2.reshape(2, C).float()
+            w2d = w2f[0] - w2f[1]
+            a = camf @ w[:, :C].T + lidf @ w[:, C:].T + b1.float()
+            g = torch.sigmoid(torch.relu(a) @ w2d + (b2[0] - b2[1]).float())
+            dd = (go * (camf - lidf)).sum(-1) * (g * (1.0 - g))
+            taps.append({"mask": a > 0, "dd": dd, "w2d": w2d, "x": torch.cat([camf, lidf], 1)})
+        return bwd(cam, lid, w1, b1, w2, b2, g_out)
+
+    fg.fusion_gate_bwd = tapped
+    try:
+        yield
+    finally:
+        fg.fusion_gate_bwd = bwd
+
+
+def gate_jump(got: dict, want: dict, shape) -> tuple:
+    """The part of the gate's W1 gradient by which step `got` differs from
+    step `want` because their ReLU masks differ: ((M_got - M_want) * dd
+    w2d^T)^T [cam | lid], from got's dd, w2d and [cam | lid] (taps of
+    gate_backward_taps), in float64, in W1's shape; and how many mask
+    entries differ."""
+    flip = got["mask"].double() - want["mask"].double()
+    da = flip * (got["dd"].double()[:, None] * got["w2d"].double()[None, :])
+    return (da.T @ got["x"].double()).reshape(shape), int(flip.abs().sum().item())
+
+
+def hold_step(what, got, want, noise=None, jumps=None) -> dict:
     """Hold KD step `got` against `want`, each as kd_step returns it:
       loss              |d| <= 1e-5 |loss|;
       all gradients     relative L2 <= 1e-3;
@@ -1306,9 +1430,14 @@ def hold_step(what, got, want, noise=None) -> dict:
     With `noise` (the `want` step from perturbed weights), each limit gains
     ten times want's own spread N (|noise - want|, measured alike), capped:
     loss min(10 N, 1e-4 |loss|), relative L2 min(10 N, 0.1), each gradient
-    min(10 N, 0.1 max|g|), each statistic min(10 N, 1e-2 max|s|). Raises
-    on the first quantity over its limit; returns the errors."""
+    min(10 N, 0.1 max|g|), each statistic min(10 N, 1e-2 max|s|). With
+    `jumps` ({gradient name: J}), that gradient's difference less J is held
+    to its limit (J: gate_jump's part of the difference that the steps'
+    differing ReLU masks make); the relative L2 over all gradients keeps
+    the whole difference. Raises on the first quantity over its limit;
+    returns the errors."""
     (la, ga, sa), (lb, gb, sb) = got, want
+    jumps = jumps or {}
     lp, gp, sp = want if noise is None else noise   # no noise: spread 0
     err = abs(la - lb)
     if not err <= 1e-5 * abs(lb) + min(10 * abs(lp - lb), 1e-4 * abs(lb)):
@@ -1332,7 +1461,13 @@ def hold_step(what, got, want, noise=None) -> dict:
             ("bn_stat", sa, sb, sp, lambda s: 1e-4 * s + 1e-6, 1e-2)):
         worst[kind] = (0.0, "")
         for k in want_t:
-            e = (got_t[k] - want_t[k]).abs().max().item()
+            d = got_t[k] - want_t[k]
+            if kind == "grad" and k in jumps:
+                out.setdefault("jumps", {})[k] = {
+                    "err": d.abs().max().item(), "jump_max": jumps[k].abs().max().item()}
+                d = d - jumps[k]
+                out["jumps"][k]["err_less_jump"] = d.abs().max().item()
+            e = d.abs().max().item()
             scale = want_t[k].abs().max().item()
             fixed = fixed_of(scale)
             tol = fixed + min(10 * (noise_t[k] - want_t[k]).abs().max().item(), cap * scale)
@@ -1386,27 +1521,51 @@ def check_fused_step(dev):
               step under 1e-6 for (b) (hold_step's `noise`); the fused and
               unfused paths also differ by design (E[x^2] - E[x]^2
               statistics, ReLU6 derivative 0 at exact ties where unfused
-              gives 1/2)."""
+              gives 1/2).
+    The gate's W1 gradient also moves by jumps: where a pre-activation of
+    the fused gate sits within rounding of 0, the two steps' ReLU masks in
+    the gate's backward can differ, and each differing entry moves a row of
+    that gradient by dd w2d [cam | lid], which no perturbation of the
+    weights need reproduce. Each step's gate backward is tapped
+    (gate_backward_taps), the differing entries are counted, and their
+    exact part of the difference (gate_jump) is taken out of that one
+    gradient before it is held to its limit."""
     blocks = check_fused_blocks(dev)
     rng = np.random.default_rng(13)
     batch = train_batch(rng, B, dev)
     cfg = lambda fused: train_config(torch.float32, True, B, fused_train=fused)  # noqa: E731
+
+    def tapped_step(**kw):
+        taps = []
+        with gate_backward_taps(taps):
+            step = kd_step(dev, batch, **kw)
+        if len(taps) != 1:
+            raise AssertionError(f"the student's gate ran {len(taps)} backwards in one step")
+        return step, taps[0]
+
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        fused = kd_step(dev, batch, cfg(True))
-        twins = kd_step(dev, batch, cfg(True), twins=True)
+        fused, fused_tap = tapped_step(cfg=cfg(True))
+        twins, twins_tap = tapped_step(cfg=cfg(True), twins=True)
         twins_p = kd_step(dev, batch, cfg(True), twins=True, perturb=1e-7)
-        unfused = kd_step(dev, batch, cfg(False))
+        unfused, unfused_tap = tapped_step(cfg=cfg(False))
         unfused_p = kd_step(dev, batch, cfg(False), perturb=1e-6)
     finally:
         torch.backends.cudnn.deterministic = det
+    shape = fused[1][GATE_W1].shape
+    jump_a, flips_a = gate_jump(fused_tap, twins_tap, shape)
+    jump_b, flips_b = gate_jump(fused_tap, unfused_tap, shape)
+    log(f"[train] fused step's gate ReLU mask: {flips_a} entries differ from the "
+        f"plain-version step's, {flips_b} from the unfused step's")
+    del fused_tap, twins_tap, unfused_tap
     return {"blocks": blocks,
+            "gate_mask_flips": {"vs_plain_versions": flips_a, "vs_unfused": flips_b},
             "step_vs_plain_versions": hold_step(
                 "fused KD step vs the same step with K8-K13's plain versions", fused, twins,
-                noise=twins_p),
+                noise=twins_p, jumps={GATE_W1: jump_a}),
             "step_vs_unfused": hold_step("fused KD step vs unfused step", fused, unfused,
-                                         noise=unfused_p)}
+                                         noise=unfused_p, jumps={GATE_W1: jump_b})}
 
 
 def profile_steps(step, reps: int = 2):

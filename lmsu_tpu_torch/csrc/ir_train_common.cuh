@@ -1,14 +1,14 @@
 // Pieces shared by the six kernels of the fused InvertedResidual training
-// path (ir_train_*.cu), for Hopper (sm_90a). Each .cu file includes this
-// header and builds into its own library.
+// path (ir_train_*.cu) and the fusion gate (fusion_gate.cu), for Hopper
+// (sm_90a). Each .cu file includes this header and builds into its own
+// library.
 //
 // - element conversions and the input-dtype rounding the TPU kernels apply;
-// - tile_mma: a 16 x 16-thread register-tile product over shared memory,
-//   K8's GEMM (f32 on CUDA cores);
 // - expand_step: the expand 1x1 (e = x . W1) on the tensor cores, one
-//   device function for K9, K12 and K13 (and mma_step, the split-operand
-//   product step under it, which K13 also uses for dW1 and dx, and K10 and
-//   K11 for the projection);
+//   device function for K8, K9, K12 and K13 (and mma_step, the
+//   split-operand product step under it, which K13 also uses for dW1 and
+//   dx, K10 and K11 for the projection, and the fusion gate K2,
+//   fusion_gate.cu, for its 1x1 product);
 // - smem_b, ldmatrix and cp.async helpers;
 // - sum_rows: the fixed-order reduction of per-block partials (no float
 //   atomics, so every cross-block sum is deterministic).
@@ -74,38 +74,17 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// acc[i][j] += sum_k A(k, ty + 16 i) * B(k, tx + 16 j), with A(k, m) =
-// A[k * a_k + m * a_m] and B(k, n) = B[k * b_k + n * b_n] in shared memory.
-// A warp spans two ty and sixteen tx: its A reads are broadcasts and its B
-// reads hit consecutive words when b_n == 1 (or an odd stride).
-template <int TM, int TN>
-__device__ __forceinline__ void tile_mma(float (&acc)[TM][TN], const float* A, int a_k, int a_m,
-                                         const float* B, int b_k, int b_n, int K, int tx,
-                                         int ty) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[TM], b[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) a[i] = A[k * a_k + (ty + 16 * i) * a_m];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) b[j] = B[k * b_k + (tx + 16 * j) * b_n];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
 // -- the shared expand on the tensor cores ------------------------------------
 //
-// K9, K12 and K13 compute e = x . W1 (rounded to the input dtype) with one
-// device function, expand_step, on warp-level mma.sync.m16n8k16 (bf16 in,
-// f32 accumulate): one call adds one k-step (16 input channels) of a 16-pixel
-// x 8-channel tile. The ReLU6 mask of K12's backward must equal the
-// activation K9 took in the forward, so e must not depend on the caller's
-// tiling: given the same x row and W1 column, the products, their order and
-// the accumulator schedule below are fixed, and a caller walks the k-steps
-// in increasing order from acc = 0.
+// K8, K9, K12 and K13 compute e = x . W1 (rounded to the input dtype) with
+// one device function, expand_step, on warp-level mma.sync.m16n8k16 (bf16
+// in, f32 accumulate): one call adds one k-step (16 input channels) of a
+// 16-pixel x 8-channel tile. The ReLU6 mask of K12's backward must equal the
+// activation K9 took in the forward, and BN1's statistics (K8) describe the
+// e that K9 normalises, so e must not depend on the caller's tiling: given
+// the same x row and W1 column, the products, their order and the
+// accumulator schedule below are fixed, and a caller walks the k-steps in
+// increasing order from acc = 0.
 //
 // f32 operands are split into kTerms bf16 terms (split3, as K7's
 // kd_feature_mse.cu; ops/kd_loss.py::split_bf16), each the bf16 rounding of
@@ -196,6 +175,44 @@ __device__ __forceinline__ void mma_step(float (&acc)[4], const uint32_t (&a)[AT
     }
 #pragma unroll
   for (int r = 0; r < 4; ++r) acc[r] = __fadd_rn(acc[r], tmp[r]);
+}
+
+// mma_step on each tile of a warp's NM x NN block of tiles: tile (m, n) gets
+// exactly mma_step's products, in mma_step's order, into its own fresh
+// accumulator,
+// so its sum is mma_step's bit for bit; but each product is issued for
+// every tile before the next product, so the tensor pipe always has
+// NM * NN independent products in flight instead of waiting on one tile's
+// chain of six dependent ones.
+template <int AT, int BT, int NM, int NN>
+__device__ __forceinline__ void mma_step_tiles(float (&acc)[NM][NN][4],
+                                               const uint32_t (&a)[NM][AT][4],
+                                               const uint32_t (&b)[NN][BT][2]) {
+  float tmp[NM][NN][4];
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) tmp[m][n][r] = 0.f;
+#pragma unroll
+  for (int s = kTerms - 1; s >= 0; --s)
+#pragma unroll
+    for (int i = kTerms - 1; i >= 0; --i) {
+      const int j = s - i;
+      if (j >= 0 && i < AT && j < BT) {
+#pragma unroll
+        for (int n = 0; n < NN; ++n)
+#pragma unroll
+          for (int m = 0; m < NM; ++m) mma_bf16(tmp[m][n], a[m][i], b[n][j][0], b[n][j][1]);
+      }
+    }
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[m][n][r] = __fadd_rn(acc[m][n][r], tmp[m][n][r]);
 }
 
 // This lane's pre-split B fragment of one (n-tile, k-step): `f` points at

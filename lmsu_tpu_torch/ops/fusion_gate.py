@@ -9,14 +9,23 @@ Replaces the TPU kernel lmsu_tpu/ops/fusion_pallas.py::_gate_kernel
     g   = sigmoid(h . (w2[0] - w2[1]) + b2[0] - b2[1])
     out = g * cam + (1 - g) * lid
 
-On the H100 the f32 kernel is bound by its 2*M*2C*C multiply-adds on CUDA
-cores; the design stages each row tile and K-chunks of W1 in shared memory
-and keeps the gate reduction in registers (see the .cu source note); C of
-32, 64, 128 and 256 take templated kernels, any other C a general one that
-walks the output channels in tiles (as JAX's `_gate_forward` takes any C).
+On the H100 the kernel forms the 2C x C product on the bf16 tensor cores
+(mma.sync) with W1 split into GATE_TERMS bf16 terms, since W1 stays f32 for
+both feature types as in the TPU kernel; f32 features are split the same
+way, bf16 features are one exact term (`gate_products`). A block stages a
+tile of rows in shared memory, walks all C output channels, reduces each
+row's gate logit inside the block and blends from the staged rows, so cam
+and lid are read once and out written once: bytes bound it at C=128, the
+products at the teacher's C=256 (see the .cu source note).
+`fusion_gate_emulated` repeats the kernel's split arithmetic in plain
+PyTorch for the tests. Every C runs, as JAX's `_gate_forward` takes any C:
+a C whose 32-row tile does not fit a block's shared memory (past 512
+channels in f32, 1,024 in bf16) streams x through the kernel's ring in
+every pass instead, with the same arithmetic.
 Weights are taken in the torch layout of the reference's `attention`
 Sequential: w1 [C, 2C, 1, 1], b1 [C], w2 [2, C, 1, 1], b2 [2]. The kernel
-reads them directly, so a forward needs no host sync and no weight copies.
+library splits W1 on the device in the same launch, so a forward needs no
+host sync and no weight copies.
 
 `fusion_gate` is an autograd Function: the forward is the kernel (CUDA) or
 the plain version (CPU); the backward is plain PyTorch on either device, a
@@ -28,12 +37,34 @@ backward kernel for the gate either).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from lmsu_tpu_torch.ops._cuda import (_I, _P, CudaKernel, check_cuda_args,
                                       dtype_code, ptr, stream_ptr)
+from lmsu_tpu_torch.ops.kd_loss import split_bf16
 
 KERNEL = CudaKernel("fusion_gate.cu", {
-    "fusion_gate_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)})
+    "fusion_gate_fwd": (_P,) * 8 + (_I,) * 3 + (_P,),
+    "fusion_gate_frag_uint2": (_I,),
+    "fusion_gate_rows": (_I,) * 2,
+    "fusion_gate_warps": (_I,) * 2,
+    "fusion_gate_streams": (_I,) * 2,
+    "fusion_gate_smem": (_I,) * 2,
+    "fusion_gate_occupancy": (_I,) * 2})
+
+# bf16 terms of W1 (and of f32 features): products x_i . W_j with i + j <
+# GATE_TERMS. Chosen with `gate_logits_emulated` at the student's and the
+# teacher's widths (tests/test_torch_fusion_gate.py): two terms leave a more
+# than 1e-6 of its scale from the float64 product, three well inside it.
+GATE_TERMS = 3
+
+
+def gate_products(dtype: torch.dtype) -> int:
+    """bf16 tensor-core products the kernel issues per f32-level product:
+    W1 is GATE_TERMS terms in both types, f32 features as many, bf16
+    features one exact term."""
+    x_terms = 1 if dtype == torch.bfloat16 else GATE_TERMS
+    return sum(1 for i in range(x_terms) for j in range(GATE_TERMS) if i + j < GATE_TERMS)
 
 
 def fusion_gate_plain(cam: torch.Tensor, lid: torch.Tensor, w1: torch.Tensor,
@@ -49,6 +80,47 @@ def fusion_gate_plain(cam: torch.Tensor, lid: torch.Tensor, w1: torch.Tensor,
     d = torch.relu(a) @ (w2f[0] - w2f[1]) + (b2[0] - b2[1]).float()
     g = torch.sigmoid(d).unsqueeze(-1)
     return (g * camf + (1.0 - g) * lidf).to(cam.dtype)
+
+
+def gate_logits_emulated(cam: torch.Tensor, lid: torch.Tensor, w1: torch.Tensor,
+                         b1: torch.Tensor, terms: int = GATE_TERMS) -> torch.Tensor:
+    """a = [cam | lid] . W1^T + b1 [M, C] as the kernel forms it, in plain
+    PyTorch (tests only; the main path never calls it): K = [cam channels
+    padded to 16 | lid channels padded to 16], W1 split into `terms` bf16
+    terms, f32 features as many and bf16 features one exact term; per
+    16-deep k-step the products x_i W_j (i + j < terms) summed smallest
+    first into a fresh f32 sum, each k-step's sum added to the running
+    total, then b1."""
+    C = cam.shape[-1]
+    pad = -(-C // 16) * 16 - C
+    x = torch.cat([F.pad(cam.reshape(-1, C).float(), (0, pad)),
+                   F.pad(lid.reshape(-1, C).float(), (0, pad))], dim=1)
+    w = w1.reshape(C, 2 * C).float()
+    wt = torch.cat([F.pad(w[:, :C].T, (0, 0, 0, pad)), F.pad(w[:, C:].T, (0, 0, 0, pad))])
+    xs = [x] if cam.dtype == torch.bfloat16 else split_bf16(x, terms)
+    ws = split_bf16(wt, terms)
+    pairs = [(i, s - i) for s in range(terms - 1, -1, -1) for i in range(terms - 1, -1, -1)
+             if 0 <= s - i < len(ws) and i < len(xs)]
+    acc = None
+    for k0 in range(0, x.shape[1], 16):
+        tmp = None
+        for i, j in pairs:
+            prod = xs[i][:, k0:k0 + 16] @ ws[j][k0:k0 + 16]
+            tmp = prod if tmp is None else tmp + prod
+        acc = tmp if acc is None else acc + tmp
+    return acc + b1.float()
+
+
+def fusion_gate_emulated(cam, lid, w1, b1, w2, b2, terms: int = GATE_TERMS) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch (tests only): the plain
+    version with a from `gate_logits_emulated`."""
+    C = cam.shape[-1]
+    a = gate_logits_emulated(cam, lid, w1, b1, terms)
+    w2f = w2.reshape(2, C).float()
+    d = torch.relu(a) @ (w2f[0] - w2f[1]) + (b2[0] - b2[1]).float()
+    g = torch.sigmoid(d).unsqueeze(-1)
+    out = g * cam.reshape(-1, C).float() + (1.0 - g) * lid.reshape(-1, C).float()
+    return out.to(cam.dtype).reshape(cam.shape)
 
 
 def fusion_gate_fwd(cam: torch.Tensor, lid: torch.Tensor, w1: torch.Tensor,
@@ -73,9 +145,10 @@ def fusion_gate_fwd(cam: torch.Tensor, lid: torch.Tensor, w1: torch.Tensor,
     for t in params:
         if t.dtype != torch.float32:
             raise TypeError("gate weights must be float32")
+    frag = torch.empty(KERNEL.lib().fusion_gate_frag_uint2(C), 2, dtype=torch.int32, device=dev)
     out = torch.empty_like(cam2)
     KERNEL.launch("fusion_gate_fwd", ptr(cam2), ptr(lid2), *(ptr(t) for t in params),
-                  ptr(out), cam2.shape[0], C, dtype_code(cam2), stream_ptr(dev))
+                  ptr(frag), ptr(out), cam2.shape[0], C, dtype_code(cam2), stream_ptr(dev))
     return out.reshape(cam.shape)
 
 

@@ -23,7 +23,7 @@ _ir_train_forward / _ir_train_backward. BatchNorm needs the batch
 statistics before it normalises, so the forward is three kernels with
 [C]-vector glue between them, and the backward three more:
 
-    K8  stats1      e = x @ W1 recomputed, never stored -> mean1/var1
+    K8  stats1      e = x @ W1 (the shared expand), never stored -> mean1/var1
     K9  expand_dw   recompute e, BN1 + relu6, depthwise; STORE d -> mean2/var2
     K10 proj        BN2 + relu6, y = d' @ W2
     glue            BN3 statistics, out = BN3(y) (+ x)
@@ -202,8 +202,11 @@ _REDUCE_ROWS = 256     # rows per group in the kernels' fixed-order partial sums
 _STRIP_ROWS = 1024     # pixels per block span of K13 (a multiple of 64)
 
 STATS1 = CudaKernel("ir_train_stats1.cu", {
-    "ir_train_stats1": (_P,) * 7 + (_L,) + (_I,) * 4 + (_P,),
-    "ir_train_stats1_rows": (_L,)})
+    "ir_train_stats1": (_P,) * 8 + (_L,) + (_I,) * 6 + (_P,),
+    "ir_train_stats1_tile": (_I,) * 3,
+    "ir_train_stats1_rows": (_L,) + (_I,) * 3,
+    "ir_train_stats1_smem": (_I,) * 3,
+    "ir_train_stats1_occupancy": (_I,) * 3})
 EXPAND_DW = CudaKernel("ir_train_expand_dw.cu", {
     "ir_train_expand_dw": (_P,) * 12 + (_I,) * 10 + (_P,),
     "ir_train_expand_dw_smem": (_I,) * 4,
@@ -302,7 +305,7 @@ def _dw_taps(dw, dt):
     return _rnd(dw, dt).permute(2, 0, 1).unsqueeze(1)
 
 
-# The shared expand of K9, K12 and K13 (csrc/ir_train_common.cuh::expand_step)
+# The shared expand of K8, K9, K12 and K13 (csrc/ir_train_common.cuh::expand_step)
 # ---------------------------------------------------------------------------
 
 # bf16 terms of each f32 operand: products x_i . W_j with i + j < EXPAND_TERMS
@@ -383,7 +386,7 @@ def expand_e_emulated(x: torch.Tensor, w1: torch.Tensor,
     return _rnd(acc, dt).reshape(*x.shape[:-1], -1)
 
 
-# Shape limits of K9, K12 and K13 on the card (the JAX package's kernels
+# Shape limits of K8, K9, K12 and K13 on the card (the JAX package's kernels
 # have none): refused by name when a model is built, not mid-step.
 
 def _k13_smem(cin: int, cg: int, nbuf: int, es: int) -> int:
@@ -393,6 +396,15 @@ def _k13_smem(cin: int, cg: int, nbuf: int, es: int) -> int:
     nt = 3 if es == 4 else 1
     x = nbuf * 64 * k16 * 4 + nt * 64 * ldt * 2 if es == 4 else nbuf * 64 * ldt * 2
     return x + nt * 64 * 64 * 2 + cin * cg * 4 + 5 * cg * 4
+
+
+def _k8_smem(cin: int, ce: int, es: int) -> int:
+    """csrc/ir_train_stats1.cu::smem_of for its smaller tile: 64 pixels of x
+    (Cin padded to 16, rows to 128 bytes), the two-slot ring of W1's
+    fragments for 16 n-tiles and the two pixel warps' [2][Ce] sums."""
+    per = 128 // es
+    ldx = -(-(-(-cin // 16) * 16) // per) * per
+    return 64 * ldx * es + 2 * 16 * (2 * 3 * 256 if es == 4 else 4 * 256) + 16 * ce
 
 
 def _k12_smem(cin: int, stride: int, es: int) -> int:
@@ -407,17 +419,19 @@ def _k12_smem(cin: int, stride: int, es: int) -> int:
 
 
 def fused_train_limits(cin: int, ce: int, has_expand: bool, stride: int = 1) -> list:
-    """What K9, K12 or K13 cannot take for a block with these widths (empty
-    when the kernels take it)."""
+    """What K8, K9, K12 or K13 cannot take for a block with these widths
+    (empty when the kernels take it)."""
     bad = []
     if cin % 8:
-        bad.append(f"Cin={cin} is not a multiple of 8 (K9, K12, K13 copy x in 16-byte rows)")
+        bad.append(f"Cin={cin} is not a multiple of 8 (K8, K9, K12, K13 copy x in 16-byte rows)")
     if ce % 32:
         bad.append(f"Ce={ce} is not a multiple of 32 (K12 walks 32-channel items)")
     if has_expand and _k12_smem(cin, stride, 4) > _SMEM_LIMIT:
         bad.append(f"Cin={cin} at stride 1 overflows K12's shared memory with the halo")
     if has_expand and _k13_smem(cin, 64, 0, 4) > _SMEM_LIMIT:
         bad.append(f"Cin={cin} leaves K13 no 64-channel group in a block's shared memory")
+    if has_expand and _k8_smem(cin, ce, 4) > _SMEM_LIMIT:
+        bad.append(f"Cin={cin}, Ce={ce} overflow K8's shared memory with a 64-pixel tile")
     return bad
 
 
@@ -439,24 +453,29 @@ def stats1_plain(x, w1):
     return e.sum(0), (e * e).sum(0)
 
 
-def stats1(x, w1):
+def stats1(x, w1, *, probe: Optional[torch.Tensor] = None):
     """K8 (`_stats1_kernel`): the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors. `probe` (CUDA): an f32 [B, H, W, Ce] tensor
+    that the kernel also fills with its e, rounded to x's dtype
+    (chip_smoke.py compares it with K9's)."""
     cin, ce = x.shape[-1], w1.shape[-1]
-    _check_shapes("stats1", w1=(w1, (cin, ce)))
+    _check_shapes("stats1", w1=(w1, (cin, ce)), probe=(probe, (*x.shape[:-1], ce)))
     if not _on_card("stats1", x):
         return stats1_plain(x, w1)
-    x = x.contiguous()
+    if cin % 8 or _k8_smem(cin, ce, x.element_size()) > _SMEM_LIMIT:
+        raise ValueError(f"stats1 kernel cannot take Cin={cin}, Ce={ce}: Cin % 8 == 0 and a "
+                         f"64-pixel tile in shared memory")
+    x = aligned16(x.contiguous())
     M = x.numel() // cin
-    w = _w(w1, x.dtype)
-    dev = check_cuda_args(x, w)
-    rows = STATS1.lib().ir_train_stats1_rows(M)
+    wf, ks = _fragments(_w(w1, x.dtype), x.dtype)
+    dev = check_cuda_args(x, wf)
+    rows = STATS1.lib().ir_train_stats1_rows(M, cin, ce, dtype_code(x))
     part = torch.empty(2, rows, ce, dtype=_F32, device=dev)
     scratch = _scratch(dev, (rows, ce))
     out = torch.empty(2, ce, dtype=_F32, device=dev)
-    STATS1.launch("ir_train_stats1", ptr(x), ptr(w), ptr(part[0]), ptr(part[1]), ptr(scratch),
-                  ptr(out[0]), ptr(out[1]), M, cin, ce, _REDUCE_ROWS, dtype_code(x),
-                  stream_ptr(dev))
+    STATS1.launch("ir_train_stats1", ptr(x), ptr(wf), ptr(part[0]), ptr(part[1]), ptr(scratch),
+                  ptr(out[0]), ptr(out[1]), ptr(probe), M, cin, ce, ks, wf.shape[0],
+                  _REDUCE_ROWS, dtype_code(x), stream_ptr(dev))
     return out[0], out[1]
 
 

@@ -1,4 +1,4 @@
-"""The shared expand of the port's fused training kernels K9, K12 and K13,
+"""The shared expand of the port's fused training kernels K8, K9, K12 and K13,
 on the CPU.
 
 The kernels compute e = x . W1 on bf16 tensor cores through one device
@@ -21,8 +21,14 @@ exact term. Here:
   it, and `mma_products` counts the products the kernels issue;
 - K13's dW1 (`expand_bwd_plain`, and the emulated e feeding de) holds the
   f32 limit chip_smoke.py sets on the card, 1e-4 of scale, against a
-  float64 reference at the 128^2 32 -> 64 stage's widths (Cin 32, Ce 192).
+  float64 reference at the 128^2 32 -> 64 stage's widths (Cin 32, Ce 192);
+- K8 forms BN1's sums from the same e (since it calls expand_step too):
+  the sums of the emulated e meet JAX's `_stats1_kernel` (Pallas, interpret
+  mode) within the limits chip_smoke.py holds K8 to on the card.
 """
+
+import functools
+
 
 import itertools
 
@@ -32,7 +38,10 @@ import numpy as np
 import pytest
 import torch
 
-from lmsu_tpu.ops.ir_fused import _expand_chunk
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from lmsu_tpu.ops.ir_fused import _COMPILER_PARAMS, _bspec, _expand_chunk, _stats1_kernel, _vspec
 from lmsu_tpu_torch.ops import ir_fused as irf
 
 torch.set_num_threads(2)
@@ -140,3 +149,32 @@ def test_k13_dw1_against_float64(rng):
     de = u1 * dv1.reshape(-1, ce) - p1 - q1 * ((ee - m1) * inv1)
     dw1_e = x.reshape(-1, cin).T @ de
     assert (dw1_e.double() - ref).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k8_sums_of_the_shared_e_meet_jax_stats1(rng, dtype):
+    """BN1's sums at the 128^2 32 -> 64 stage's widths (Cin 32, Ce 192) at
+    B=2, 8x8: sum e and sum e^2 of the emulated e against JAX's
+    `_stats1_kernel` run as `_ir_train_forward` runs it, within
+    chip_smoke.py's check_close for K8 (f32 1e-4, bf16 2e-2, of max(1,
+    scale))."""
+    B, H, cin, ce = 2, 8, 32, 192
+    x = rng.uniform(0, 3, (B, H, H, cin)).astype(np.float32)
+    w1 = rng.normal(0, np.sqrt(2.0 / cin), (cin, ce)).astype(np.float32)
+    tdt, jdt = ((torch.bfloat16, jnp.bfloat16) if dtype == "bf16"
+                else (torch.float32, jnp.float32))
+    with jax.default_matmul_precision("highest"):
+        s, q = pl.pallas_call(
+            functools.partial(_stats1_kernel, H=H, W=H), grid=(B,),
+            in_specs=[_bspec((B, H, H, cin)), _vspec((cin, ce))],
+            out_specs=[_vspec((1, ce)), _vspec((1, ce))],
+            out_shape=[jax.ShapeDtypeStruct((1, ce), jnp.float32)] * 2,
+            scratch_shapes=[pltpu.VMEM((1, ce), jnp.float32)] * 2,
+            interpret=True, compiler_params=_COMPILER_PARAMS,
+        )(jnp.asarray(x, jdt), jnp.asarray(w1, jdt))
+    e = irf.expand_e_emulated(torch.from_numpy(x).to(tdt), torch.from_numpy(w1))
+    got = (e.reshape(-1, ce).sum(0), (e * e).reshape(-1, ce).sum(0))
+    for g, w in zip(got, (np.asarray(s)[0], np.asarray(q)[0])):
+        scale = max(1.0, np.abs(w).max())
+        tol = (1e-4 if dtype == "f32" else 2e-2) * scale
+        assert np.abs(g.numpy() - w).max() <= tol

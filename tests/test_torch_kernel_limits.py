@@ -6,8 +6,9 @@ before anything runs on the card: the check functions are called here
 directly, and `check_kernel_shapes` (what the trainers and the Predictor
 call when their device is CUDA) is held to refuse a fused block by its
 module name. The limits the kernels lifted (K9's shared memory, K13's Cin
-<= 128, K2's C in {32, 64, 128, 256}) pass. The CLIs' start-up turns TF32
-off for cuDNN and cuBLAS, so that their f32 is the f32 parity is held at.
+<= 128, K2's C in {32, 64, 128, 256}) pass, and K2 takes every C. The
+CLIs' start-up turns TF32 off for cuDNN and cuBLAS, so that their f32 is
+the f32 parity is held at.
 """
 
 import pytest
@@ -17,6 +18,7 @@ from lmsu_tpu_torch import serve, train_distill
 from lmsu_tpu_torch.config import CameraEncoderConfig
 from lmsu_tpu_torch.models.camera_encoder import TwinLiteEncoder
 from lmsu_tpu_torch.models.factory import check_kernel_shapes
+from lmsu_tpu_torch.models.fusion import WeightedFusion
 from lmsu_tpu_torch.ops import fusion_gate as fg
 from lmsu_tpu_torch.ops.ir_fused import (check_fused_infer, check_fused_train,
                                          fused_infer_limits, fused_train_limits)
@@ -42,6 +44,7 @@ def test_fused_train_takes_the_student_and_teacher_widths(cin, ce, cout, stride)
     (32, 48, True, "Ce=48"),         # K12's 32-channel items
     (16, 16, False, "Ce=16"),
     (512, 3072, True, "K13"),       # no 64-channel group fits K13's shared memory
+    (640, 1280, True, "K8"),        # K8's 64-pixel tile overflows its shared memory
 ])
 def test_fused_train_refuses_by_name(cin, ce, has_expand, what):
     with pytest.raises(ValueError, match=r"camera stage4: .*fused_train=True.*" + what):
@@ -130,3 +133,22 @@ def test_cli_setup_turns_tf32_off(monkeypatch, cli, builder, argv):
     with pytest.raises(_Stop):
         cli.main(argv)
     assert seen["flags"] == (False, False)
+
+
+@pytest.mark.parametrize("C,dtype", [
+    (128, torch.float32), (256, torch.float32), (512, torch.float32), (520, torch.float32),
+    (1024, torch.bfloat16), (1040, torch.bfloat16),
+])
+def test_fused_gate_of_any_width_is_taken(C, dtype):
+    """K2 takes every C: where a 32-row tile of [cam | lid] overflows a
+    block's shared memory (past 512 channels in f32, 1,024 in bf16) it
+    streams x through its ring instead. So `check_kernel_shapes` refuses no
+    fused gate when a model is set up on CUDA, and the wrapper's CPU path
+    runs at that width in that dtype."""
+    model = torch.nn.ModuleDict({"fusion": WeightedFusion(8, 8, C, use_fused_gate=True)})
+    check_kernel_shapes(model, torch.device("cuda"))
+    g = torch.Generator().manual_seed(C)
+    cam, lid = (torch.randn(1, 2, 2, C, generator=g).to(dtype) for _ in range(2))
+    a0, a2 = model["fusion"].attention[0], model["fusion"].attention[2]
+    out = fg.fusion_gate_fwd(cam, lid, a0.weight, a0.bias, a2.weight, a2.bias)
+    assert out.shape == cam.shape and out.dtype == dtype and torch.isfinite(out.float()).all()
