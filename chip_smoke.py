@@ -34,7 +34,15 @@ Phases:
              (padded K, rows that are not 16-byte multiples, x streamed past
              a 32-row tile). The scatter kernels K4 and K6 (and
              K1 beside K4) also on a skewed cloud: 2,000 of the 5,000 points
-             in one cell, as zero padding puts them.
+             in one cell, as zero padding puts them. K6 is also held bit for
+             bit to an integer-keyed reference (signs of zero too) and, at
+             B=2, on edge clouds: +-0.0 features, an all-invalid image, N =
+             4,999, C = 40 and 136, a 100 x 100 grid; its launch plan (slice,
+             shared memory, blocks per SM) is printed for each. K3 prints its
+             plan (tile, shared memory, blocks per SM) per stage and is also
+             checked at widths that are multiples of 4 but not of 16, at the
+             2x teacher's five stages, and in bf16 on a block where rounding
+             e before BN1 would change the output (bit for bit).
   3. serving the weighted-fusion student at full width with the three
              kernel opt-ins, seeded random weights and randomised BN
              statistics, behind ServingEngine (batch 8) with 8 client
@@ -281,28 +289,94 @@ def kernel_scatter(rng, dev, dtype, C, B=B):
             "empty_cells": int(n_empty)}
 
 
+def keyed_scatter_max(feats, keys, hw):
+    """An exact reference for K6 independent of float atomics: each feature
+    as its order-preserving integer key (x >= 0: bits | 2^31; x < 0: ~bits),
+    an int64 scatter_reduce_ amax from 0 (untouched), and back. Integers take
+    no rounding and their max no order, so this gives -0.0 below +0.0 bit
+    for bit, where the float amax of the plain version returns whichever
+    zero its atomics met first (torch.equal takes -0.0 == +0.0)."""
+    Bn, N, C = feats.shape
+    bits = feats.float().view(torch.int32).long() & 0xFFFFFFFF
+    key = torch.where(bits >= 2 ** 31, ~bits & 0xFFFFFFFF, bits | 2 ** 31)
+    idx = torch.where((keys >= 0) & (keys < hw), keys, hw).long()
+    acc = torch.zeros(Bn, hw + 1, C, dtype=torch.int64, device=feats.device)
+    acc.scatter_reduce_(1, idx.unsqueeze(-1).expand(Bn, N, C), key, "amax")
+    acc = acc[:, :hw]
+    out = torch.where(acc >= 2 ** 31, acc & 0x7FFFFFFF, ~acc & 0xFFFFFFFF)
+    out = torch.where(acc == 0, 0, out)
+    out = out - (out >= 2 ** 31).long() * 2 ** 32
+    return out.to(torch.int32).view(torch.float32).to(feats.dtype)
+
+
+def same_bits(a, b) -> bool:
+    view = torch.int32 if a.element_size() == 4 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def check_unsorted(what, feats, keys, hw):
+    """K6 == its plain version and scatter_reduce_ (values), and == the
+    keyed reference bit for bit (signs of zeros too)."""
+    from lmsu_tpu_torch.ops import voxelize as vx
+    got = vx.scatter_max(feats, keys, hw)
+    want = vx.scatter_max_plain(feats, keys, hw)
+    library, lib = scatter_library(feats, keys, hw)
+    if not (torch.equal(got, want) and torch.equal(got, lib)
+            and same_bits(got, keyed_scatter_max(feats, keys, hw))):
+        raise AssertionError(f"voxelize_scatter_max {what} {feats.dtype}: not bit-exact "
+                             f"({(got.float() - want.float()).abs().max().item():g})")
+    return library
+
+
 def kernel_unsorted(rng, dev, dtype, C, B=B, skew=False):
     """K6 on points in no order (one permutation of the sorted cloud)
-    against its plain version and scatter_reduce_, bit for bit."""
+    against its plain version and scatter_reduce_, bit for bit, with its
+    launch plan."""
     from lmsu_tpu_torch.ops import voxelize as vx
     hw = GRID * GRID
     feats, keys = sorted_inputs(rng, C, dtype, dev, B, skew)
     perm = torch.from_numpy(rng.permutation(NPTS)).to(dev)
     feats, keys = feats[:, perm].contiguous(), keys[:, perm].contiguous()
-    got = vx.scatter_max(feats, keys, hw)
-    want = vx.scatter_max_plain(feats, keys, hw)
-    library, lib = scatter_library(feats, keys, hw)
-    if not (torch.equal(got, want) and torch.equal(got, lib)):
-        raise AssertionError(f"voxelize_scatter_max C={C} B={B} skew={skew} {dtype}: not "
-                             f"bit-exact ({(got.float() - want.float()).abs().max().item():g})")
+    library = check_unsorted(f"C={C} B={B} skew={skew}", feats, keys, hw)
     bound, by = scatter_bound(feats, keys, hw)
     run = lambda: vx.scatter_max(feats, keys, hw)  # noqa: E731
-    return {"ms": time_ms(run), "eager_ms": eager_ms(run),
+    plan = vx.scatter_max_plan(B, NPTS, C, hw, dtype) if dev.type == "cuda" else None
+    return {"ms": time_ms(run), "eager_ms": eager_ms(run), "plan": plan,
             "plain_ms": time_ms(lambda: vx.scatter_max_plain(feats, keys, hw), reps=10, inner=2),
             "library_ms": time_ms(library), "library": "scatter_reduce_ amax",
             "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
             "shape": f"feats [{B},{NPTS},{C}] unsorted, out [{B},{GRID},{GRID},{C}]"
                      + (f", {SKEW} points in one cell" if skew else "")}
+
+
+def check_voxelize_edges(rng, dev, dtype, B=2) -> dict:
+    """K6 off the main path's shapes, each cloud bit for bit (check_unsorted):
+    features of mixed sign with many +-0.0 (cells whose max is -0.0, cells
+    with both zeros), an all-invalid image, N = 4,999 (no multiple of a
+    batch), C = 40 and 136 (no multiple of the slice), and a 100 x 100 grid
+    (10,000 cells: the slice narrows). Returns each cloud's launch plan."""
+    from lmsu_tpu_torch.ops import voxelize as vx
+    out = {}
+    for what, n, C, hw in (("signed zeros", NPTS, 128, GRID * GRID),
+                           ("all-invalid image", NPTS, 128, GRID * GRID),
+                           ("N=4999", 4999, 128, GRID * GRID), ("C=40", NPTS, 40, GRID * GRID),
+                           ("C=136", NPTS, 136, GRID * GRID), ("HW=100x100", NPTS, 128, 10000)):
+        keys = rng.integers(0, hw + 1, (B, n))  # hw: an invalid point
+        f = np.round(rng.normal(0, 1, (B, n, C)) * 4) / 4
+        if what == "signed zeros":
+            f = rng.choice(np.array([-1.0, -0.5, -0.0, 0.0, 0.5]), (B, n, C))
+            low = keys < 300  # cells whose points are -1 or -0.0 only: max -0.0
+            f[low] = rng.choice(np.array([-1.0, -0.0]), (int(low.sum()), C))
+            mid = (keys >= 300) & (keys < 600)  # -0.0 and +0.0 only: max +0.0
+            f[mid] = rng.choice(np.array([-0.0, 0.0]), (int(mid.sum()), C))
+        if what == "all-invalid image":
+            keys[0] = hw
+        feats = torch.from_numpy(f.astype(np.float32)).to(dev, dtype)
+        keys_d = torch.from_numpy(keys.astype(np.int32)).to(dev)
+        check_unsorted(what, feats, keys_d, hw)
+        out[what] = (vx.scatter_max_plan(B, n, C, hw, dtype) if dev.type == "cuda"
+                     else "checked")
+    return out
 
 
 def kernel_flat(rng, dev, dtype, C, B=B, skew=False):
@@ -515,6 +589,23 @@ def random_ir_params(rng, dev, Cin, Cout, exp):
                     t(rng.normal(0, np.sqrt(2.0 / Ce), (Ce, Cout))), s3, b3)
 
 
+def ir_infer_bound(Bn, H, Cin, Cout, stride, exp, dtype) -> tuple:
+    """K3's bound: its 1x1 products on the bf16 tensor cores
+    (ir_fused.mma_products per f32-level product) at 989 TFLOP/s, beside the
+    depthwise on CUDA cores at 67 TFLOP/s (the units overlap: the larger),
+    against reading x and the weights once and writing the output once."""
+    from lmsu_tpu_torch.ops import ir_fused as irf
+    Ce, Ho = Cin * exp, (H - 1) // stride + 1
+    es = 4 if dtype == torch.float32 else 2
+    wbytes = ((Cin * Ce if exp != 1 else 0) + Ce * Cout) * es + (9 * Ce + 4 * Ce + 2 * Cout) * 4
+    nbytes = Bn * H * H * Cin * es + Bn * Ho * Ho * Cout * es + wbytes
+    tc = irf.mma_products(dtype) * 2 * Bn * (H * H * Cin * Ce * (exp != 1) + Ho * Ho * Ce * Cout)
+    cuda = 2 * 9 * Bn * Ho * Ho * Ce
+    t_ops = max(tc / PEAK_OPS[torch.bfloat16], cuda / PEAK_OPS[torch.float32]) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def kernel_ir(rng, dev, dtype):
     from lmsu_tpu_torch.ops import ir_fused as irf
     total = {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
@@ -525,13 +616,10 @@ def kernel_ir(rng, dev, dtype):
         err = check_close(f"ir_fused_infer stage {H}x{Cin}->{Cout}/s{stride}",
                           irf.fused_ir_infer(x, p, stride), irf.fused_ir_infer_plain(x, p, stride),
                           dtype)
-        Ce, Ho = Cin * exp, H // stride
-        es = x.element_size()
-        wbytes = ((Cin * Ce if exp != 1 else 0) + Ce * Cout) * es + (9 * Ce + 4 * Ce + 2 * Cout) * 4
-        nbytes = B * H * H * Cin * es + B * Ho * Ho * Cout * es + wbytes
-        ops = 2 * B * (H * H * Cin * Ce * (exp != 1) + 9 * Ho * Ho * Ce + Ho * Ho * Ce * Cout)
-        bound, by = bound_ms(nbytes, ops, dtype)
-        st = {"stage": f"{H}x{H} {Cin}->{Cout} s{stride} e{exp}",
+        bound, by = ir_infer_bound(B, H, Cin, Cout, stride, exp, dtype)
+        plan = (irf.infer_plan(B, H, H, Cin, Cin * exp, Cout, stride, exp != 1, dtype)
+                if dev.type == "cuda" else None)
+        st = {"stage": f"{H}x{H} {Cin}->{Cout} s{stride} e{exp}", "plan": plan,
               "ms": time_ms(lambda: irf.fused_ir_infer(x, p, stride)),
               "eager_ms": eager_ms(lambda: irf.fused_ir_infer(x, p, stride)),
               "plain_ms": time_ms(lambda: irf.fused_ir_infer_plain(x, p, stride)),
@@ -545,6 +633,43 @@ def kernel_ir(rng, dev, dtype):
                   "bound_by": "operations" if "operations" in ops_by else "bytes",
                   "stages": stages, "shape": "the 5 camera stages at B=8, 256^2 input"})
     return total
+
+
+IR_INFER_EDGES = [  # (H, Cin, Cout, stride, expansion), checked at B=2
+    (16, 36, 36, 1, 6), (16, 20, 44, 2, 6),  # widths: multiples of 4, not of 16
+    # the 2x teacher's five stages at 256^2 (the fourth 128 -> 256 at stride 2 included)
+    (128, 64, 64, 1, 1), (128, 64, 128, 2, 6), (64, 128, 128, 1, 6), (64, 128, 256, 2, 6),
+    (32, 256, 256, 1, 6)]
+
+
+def check_ir_infer_edges(rng, dev, dtype, Bn=2) -> dict:
+    """K3 against its plain version (check_close) off the student's stages:
+    IR_INFER_EDGES, each with its launch plan; and in bf16 on
+    ir_fused.infer_rounding_probe, where K3 must give the plain version's
+    and fused_ir_infer_emulated's output bit for bit, 3 + 2^-6 in channel 0
+    (e is not rounded before BN1)."""
+    from lmsu_tpu_torch.ops import ir_fused as irf
+    out = {}
+    for H, Cin, Cout, stride, exp in IR_INFER_EDGES:
+        x = torch.from_numpy(rng.uniform(0, 3, (Bn, H, H, Cin)).astype(np.float32)).to(dev, dtype)
+        p = random_ir_params(rng, dev, Cin, Cout, exp)
+        what = f"{H}x{H} {Cin}->{Cout} s{stride} e{exp}"
+        err = check_close(f"ir_fused_infer {what}", irf.fused_ir_infer(x, p, stride),
+                          irf.fused_ir_infer_plain(x, p, stride), dtype)
+        plan = (irf.infer_plan(Bn, H, H, Cin, Cin * exp, Cout, stride, exp != 1, dtype)
+                if dev.type == "cuda" else None)
+        out[what] = {"max_abs_err": err, "plan": plan}
+    if dtype == torch.bfloat16:
+        x, prm = irf.infer_rounding_probe()
+        xb = x.to(dev, dtype)
+        p = irf.IRParams(*(a.to(dev) for a in prm))
+        got, want = irf.fused_ir_infer(xb, p, 1), irf.fused_ir_infer_plain(xb, p, 1)
+        if not (same_bits(got, want) and same_bits(got, irf.fused_ir_infer_emulated(xb, p, 1))
+                and bool((got[..., 0].float() == 3 + 2.0 ** -6).all())):
+            raise AssertionError(f"ir_fused_infer rounding probe: {got[0, 0, 0].tolist()} vs "
+                                 f"{want[0, 0, 0].tolist()}")
+        out["rounding probe"] = "bit-exact, 3 + 2^-6"
+    return out
 
 
 def check_masked(name, got, want, dtype, frac=1e-5):
@@ -1020,6 +1145,11 @@ def phase_kernels(dev):
             torch.cuda.empty_cache()
         res[("ir", name, 0, B)] = kernel_ir(rng, dev, dtype)
         log(f"[kernels] ir_fused_infer {name}: {json.dumps(res[('ir', name, 0, B)])}")
+        edges = check_ir_infer_edges(np.random.default_rng(36), dev, dtype)
+        log(f"[kernels] ir_fused_infer other widths and the teacher {name}, B=2: "
+            f"{json.dumps(edges)}")
+        edges = check_voxelize_edges(np.random.default_rng(4999), dev, dtype)
+        log(f"[kernels] voxelize_scatter_max edge clouds {name}, B=2: {json.dumps(edges)}")
         irt, blocks = kernel_ir_train(rng, dev, dtype)
         for k, r in irt.items():
             res[(k, name, 0, TRAIN_B)] = r

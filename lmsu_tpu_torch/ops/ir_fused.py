@@ -10,13 +10,15 @@ scale/bias:
     d   = relu6(dw3x3(e, stride) * s2 + b2)   depthwise, padding 1
     out = (d @ W2) * s3 + b3  (+ x if stride 1 and Cin == Cout)
 
-On the H100 the f32 kernel is bound by its multiply-adds on CUDA cores
-(the expansion-1 stage by bytes); its design keeps the 6x-expanded hidden
-tensor in shared memory and runs the whole block in one launch (two when
-a small grid splits its hidden channels; see the .cu source note).
-Rounding follows the TPU kernel: e, the depthwise taps and d are rounded to
-the input dtype, every sum is f32, and the residual is added in the input
-dtype.
+The kernel runs both 1x1 products on the tensor cores (the training
+kernels' split-operand mma_step, W1 and W2 as pre-split fragments built
+once per folded-parameter set) and the depthwise on CUDA cores, keeping the
+6x-expanded hidden tensor in shared memory, the whole block in one launch
+(see the .cu source note). Rounding follows the TPU kernel, not the
+training path: relu6(e * s1 + b1) is rounded to the input dtype but e
+itself is not, the depthwise taps and d are rounded, every sum is f32, and
+the residual is added in the input dtype (`fused_ir_infer_emulated`
+repeats the kernel's arithmetic for the tests).
 
 Training (`fused_ir_train`, an autograd Function) transcribes
 _ir_train_forward / _ir_train_backward. BatchNorm needs the batch
@@ -50,6 +52,8 @@ take it, CUDA tensors launch the kernel, other devices raise.
 
 from __future__ import annotations
 
+import ctypes
+import weakref
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -60,10 +64,10 @@ from lmsu_tpu_torch.ops._cuda import (_I, _L, _P, CudaKernel, aligned16, check_c
 from lmsu_tpu_torch.ops.kd_loss import split_bf16
 
 KERNEL = CudaKernel("ir_fused_infer.cu", {
-    "ir_fused_infer": (_P,) * 12 + (_I,) * 13 + (_P,)})
+    "ir_fused_infer": (_P,) * 11 + (_I,) * 14 + (_P,),
+    "ir_fused_infer_plan": (_I,) * 9 + (_P,)})
 
 _SMEM_LIMIT = 232448          # shared memory a block may opt in to on Hopper
-_SMEM_PER_SM = 233472         # shared memory of one Hopper SM
 
 
 def fold_bn(gamma, beta, mean, var, eps: float = 1e-5):
@@ -112,14 +116,19 @@ def fused_ir_infer_plain(x: torch.Tensor, p: IRParams, stride: int) -> torch.Ten
     return out
 
 
+def _row_ld(c: int, es: int) -> int:
+    """csrc/ir_train_common.cuh::row_ld: a staged row of c channels."""
+    per = 128 // es
+    return -(-(-(-c // 16) * 16) // per) * per
+
+
 def _smem_bytes(stride: int, cin: int, cout: int) -> int:
-    """The kernel's shared memory: halo tile (transposed, padded), one
-    32-channel chunk of e, W1, d and W2 (see the layout in the .cu file)."""
-    pin = (7 * stride + 3) ** 2
-    ppad = (pin + 3) // 4 * 4
-    while ppad % 32 != 4:
-        ppad += 4
-    return 4 * (cin * ppad + pin * 32 + cin * 32 + 32 * 68 + 32 * cout)
+    """The least shared memory K3 needs for a block: f32 at its smallest
+    output tile, 4x8 (csrc/ir_fused_infer.cu::layout_of): the halo's three
+    bf16 term planes with a zero row, one 32-channel chunk of e in f32 and
+    of d in three bf16 terms, and the chunk's 13 per-channel vectors."""
+    pin = (3 * stride + 3) * (7 * stride + 3)
+    return 6 * (pin + 1) * _row_ld(cin, 2) + 4 * pin * 32 + 6 * 32 * 32 + 4 * 13 * 32
 
 
 def fused_infer_limits(cin: int, ce: int, cout: int, stride: int) -> list:
@@ -143,13 +152,42 @@ def check_fused_infer(stage: str, cin: int, ce: int, cout: int, stride: int) -> 
                          f"block on the card: {'; '.join(bad)}; use fused_inference=False")
 
 
-def _hidden_split(blocks: int, smem: int, ce: int, device: torch.device) -> int:
-    """How many blocks share one tile's hidden chunks: enough that the grid
-    fills every SM as far as shared memory lets blocks co-reside (the 32x32
-    stages give only B*16 tiles). 1 = no split."""
-    per_sm = max(1, _SMEM_PER_SM // (smem + 1024))
-    slots = torch.cuda.get_device_properties(device).multi_processor_count * per_sm
-    return max(1, min((ce + 31) // 32, slots // blocks))
+# K3's W1 and W2 fragments, built once per folded-parameter set: keyed by the
+# weight tensor's identity (IRParams' tensors live as long as the module's
+# cached folding; an entry goes when its tensor does), rebuilt when the
+# tensor changes in place.
+_INFER_FRAGMENTS: dict = {}
+
+
+def _infer_fragments(w: torch.Tensor, dt: torch.dtype) -> Tuple[torch.Tensor, int]:
+    """mma_fragments of w's dt values and its k-steps a n-tile, cached on w.
+    Built on w's device by tensor ops: no host sync."""
+    key = (id(w), dt)
+    # A tensor made under torch.inference_mode (the Predictor folds its BN
+    # there) has no version counter.
+    version = None if w.is_inference() else w._version
+    hit = _INFER_FRAGMENTS.get(key)
+    if hit is None or hit[0]() is not w or hit[1] != version:
+        if hit is None or hit[0]() is not w:
+            weakref.finalize(w, _INFER_FRAGMENTS.pop, key, None)
+        hit = (weakref.ref(w), version, *_fragments(_w(w, dt), dt))
+        _INFER_FRAGMENTS[key] = hit
+    return hit[2], hit[3]
+
+
+def infer_plan(B: int, H: int, W: int, cin: int, ce: int, cout: int, stride: int,
+               has_expand: bool, dtype: torch.dtype) -> dict:
+    """K3's launch for these shapes on the current card (chip_smoke.py
+    prints it): output tile, shared memory a block, resident blocks per SM,
+    blocks launched."""
+    o = (ctypes.c_int * 5)()
+    err = KERNEL.lib().ir_fused_infer_plan(B, H, W, cin, ce, cout, stride, int(has_expand),
+                                           0 if dtype == torch.float32 else 1,
+                                           ctypes.addressof(o))
+    if err:
+        raise RuntimeError(f"ir_fused_infer_plan: CUDA error {err}")
+    return {"tile": f"{o[0]}x{o[1]}", "smem_bytes": o[2], "blocks_per_sm": o[3],
+            "blocks": o[4]}
 
 
 def fused_ir_infer(x: torch.Tensor, p: IRParams, stride: int = 1) -> torch.Tensor:
@@ -171,28 +209,26 @@ def fused_ir_infer(x: torch.Tensor, p: IRParams, stride: int = 1) -> torch.Tenso
         raise ValueError(f"fused_ir_infer kernel cannot take this block: {'; '.join(bad)}")
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     dt = x.dtype
-    x = x.contiguous()
-    f32 = [t.float().contiguous() for t in (p.s2, p.b2, p.s3, p.b3)]
-    # Weights and taps hold values of the input dtype, passed as f32.
-    dw = p.dw.to(dt).float().reshape(9, Ce).contiguous()
-    w2 = p.w2.to(dt).float().contiguous()
+    x = aligned16(x.contiguous())
+    # The kernel copies s1, b1, the taps, s2 and b2 in 16-byte pieces.
+    f32 = [aligned16(t.float().contiguous()) for t in (p.s2, p.b2, p.s3, p.b3)]
+    # Taps hold values of the input dtype, passed as f32; W1 and W2 as their
+    # pre-split fragments.
+    dw = aligned16(_w(p.dw, dt).reshape(9, Ce))
+    w2f, ks2 = _infer_fragments(p.w2, dt)
     if has_expand:
-        w1 = p.w1.to(dt).float().contiguous()
-        s1, b1 = p.s1.float().contiguous(), p.b1.float().contiguous()
-        dev = check_cuda_args(x, w1, s1, b1, dw, w2, *f32)
+        w1f, ks1 = _infer_fragments(p.w1, dt)
+        s1, b1 = (aligned16(v) for v in _v(p.s1, p.b1))
+        dev = check_cuda_args(x, w1f, s1, b1, dw, w2f, *f32)
     else:
-        w1 = s1 = b1 = None
-        dev = check_cuda_args(x, dw, w2, *f32)
-    smem = _smem_bytes(stride, Cin, Cout)
-    nsplit = _hidden_split(B * -(-Ho // 8) * -(-Wo // 8), smem, Ce, dev)
+        w1f, ks1, s1, b1 = None, 0, None, None
+        dev = check_cuda_args(x, dw, w2f, *f32)
     out = torch.empty(B, Ho, Wo, Cout, dtype=dt, device=dev)
-    partial = (torch.empty(nsplit, B, Ho, Wo, Cout, dtype=torch.float32, device=dev)
-               if nsplit > 1 else None)
     residual = int(stride == 1 and Cin == Cout)
-    KERNEL.launch("ir_fused_infer", ptr(x), ptr(w1), ptr(s1), ptr(b1), ptr(dw),
-                  ptr(f32[0]), ptr(f32[1]), ptr(w2), ptr(f32[2]), ptr(f32[3]), ptr(out),
-                  ptr(partial), B, H, W, Ho, Wo, Cin, Ce, Cout, stride, int(has_expand),
-                  residual, nsplit, dtype_code(x), stream_ptr(dev))
+    KERNEL.launch("ir_fused_infer", ptr(x), ptr(w1f), ptr(s1), ptr(b1), ptr(dw),
+                  ptr(f32[0]), ptr(f32[1]), ptr(w2f), ptr(f32[2]), ptr(f32[3]), ptr(out),
+                  B, H, W, Ho, Wo, Cin, Ce, Cout, ks1, ks2, stride, int(has_expand), residual,
+                  dtype_code(x), stream_ptr(dev))
     return out
 
 
@@ -384,6 +420,53 @@ def expand_e_emulated(x: torch.Tensor, w1: torch.Tensor,
     dt = x.dtype
     acc = mma_matmul_emulated(x.reshape(-1, x.shape[-1]).float(), _rnd(w1, dt), dt, terms)
     return _rnd(acc, dt).reshape(*x.shape[:-1], -1)
+
+
+def fused_ir_infer_emulated(x: torch.Tensor, p: IRParams, stride: int,
+                            terms: int = EXPAND_TERMS) -> torch.Tensor:
+    """K3's arithmetic in plain PyTorch (the tests, and chip_smoke.py on
+    infer_rounding_probe; the main path never calls it): fused_ir_infer_plain
+    with both 1x1 products formed as mma_step forms them
+    (mma_matmul_emulated) and K3's rounding points, which are the TPU
+    inference kernel's: e is NOT rounded before BN1 (relu6(e * s1 + b1) is),
+    d is, the BN3 result is, and the residual is added in the input dtype."""
+    dt = x.dtype
+    B, H, W, cin = x.shape
+    cout = p.w2.shape[-1]
+    if p.w1 is not None:
+        e = mma_matmul_emulated(x.reshape(-1, cin).float(), _rnd(p.w1, dt), dt, terms)
+        e_act = _rnd(_relu6(e * p.s1.float() + p.b1.float()), dt).reshape(B, H, W, -1)
+    else:
+        e_act = x.float()
+    ce = e_act.shape[-1]
+    d = F.conv2d(e_act.permute(0, 3, 1, 2), _dw_taps(p.dw, dt), stride=stride, padding=1,
+                 groups=ce).permute(0, 2, 3, 1)
+    d = _rnd(_relu6(d * p.s2.float() + p.b2.float()), dt)
+    y = mma_matmul_emulated(d.reshape(-1, ce), _rnd(p.w2, dt), dt, terms)
+    out = (y * p.s3.float() + p.b3.float()).reshape(*d.shape[:-1], cout).to(dt)
+    if stride == 1 and cin == cout:
+        out = x + out
+    return out
+
+
+def infer_rounding_probe() -> Tuple[torch.Tensor, IRParams]:
+    """A block on which K3's rounding points show, as f32 CPU tensors: x
+    [1, 4, 4, 4] and folded parameters whose channel 0 of e = x @ W1 is
+    exactly 1 + 3 * 2^-10 at every pixel (W1's column 0 = (1, 1, 0, 0)).
+    With s1 = 3, e * s1 = 3 + 9 * 2^-10 rounds to 3 + 2^-6 in bf16, while
+    rounding e first (the training path's point) gives 1 * 3 = 3. The
+    depthwise is the identity (centre tap 1), BN2 and BN3 are the identity
+    and W2 copies channel 0 to output 0 of 8 (no residual)."""
+    x = torch.zeros(1, 4, 4, 4)
+    x[..., 0], x[..., 1] = 1.0, 3 * 2.0 ** -10
+    w1 = torch.zeros(4, 4)
+    w1[0, 0] = w1[1, 0] = 1.0
+    dw = torch.zeros(3, 3, 4)
+    dw[1, 1] = 1.0
+    w2 = torch.zeros(4, 8)
+    w2[0, 0] = 1.0
+    return x, IRParams(w1, torch.full((4,), 3.0), torch.zeros(4), dw, torch.ones(4),
+                       torch.zeros(4), w2, torch.ones(8), torch.zeros(8))
 
 
 # Shape limits of K8, K9, K12 and K13 on the card (the JAX package's kernels

@@ -5,9 +5,11 @@ Replaces the TPU kernel lmsu_tpu/ops/voxelize_pallas.py::_scatter_max_kernel
 (bev_scatter_max_pallas, scatter_impl="pallas"). The TPU kernel keeps the
 whole [H*W, C] grid of one image in VMEM and loops over the points one at a
 time. The H100 has no 2 MB of fast memory per block, so the kernel splits
-the channels instead: one block per (image, slice of channels) keeps its
-[H*W, slice] accumulator in shared memory and takes a shared-memory atomic
-max per point. A max takes no rounding, so the result is exact and
+the channels instead: a persistent block walks (image, slice of channels)
+items, keeps each item's [slice, H*W] accumulator in shared memory as
+order-preserving integer keys and takes one shared-memory atomic max per
+point and channel, with the next points' loads in flight meanwhile (see
+the .cu source note). A max takes no rounding, so the result is exact and
 deterministic in any order of the atomics.
 
 The backward is the dense tie-splitting VJP (ops/scatter.py::
@@ -17,6 +19,7 @@ and not a kernel. Points need no order.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -26,7 +29,8 @@ from lmsu_tpu_torch.ops._cuda import (_I, _P, CudaKernel, check_cuda_args, dtype
 from lmsu_tpu_torch.ops.scatter import with_dense_vjp
 
 KERNEL = CudaKernel("voxelize_scatter_max.cu", {
-    "voxelize_scatter_max": (_P, _P, _P, _I, _I, _I, _I, _I, _P)})
+    "voxelize_scatter_max": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "voxelize_scatter_max_plan": (_I, _I, _I, _I, _I, _P)})
 
 
 def scatter_max_plain(feats: torch.Tensor, idx: torch.Tensor, hw: int) -> torch.Tensor:
@@ -40,6 +44,18 @@ def scatter_max_plain(feats: torch.Tensor, idx: torch.Tensor, hw: int) -> torch.
                         "amax")
     acc = acc[:, :hw]
     return torch.where(torch.isneginf(acc), 0.0, acc).to(feats.dtype)
+
+
+def scatter_max_plan(B: int, N: int, C: int, hw: int, dtype: torch.dtype) -> dict:
+    """The kernel's launch for these shapes on the current card
+    (chip_smoke.py prints it)."""
+    o = (ctypes.c_int * 4)()
+    err = KERNEL.lib().voxelize_scatter_max_plan(B, N, C, hw,
+                                                 0 if dtype == torch.float32 else 1,
+                                                 ctypes.addressof(o))
+    if err:
+        raise RuntimeError(f"voxelize_scatter_max_plan: CUDA error {err}")
+    return {"slice": o[0], "smem_bytes": o[1], "blocks_per_sm": o[2], "blocks": o[3]}
 
 
 def scatter_max(feats: torch.Tensor, idx: torch.Tensor, hw: int) -> torch.Tensor:

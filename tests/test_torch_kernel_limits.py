@@ -62,8 +62,17 @@ def test_fused_inference_takes_the_student_widths():
         assert fused_infer_limits(cin, ce, cout, stride) == []
 
 
+@pytest.mark.parametrize("cin,ce,cout,stride", TEACHER)
+def test_fused_inference_takes_the_teacher_widths(cin, ce, cout, stride):
+    """K3 took the 2x teacher's stages but its fourth (128 -> 256 at stride
+    2), which overflowed a block's shared memory; since its weights may be
+    read from L2 where their rings do not fit, it takes all five."""
+    assert fused_infer_limits(cin, ce, cout, stride) == []
+    check_fused_infer("stage", cin, ce, cout, stride)
+
+
 @pytest.mark.parametrize("cin,ce,cout,stride,what", [
-    (128, 768, 256, 2, "shared memory"),  # the 2x teacher's fourth stage
+    (256, 1536, 256, 2, "shared memory"),  # a 256-channel halo at stride 2
     (256, 1536, 512, 1, "Cout=512"),
     (30, 180, 64, 2, "multiples of 4"),
 ])
