@@ -32,9 +32,15 @@ Phases:
              plain version is printed), with each shape's tile rows, shared
              memory and resident blocks, and at six other widths at B=2
              (padded K, rows that are not 16-byte multiples, x streamed past
-             a 32-row tile). The scatter kernels K4 and K6 (and
+             a 32-row tile). The scatter kernels K4, K5 and K6 (and
              K1 beside K4) also on a skewed cloud: 2,000 of the 5,000 points
-             in one cell, as zero padding puts them. K6 is also held bit for
+             in one cell, as zero padding puts them. K1 and K5 print their
+             walk's plan (vector bytes, walkers, rows a step, shared memory,
+             blocks per SM, blocks) at each shape and are also checked at
+             B=2 on edge clouds (check_sorted_scatter_edges): C = 40, 42,
+             136 and 2, N = 4,999, an all-invalid image, a 100 x 100 grid,
+             cells of each kernel's long-span threshold - 1, + 0 and + 1
+             rows and of 2,000 rows; K1 bit for bit, K5 exactly. K6 is also held bit for
              bit to an integer-keyed reference (signs of zero too) and, at
              B=2, on edge clouds: +-0.0 features, an all-invalid image, N =
              4,999, C = 40 and 136, a 100 x 100 grid; its launch plan (slice,
@@ -281,7 +287,8 @@ def kernel_scatter(rng, dev, dtype, C, B=B):
     k_np = keys.cpu().numpy()
     n_empty = B * hw - sum(len(np.unique(r[r < hw])) for r in k_np)
     bound, by = scatter_bound(feats, keys, hw)
-    return {"ms": time_ms(lambda: ss.segment_max(feats, keys, hw)),
+    plan = ss.segment_max_plan(B, NPTS, C, hw, dtype) if dev.type == "cuda" else None
+    return {"plan": plan, "ms": time_ms(lambda: ss.segment_max(feats, keys, hw)),
             "eager_ms": eager_ms(lambda: ss.segment_max(feats, keys, hw)),
             "plain_ms": time_ms(lambda: ss.segment_max_plain(feats, keys, hw), reps=20, inner=2),
             "library_ms": time_ms(library), "bound_ms": bound, "bound_by": by,
@@ -404,13 +411,14 @@ def kernel_flat(rng, dev, dtype, C, B=B, skew=False):
                      + (f", {SKEW} points in one cell" if skew else "")}
 
 
-def kernel_scatter_bwd(rng, dev, dtype, C=128, B=B):
+def kernel_scatter_bwd(rng, dev, dtype, C=128, B=B, skew=False):
     """K5 against its plain version, exactly, on cell-sorted inputs with
     ties, empty cells, an all-negative cloud and one cell of 400 tied points
-    (beyond the 256 a bf16 count could hold exactly)."""
+    (beyond the 256 a bf16 count could hold exactly); with `skew`, on the
+    skewed cloud (SKEW points in the centre cell), with its walk's plan."""
     from lmsu_tpu_torch.ops import scatter_sorted as ss
     hw = GRID * GRID
-    feats, keys = sorted_inputs(rng, C, dtype, dev, B)
+    feats, keys = sorted_inputs(rng, C, dtype, dev, B, skew)
     k_np = keys.cpu().numpy()
     lo = 1000
     assert k_np[3, lo + 400] < hw
@@ -444,14 +452,76 @@ def kernel_scatter_bwd(rng, dev, dtype, C=128, B=B):
     nbytes = n_valid * C * es + keys.numel() * 4 + 2 * n_cells * C * es + B * NPTS * C * es
     bound, by = bound_ms(nbytes, 2 * n_valid * C, dtype)
     run = lambda: ss.segment_max_bwd(feats, keys, out, g, hw)  # noqa: E731
-    return {"ms": time_ms(run), "eager_ms": eager_ms(run),
+    plan = ss.segment_max_bwd_plan(B, NPTS, C, hw, dtype) if dev.type == "cuda" else None
+    return {"plan": plan, "ms": time_ms(run), "eager_ms": eager_ms(run),
             "plain_ms": time_ms(lambda: ss.segment_max_bwd_plain(feats, keys, out, g, hw),
                                 reps=20, inner=2),
             "library_ms": eager_ms(library), "library": "autograd backward of "
             "scatter_reduce amax (eager: launches included)", "library_max_abs_err": lib_err,
             "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
-            "shape": f"feats [{B},{NPTS},{C}], out/g [{B},{GRID},{GRID},{C}]",
+            "shape": f"feats [{B},{NPTS},{C}], out/g [{B},{GRID},{GRID},{C}]"
+                     + (f", {SKEW} points in one cell" if skew else ""),
             "max_ties": 400, "empty_cells": int(B * hw - n_cells)}
+
+
+def check_sorted_scatter_edges(rng, dev, dtype, B=2) -> dict:
+    """K1 and K5 off the main path's shapes, at B=2 on cell-sorted clouds
+    of their own: K1 bit for bit against its plain version and
+    scatter_reduce_, K5 exactly against its plain version. C = 40, 42, 136
+    and 2 (rows that are not 16-byte multiples take narrower vectors on the
+    same walk), N = 4,999, an all-invalid image, a 100 x 100 grid, and at
+    C=128 a cell of exactly each kernel's long-span threshold (its rows a
+    step, one ring slot), of the threshold - 1 and + 1 rows (a span longer
+    than a slot) and of 2,000 rows. Returns each kernel's plan for each
+    cloud; its geometry must be ops/scatter_sorted.py::walk_geometry's."""
+    from lmsu_tpu_torch.ops import scatter_sorted as ss
+    es = 2 if dtype == torch.bfloat16 else 4
+    hw0 = GRID * GRID
+    clouds = [(f"C={C}", NPTS, C, hw0, 0) for C in (40, 42, 136, 2)]
+    clouds += [("N=4999", 4999, 128, hw0, 0), ("all-invalid image", NPTS, 128, hw0, 0),
+               ("HW=100x100", NPTS, 128, 10000, 0)]
+    for kind in ("fwd", "bwd"):
+        cap = ss.walk_geometry(128, es, kind)["cap"]
+        clouds += [(f"{kind} threshold {span}", NPTS, 128, hw0, span)
+                   for span in (cap - 1, cap, cap + 1)]
+    clouds.append(("span 2000", NPTS, 128, hw0, 2000))
+    out = {}
+    for what, n, C, hw, span in clouds:
+        keys = rng.integers(0, hw, (B, n))
+        keys[:, -n // 12:] = hw  # invalid points
+        if what == "all-invalid image":
+            keys[0] = hw
+        if span:  # one cell of exactly `span` points in each image
+            keys[keys == 777] = hw
+            keys[:, :span] = 777
+        keys = np.sort(keys, axis=1)
+        f = np.round(rng.normal(0, 1, (B, n, C)) * 4) / 4
+        f[1] = -np.abs(f[1]) - 0.25
+        feats = torch.from_numpy(f.astype(np.float32)).to(dev, dtype)
+        keys_d = torch.from_numpy(keys.astype(np.int32)).to(dev)
+        got = ss.segment_max(feats, keys_d, hw)
+        want = ss.segment_max_plain(feats, keys_d, hw)
+        _, lib = scatter_library(feats, keys_d, hw)
+        if not (torch.equal(got, want) and torch.equal(got, lib)):
+            raise AssertionError(f"scatter_sorted_fwd {what} {dtype}: not bit-exact")
+        g = torch.from_numpy(rng.normal(0, 1, (B, hw, C)).astype(np.float32)).to(dev, dtype)
+        if not torch.equal(ss.segment_max_bwd(feats, keys_d, got, g, hw),
+                           ss.segment_max_bwd_plain(feats, keys_d, got, g, hw)):
+            raise AssertionError(f"scatter_sorted_bwd {what} {dtype}: not exact")
+        if dev.type != "cuda":
+            out[what] = "checked"
+            continue
+        plans = {"fwd": ss.segment_max_plan(B, n, C, hw, dtype),
+                 "bwd": ss.segment_max_bwd_plan(B, n, C, hw, dtype)}
+        for kind, pl in plans.items():
+            geo = ss.walk_geometry(C, es, kind)
+            if ((pl["vector_bytes"], pl["lanes"], pl["walkers"], pl["rows_per_step"],
+                 pl["long_span_chunk_rows"], pl["slices"])
+                    != (geo["vec"], geo["lanes"], geo["walkers"], geo["cap"], geo["long_rows"],
+                        geo["slices"])):
+                raise AssertionError(f"scatter_sorted_{kind} {what}: plan {pl} is not {geo}")
+        out[what] = plans
+    return out
 
 
 def kernel_kd_mse(rng, dev, dtype, B=B, M=GRID * GRID, cs=128, ct=256):
@@ -1113,13 +1183,15 @@ def phase_kernels(dev):
     K4, K6 at the student's C=128) and the KD step at B=128 (K1, K2, K4, K6
     at C=128 for the student and C=256 for the 2x teacher, K5 and K7, and
     K8-K13 at the student's five stages); K5 and K7 at B=8 too; K4 and K6
-    (with K1 beside K4) also on the skewed cloud ("<kind>_skew"). Keys:
+    (with K1 beside K4) and K5 at B=128 also on the skewed cloud
+    ("<kind>_skew"). Keys:
     (kernel, dtype, C, batch)."""
     rng = np.random.default_rng(0)
     # K4 and K6 draw from a stream of their own, so that the other kernels'
     # inputs stay those of the runs before them.
     rng_k4_k6 = np.random.default_rng(4)
     rng_c512 = np.random.default_rng(512)
+    rng_k5_skew = np.random.default_rng(5)
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
@@ -1132,11 +1204,13 @@ def phase_kernels(dev):
         for kind, fn in (("voxelize", kernel_unsorted), ("scatter_flat", kernel_flat)):
             runs += [(kind + tag, C, b, fn) for tag in ("", "_skew")
                      for b, C in ((B, 128), (TRAIN_B, 128), (TRAIN_B, 256))]
+        runs.append(("scatter_bwd_skew", 128, TRAIN_B, kernel_scatter_bwd))
         for kind, C, b, fn in runs:
             kw = {"B": b} if kind == "kd_mse" else {"C": C, "B": b}
             if kind.endswith("_skew"):
                 kw["skew"] = True
             src = (rng_k4_k6 if fn in (kernel_unsorted, kernel_flat)
+                   else rng_k5_skew if kind == "scatter_bwd_skew"
                    else rng_c512 if C == 512 else rng)
             r = fn(src, dev, dtype, **kw)
             res[(kind, name, C, b)] = r
@@ -1150,6 +1224,8 @@ def phase_kernels(dev):
             f"{json.dumps(edges)}")
         edges = check_voxelize_edges(np.random.default_rng(4999), dev, dtype)
         log(f"[kernels] voxelize_scatter_max edge clouds {name}, B=2: {json.dumps(edges)}")
+        edges = check_sorted_scatter_edges(np.random.default_rng(1010), dev, dtype)
+        log(f"[kernels] scatter_sorted_fwd/bwd edge clouds {name}, B=2: {json.dumps(edges)}")
         irt, blocks = kernel_ir_train(rng, dev, dtype)
         for k, r in irt.items():
             res[(k, name, 0, TRAIN_B)] = r
@@ -1882,7 +1958,8 @@ def main(argv=None) -> int:
     # _FWD_FLAT (K4). The times in an entry are at that path's shape (kind,
     # C, batch; K8-K13 summed over the five stages at B=128, per stage under
     # "stages"); the other shapes the kernel was checked at follow under
-    # "other_shapes", the skewed cloud under "skewed" (K1's from K4's runs).
+    # "other_shapes", the skewed cloud under "skewed" (K1's from K4's runs;
+    # K5's at B=128).
     meta = {
         "scatter_sorted_fwd": ("lmsu_tpu/ops/scatter_sorted_pallas.py:163",
                                ("scatter", 128, B), "serving"),
@@ -1946,7 +2023,7 @@ def main(argv=None) -> int:
                 {"C": k[2], "B": k[3], "f32": v, "bf16": kres[(k[0], "bf16") + k[2:]]}
                 for k, v in kres.items()
                 if k[0] == op and k[1] == "f32" and k[2:] != (C, b)]
-            if op in ("scatter", "scatter_flat", "voxelize"):
+            if op in ("scatter", "scatter_flat", "voxelize", "scatter_bwd"):
                 skew = "scatter_flat_skew" if op == "scatter" else op + "_skew"
                 pick = ((lambda r: {"ms": r["k1_ms"], "shape": r["shape"]}) if op == "scatter"
                         else dict)

@@ -12,121 +12,329 @@
 // counts into two bf16-exact parts because its matrix unit rounds f32
 // operands; here the counts are plain integers, exact at any size.
 //
-//   grid (cell tiles + tail blocks, B). A cell-tile block owns kCells
-//   consecutive cells of one batch row: threads 0..kCells binary-search the
-//   sorted keys for the span starts, then per cell the threads run over
-//   channels, count the winners over the cell's span (first pass over the
-//   span), and write d for the span (second pass). Tail blocks zero the
-//   rows of invalid points, which sort past every cell's span, kTail points
-//   each.
+// Bound on the H100: bytes. Valid points' feature rows, the keys, out and g
+// of occupied cells are read once and all of d written once; one compare an
+// element and a division a winner. At B=128, N=5,000, C=128, f32: 0.262 ms.
 //
-// No atomics: every d element has one writer, so the result is exact and
-// deterministic. f32 division, result cast to the feature dtype; g arrives
-// in the output's dtype (the JAX side casts it so at :466-468).
+// What held the first design back (0.417 / 0.426 ms f32 / bf16 at B=128
+// C=128, 0.0713 / 0.0495 at B=8, on an NVIDIA H100 80GB HBM3, 700.00 W,
+// PERF.md): K1's faults (17 dependent binary searches
+// a block, one element a thread a row, cells and long spans walked
+// serially), two passes over every span in device memory (count the ties,
+// then write d), and tail blocks for the invalid rows, each with its own
+// search and scalar stores.
 //
-// Bound on the H100: bytes. Features, keys, out and g are read once and d
-// written once (the second pass over a span hits L1/L2); one compare per
-// element and a division per written winner. At B=8, N=5000, C=128, f32:
-// 20.5 MB of features + 2 x 16.8 MB of out and g + 20.5 MB of d.
+// This design is K1's span walk (scatter_sorted_common.cuh) over HW + 1
+// cells an image, the last being the invalid points. A step's feature rows
+// and, at the first row of each occupied cell, that cell's out and g rows go
+// into the stage's three buffers by cp.async, a group ahead. Each walker
+// takes a cell: it counts the ties as integers over the cell's rows in
+// shared memory, then writes d of those rows, so each feature row is read
+// from device memory once. Only a cell longer than cap rows passes through
+// the ring twice (count, then write), its rows shared by all walkers, whose
+// counts meet in shared memory; the invalid points' rows of d are zeroed as
+// their cell's rows, with nothing read. share = g / ties is taken once a
+// cell, an IEEE f32 division (no fast math) where ties > 1 and g itself
+// where ties = 1 (the same value, without the division's cost), the result
+// cast to the feature dtype, so d equals the plain version's exactly; g
+// arrives in the output's dtype (the JAX side casts it so at :466-468).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "scatter_sorted_common.cuh"
 
 namespace {
 
-constexpr int kCells = 16;    // BEV cells per block
-constexpr int kThreads = 128; // threads per block, striding over channels
-constexpr int kTail = 64;     // invalid points zeroed per tail block
+using ssw::kThreads;
+// A walk takes 32 vectors of a row at most, one a lane: the long-span state
+// below then takes few registers (wider rows are more channel slices).
+constexpr int kSliceVecs = 32;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+struct Params {
+  const void* feats;
+  const int* keys;
+  const void* out;
+  const void* g;
+  void* d;
+  int N, C, HW;
+  ssw::Geometry geo;
+  ssw::Layout L;
+  long long Q;
+};
 
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+template <typename T, int V>
+struct BwdOp {
+  using VT = ssw::Vec<T, V>;
+  static constexpr int EV = VT::E;
+  const T* __restrict__ feats;  // each at this slice's first channel
+  const T* __restrict__ out;
+  const T* __restrict__ g;
+  T* __restrict__ d;
+  int N, C, HW, rowvec;         // rowvec: vectors of this slice
+  ssw::Geometry geo;
+  ssw::Layout L;
+  uint8_t* smem;
+  int tid, w, lane;
+  VT ov, gv;     // a long span's cell: out and g
+  int cnt[EV];   // its ties, counted, then summed
+  float sh[EV];  // its shares g / ties
 
-__device__ __forceinline__ int lower_bound(const int* __restrict__ keys, int n, int value) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (keys[mid] < value) lo = mid + 1; else hi = mid;
+  __device__ __forceinline__ bool invalid_cell(const ssw::Step& st) const {
+    return st.c + st.ncells - 1 >= HW;
   }
-  return lo;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-scatter_sorted_bwd_kernel(const T* __restrict__ feats, const int* __restrict__ keys,
-                          const T* __restrict__ out, const T* __restrict__ g,
-                          T* __restrict__ d, int N, int C, int HW, int ntiles) {
-  __shared__ int bounds[kCells + 1];
-  const int b = blockIdx.y;
-  const int* kb = keys + (size_t)b * N;
-  const T* fb = feats + (size_t)b * N * C;
-  T* db = d + (size_t)b * N * C;
-
-  if ((int)blockIdx.x >= ntiles) {  // tail block: zero rows of invalid points
-    if (threadIdx.x == 0) bounds[0] = lower_bound(kb, N, HW);
-    __syncthreads();
-    const int p0 = max(bounds[0], ((int)blockIdx.x - ntiles) * kTail);
-    const int p1 = min(N, ((int)blockIdx.x - ntiles + 1) * kTail);
-    for (int p = p0; p < p1; ++p)
-      for (int ch = threadIdx.x; ch < C; ch += blockDim.x)
-        db[(size_t)p * C + ch] = from_f<T>(0.f);
-    return;
+  // The invalid points' cell is zeroed in one step, with nothing read; any
+  // other long span is counted, then written, in chunks of long_rows rows
+  // (its rows use all three of a stage's buffers).
+  __device__ __forceinline__ int chunks(ssw::Step& st) const {
+    if (invalid_cell(st)) {
+      st.rows = st.L;
+      st.nch = 1;
+      return 1;
+    }
+    st.rows = geo.long_rows;
+    st.nch = (st.L + st.rows - 1) / st.rows;
+    return 2 * st.nch;
   }
 
-  const int c0 = blockIdx.x * kCells;
-  if (threadIdx.x <= kCells) {
-    bounds[threadIdx.x] = lower_bound(kb, N, min(c0 + (int)threadIdx.x, HW));
-  }
-  __syncthreads();
-  const T* ob = out + (size_t)b * HW * C;
-  const T* gb = g + (size_t)b * HW * C;
-  const int ncell = min(kCells, HW - c0);
-  for (int i = 0; i < ncell; ++i) {
-    const int lo = bounds[i], hi = bounds[i + 1];
-    if (lo >= hi) continue;
-    const size_t cell = (size_t)(c0 + i) * C;
-    for (int ch = threadIdx.x; ch < C; ch += blockDim.x) {
-      const float m = to_f(ob[cell + ch]);
-      int ties = 0;
-      for (int p = lo; p < hi; ++p) ties += to_f(fb[(size_t)p * C + ch]) == m;
-      const float share = to_f(gb[cell + ch]) / (float)max(ties, 1);
-      for (int p = lo; p < hi; ++p) {
-        const size_t k = (size_t)p * C + ch;
-        db[k] = from_f<T>(to_f(fb[k]) == m ? share : 0.f);
+  __device__ __forceinline__ void copy(const ssw::Step& st, int s) const {
+    const ssw::Stage sg = ssw::stage_of(smem, L, s);
+    const T* src = feats + ((size_t)st.b * N + st.p + st.r0) * C;
+    if (st.longc) {
+      if (invalid_cell(st)) return;
+      for (int r = w; r < st.E; r += geo.walkers)
+        for (int v = lane; v < rowvec; v += geo.lanes)
+          ssw::copy_async<V>(sg.buf + r * geo.rbs + v * V, src + (size_t)r * C + v * EV);
+      return;
+    }
+    uint8_t* obuf = sg.buf + L.bufbytes;
+    uint8_t* gbuf = sg.buf + 2 * L.bufbytes;
+    for (int r = w; r < st.E; r += geo.walkers) {
+      const int key = sg.win[r];
+      if (key >= HW) continue;  // an invalid point: its d is 0, nothing to read
+      const bool first = r == 0 || sg.win[r - 1] != key;
+      const size_t cell = ((size_t)st.b * HW + key) * C;
+      for (int v = lane; v < rowvec; v += geo.lanes) {
+        ssw::copy_async<V>(sg.buf + r * geo.rbs + v * V, src + (size_t)r * C + v * EV);
+        if (first) {
+          ssw::copy_async<V>(obuf + r * geo.rbs + v * V, out + cell + v * EV);
+          ssw::copy_async<V>(gbuf + r * geo.rbs + v * V, g + cell + v * EV);
+        }
       }
     }
   }
+
+  // A cell's share g / ties of each element, once for all its rows: an
+  // IEEE f32 division where ties > 1, g itself where it is 1 (the same
+  // value); where it is 0, no row takes it.
+  __device__ __forceinline__ static void shares(const VT& gg, const int* ties, float* sh) {
+#pragma unroll
+    for (int k = 0; k < EV; ++k)
+      sh[k] = ties[k] > 1 ? gg.get(k) / (float)ties[k] : gg.get(k);
+  }
+  // d of one row: the share where the row ties the cell's max, else 0.
+  __device__ __forceinline__ static void store_d(const VT& f, const VT& o, const float* sh,
+                                                 T* dst) {
+    VT dv;
+    dv.zero();
+#pragma unroll
+    for (int k = 0; k < EV; ++k) dv.set(k, f.get(k) == o.get(k) ? sh[k] : 0.f);
+    dv.store(dst);
+  }
+
+  __device__ __forceinline__ void zero_rows(T* db, int a, int z) const {
+    VT zv;
+    zv.zero();
+    for (int r = a; r < z; ++r)
+      for (int v = lane; v < rowvec; v += geo.lanes) zv.store(db + (size_t)r * C + v * EV);
+  }
+
+  __device__ __forceinline__ void process(const ssw::Step& st, int s) {
+    const ssw::Stage sg = ssw::stage_of(smem, L, s);
+    T* db = d + ((size_t)st.b * N + st.p) * C;
+    if (st.longc) {
+      long_span(st, sg, db);
+      return;
+    }
+    const uint8_t* obuf = sg.buf + L.bufbytes;
+    const uint8_t* gbuf = sg.buf + 2 * L.bufbytes;
+    for (int j = w; j < st.ncells; j += geo.walkers) {
+      const int a = sg.lo[j], z = sg.lo[j + 1];
+      if (a == z) continue;
+      if (st.c + j >= HW) {
+        zero_rows(db, a, z);
+        continue;
+      }
+      for (int v = lane; v < rowvec; v += geo.lanes) {
+        VT o, gg;
+        o.load_shared(obuf + a * geo.rbs + v * V);
+        gg.load_shared(gbuf + a * geo.rbs + v * V);
+        int ties[EV];
+#pragma unroll
+        for (int k = 0; k < EV; ++k) ties[k] = 0;
+        for (int r = a; r < z; ++r) {
+          VT f;
+          f.load_shared(sg.buf + r * geo.rbs + v * V);
+#pragma unroll
+          for (int k = 0; k < EV; ++k) ties[k] += f.get(k) == o.get(k);
+        }
+        float sh[EV];
+        shares(gg, ties, sh);
+        for (int r = a; r < z; ++r) {
+          VT f;
+          f.load_shared(sg.buf + r * geo.rbs + v * V);
+          store_d(f, o, sh, db + (size_t)r * C + v * EV);
+        }
+      }
+    }
+  }
+
+  // A long span's chunk: the walkers share its rows. The invalid points'
+  // cell: zero them. Any other: the first nch chunks count the ties, the
+  // counts meet after the last of them, and the next nch chunks write d.
+  // A lane has one vector of the slice (kSliceVecs = 32).
+  __device__ __forceinline__ void long_span(const ssw::Step& st, const ssw::Stage& sg, T* db) {
+    if (invalid_cell(st)) {
+      for (int r = w; r < st.E; r += geo.walkers) zero_rows(db, st.r0 + r, st.r0 + r + 1);
+      return;
+    }
+    const bool act = lane < rowvec;
+    if (st.t == 0) {
+      const size_t cell = ((size_t)st.b * HW + st.c + st.ncells - 1) * C;
+      if (act) {
+        ov.load(out + cell + lane * EV);
+        gv.load(g + cell + lane * EV);
+      }
+#pragma unroll
+      for (int e = 0; e < EV; ++e) cnt[e] = 0;
+    }
+    const bool counting = st.t < st.nch;
+    if (act) {
+      for (int r = w; r < st.E; r += geo.walkers) {
+        VT f;
+        f.load_shared(sg.buf + r * geo.rbs + lane * V);
+        if (counting) {
+#pragma unroll
+          for (int e = 0; e < EV; ++e) cnt[e] += f.get(e) == ov.get(e);
+        } else {
+          store_d(f, ov, sh, db + (size_t)(st.r0 + r) * C + lane * EV);
+        }
+      }
+    }
+    if (st.t + 1 != st.nch) return;
+    int* slots = reinterpret_cast<int*>(smem + L.slots);
+#pragma unroll
+    for (int e = 0; e < EV; ++e) slots[tid * 8 + e] = cnt[e];
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < EV; ++e) cnt[e] = 0;
+    for (int w2 = 0; w2 < geo.walkers; ++w2)
+#pragma unroll
+      for (int e = 0; e < EV; ++e) cnt[e] += slots[(w2 * geo.lanes + lane) * 8 + e];
+    shares(gv, cnt, sh);
+  }
+};
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+scatter_sorted_bwd_kernel(const Params P) {
+  extern __shared__ uint4 smem4[];
+  const int ch0 = blockIdx.y * P.geo.cw;
+  BwdOp<T, V> op;
+  op.feats = static_cast<const T*>(P.feats) + ch0;
+  op.out = static_cast<const T*>(P.out) + ch0;
+  op.g = static_cast<const T*>(P.g) + ch0;
+  op.d = static_cast<T*>(P.d) + ch0;
+  op.N = P.N;
+  op.C = P.C;
+  op.HW = P.HW;
+  op.rowvec = ((P.C - ch0 < P.geo.cw ? P.C - ch0 : P.geo.cw) + P.geo.epv - 1) / P.geo.epv;
+  op.geo = P.geo;
+  op.L = P.L;
+  op.smem = reinterpret_cast<uint8_t*>(smem4);
+  op.tid = threadIdx.x;
+  op.w = threadIdx.x / P.geo.lanes;
+  op.lane = threadIdx.x % P.geo.lanes;
+  const long long q0 = P.Q * blockIdx.x / gridDim.x;
+  const long long q1 = P.Q * (blockIdx.x + 1) / gridDim.x;
+  ssw::span_walk(op, P.keys, P.N, P.HW + 1, P.geo, op.smem, P.L, q0, q1);
+}
+
+struct Plan {
+  int per_sm = 0;
+  long long grid = 0;
+};
+
+template <typename T, int V>
+cudaError_t run(const Params& p, Plan* L, bool launch, cudaStream_t s) {
+  const auto kernel = scatter_sorted_bwd_kernel<T, V>;
+  cudaError_t e = ssw::launch_shape(kernel, p.L.bytes, p.Q, &L->per_sm, &L->grid);
+  if (e != cudaSuccess || !launch) return e;
+  kernel<<<dim3((unsigned)L->grid, p.geo.slices), kThreads, p.L.bytes, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const Params& p, Plan* L, bool launch, cudaStream_t s) {
+  switch (p.geo.vec) {
+    case 16: return run<T, 16>(p, L, launch, s);
+    case 8: return run<T, 8>(p, L, launch, s);
+    case 4: return run<T, 4>(p, L, launch, s);
+    default:
+      if constexpr (sizeof(T) == 2) return run<T, 2>(p, L, launch, s);
+      return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t call(const void* feats, const void* keys, const void* out, const void* g, void* d,
+                 int B, int N, int C, int HW, int dtype, int slot_bytes, int max_cells,
+                 bool launch, Plan* L, Params* p, cudaStream_t s) {
+  if (B <= 0 || N <= 0 || C <= 0 || HW <= 0 || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  if (!ssw::make_geometry(C, dtype == 0 ? 4 : 2, slot_bytes, max_cells, 3, kSliceVecs, &p->geo))
+    return cudaErrorInvalidValue;
+  const int vb = p->geo.vec;
+  if (reinterpret_cast<uintptr_t>(feats) % vb || reinterpret_cast<uintptr_t>(out) % vb ||
+      reinterpret_cast<uintptr_t>(g) % vb || reinterpret_cast<uintptr_t>(d) % vb)
+    return cudaErrorMisalignedAddress;
+  p->feats = feats;
+  p->keys = static_cast<const int*>(keys);
+  p->out = out;
+  p->g = g;
+  p->d = d;
+  p->N = N;
+  p->C = C;
+  p->HW = HW;
+  p->L = ssw::layout_of(p->geo);
+  p->Q = (long long)B * (HW + 1);
+  return dtype == 0 ? dispatch<float>(*p, L, launch, s)
+                    : dispatch<__nv_bfloat16>(*p, L, launch, s);
 }
 
 }  // namespace
 
+// The plan of a call, into out[9], as scatter_sorted_fwd_plan's.
+extern "C" int scatter_sorted_bwd_plan(int B, int N, int C, int HW, int dtype, int slot_bytes,
+                                       int max_cells, void* out) {
+  Plan L;
+  Params p;
+  const void* a = reinterpret_cast<const void*>(16);
+  const cudaError_t e = call(a, nullptr, a, a, const_cast<void*>(a), B, N, C, HW, dtype,
+                             slot_bytes, max_cells, false, &L, &p, nullptr);
+  if (e != cudaSuccess) return (int)e;
+  int* o = static_cast<int*>(out);
+  o[0] = p.geo.vec; o[1] = p.geo.lanes; o[2] = p.geo.walkers; o[3] = p.geo.cap;
+  o[4] = p.geo.long_rows; o[5] = p.L.bytes; o[6] = L.per_sm; o[7] = (int)L.grid;
+  o[8] = p.geo.slices;
+  return 0;
+}
+
 // feats [B, N, C] (dtype 0 = f32, 1 = bf16), keys [B, N] int32 sorted per
 // row (sentinel HW for invalid points), out and g [B, HW, C] and d [B, N, C]
-// of the feature dtype.
+// of the feature dtype; slot_bytes and max_cells: the walk's constants
+// (ops/scatter_sorted.py).
 extern "C" int scatter_sorted_bwd(const void* feats, const void* keys, const void* out,
                                   const void* g, void* d, int B, int N, int C, int HW,
-                                  int dtype, void* stream) {
-  if (B <= 0 || N <= 0 || C <= 0 || HW <= 0) return (int)cudaErrorInvalidValue;
-  const int ntiles = (HW + kCells - 1) / kCells;
-  const dim3 grid(ntiles + (N + kTail - 1) / kTail, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    scatter_sorted_bwd_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(feats), static_cast<const int*>(keys),
-        static_cast<const float*>(out), static_cast<const float*>(g),
-        static_cast<float*>(d), N, C, HW, ntiles);
-  } else if (dtype == 1) {
-    scatter_sorted_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(feats), static_cast<const int*>(keys),
-        static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(g),
-        static_cast<__nv_bfloat16*>(d), N, C, HW, ntiles);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+                                  int dtype, int slot_bytes, int max_cells, void* stream) {
+  Plan L;
+  Params p;
+  return (int)call(feats, keys, out, g, d, B, N, C, HW, dtype, slot_bytes, max_cells, true, &L,
+                   &p, static_cast<cudaStream_t>(stream));
 }

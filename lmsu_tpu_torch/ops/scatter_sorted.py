@@ -8,8 +8,10 @@ Replaces the TPU kernels lmsu_tpu/ops/scatter_sorted_pallas.py::_fwd_kernel,
 custom VJP). On the H100 all three are bound by bytes: each feature row is
 read once and each cell row written once (see the source notes in the .cu
 files). With the points sorted by cell, each cell owns one contiguous span
-of points. The per-tile forward (K1) and the backward are segmented passes
-over cells with no atomics; the flat forward (K4, taken when the module
+of points. The forward (K1) and the backward (K5) share one walk over the
+cell-sorted spans (csrc/scatter_sorted_common.cuh; its constants WALK_* and
+walk_geometry below): segmented passes over groups of cells with no
+atomics; the flat forward (K4, taken when the module
 constant `_FWD_FLAT` is set, as in the JAX package) walks the TPU kernel's
 static chunk table of fixed windows of points and combines a run that
 crosses a window's edge with an atomic max. Both forwards are bit-exact
@@ -28,20 +30,90 @@ wrong results silently, as on the TPU.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
-from lmsu_tpu_torch.ops._cuda import (_I, _P, CudaKernel, check_cuda_args,
+from lmsu_tpu_torch.ops._cuda import (_I, _P, CudaKernel, aligned16, check_cuda_args,
                                       dtype_code, ptr, stream_ptr)
 from lmsu_tpu_torch.ops.scatter import points_to_bev_indices, segmented_prefix_max
 
+_PLAN = (_I, _I, _I, _I, _I, _I, _I, _P)
 KERNEL = CudaKernel("scatter_sorted_fwd.cu", {
-    "scatter_sorted_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P)})
+    "scatter_sorted_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "scatter_sorted_fwd_plan": _PLAN})
 KERNEL_FLAT = CudaKernel("scatter_sorted_fwd_flat.cu", {
     "scatter_sorted_fwd_flat": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)})
 KERNEL_BWD = CudaKernel("scatter_sorted_bwd.cu", {
-    "scatter_sorted_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)})
+    "scatter_sorted_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "scatter_sorted_bwd_plan": _PLAN})
+
+# The span walk of K1 and K5 (csrc/scatter_sorted_common.cuh): the constants
+# the wrappers pass to the kernels, which tests/test_torch_scatter_walk.py's
+# emulation of the walk reads too. WALK_THREADS, WALK_SLICE_VECS and
+# WALK_BUFFERS are the kernels' compile-time block size, widest channel
+# slice (in vectors) and row buffers a stage, given here for walk_geometry.
+WALK_THREADS = 256
+WALK_SLICE_VECS = {"fwd": 128, "bwd": 32}
+WALK_BUFFERS = {"fwd": 1, "bwd": 3}              # features; features, out, g
+WALK_SLOT_BYTES = {"fwd": 24576, "bwd": 16384}  # a stage's buffer of feature rows
+WALK_CELLS = 256   # cells a group at most
+
+
+def walk_geometry(C: int, element_size: int, kind: str) -> dict:
+    """What the walk of K1 (kind "fwd") or K5 ("bwd") decides from a row of
+    C elements (as scatter_sorted_common.cuh::make_geometry): the vector
+    bytes (the largest of 16, 8, 4, 2 dividing a row), channel slices of at
+    most WALK_SLICE_VECS vectors (one walk each), threads a walker (a power
+    of two up to 32, covering a slice's vectors), walkers a block; cap, the
+    rows of a step: the slice rows that fit WALK_SLOT_BYTES, at least 1, at
+    most WALK_THREADS - 1 (the key window is one key a thread), a cell of
+    more being a long span; and long_rows, the rows of a long span's chunk
+    (a stage's buffers end to end)."""
+    rb = C * element_size
+    vec = 16
+    while rb % vec:
+        vec //= 2
+    total = rb // vec
+    rowvec = min(total, WALK_SLICE_VECS[kind])
+    lanes = 1
+    while lanes < 32 and lanes < rowvec:
+        lanes *= 2
+    epv = vec // element_size
+    rbs = rowvec * vec
+    cap = max(1, min(WALK_SLOT_BYTES[kind] // rbs, WALK_THREADS - 1))
+    return {"vec": vec, "epv": epv, "rowvec": rowvec, "cw": rowvec * epv,
+            "slices": -(-total // rowvec), "lanes": lanes, "walkers": WALK_THREADS // lanes,
+            "cap": cap, "long_rows": WALK_BUFFERS[kind] * (-(-cap * rbs // 16) * 16) // rbs}
+
+
+_PLAN_KEYS = ("vector_bytes", "lanes", "walkers", "rows_per_step", "long_span_chunk_rows",
+              "smem_bytes", "blocks_per_sm", "blocks", "slices")
+
+
+def _plan(kernel: CudaKernel, symbol: str, slot_bytes: int, B, N, C, hw, dtype) -> dict:
+    o = (ctypes.c_int * len(_PLAN_KEYS))()
+    err = getattr(kernel.lib(), symbol)(B, N, C, hw, 0 if dtype == torch.float32 else 1,
+                                        slot_bytes, WALK_CELLS, ctypes.addressof(o))
+    if err:
+        raise RuntimeError(f"{symbol}: CUDA error {err}")
+    return dict(zip(_PLAN_KEYS, o))
+
+
+def segment_max_plan(B: int, N: int, C: int, hw: int, dtype: torch.dtype) -> dict:
+    """K1's walk for these shapes on the current card (chip_smoke.py prints
+    it): vector bytes, threads a walker, walkers, rows a step (a longer cell
+    is a long span), rows a long span's chunk, shared memory a block,
+    resident blocks per SM, blocks launched a slice, channel slices."""
+    return _plan(KERNEL, "scatter_sorted_fwd_plan", WALK_SLOT_BYTES["fwd"], B, N, C, hw, dtype)
+
+
+def segment_max_bwd_plan(B: int, N: int, C: int, hw: int, dtype: torch.dtype) -> dict:
+    """K5's walk for these shapes, as segment_max_plan."""
+    return _plan(KERNEL_BWD, "scatter_sorted_bwd_plan", WALK_SLOT_BYTES["bwd"], B, N, C, hw,
+                 dtype)
+
 
 # The JAX package's switch between its two sorted forwards
 # (lmsu_tpu/ops/scatter_sorted_pallas.py::_FWD_FLAT): False runs K1, True the
@@ -105,9 +177,10 @@ def segment_max(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> torch.Tenso
     if keys.shape != (B, N) or keys.dtype != torch.int32:
         raise ValueError(f"keys must be int32 [{B}, {N}], got {keys.dtype} {tuple(keys.shape)}")
     dev = check_cuda_args(feats, keys)
+    feats = aligned16(feats)
     out = torch.empty(B, hw, C, dtype=feats.dtype, device=dev)
     KERNEL.launch("scatter_sorted_fwd", ptr(feats), ptr(keys), ptr(out), B, N, C, hw,
-                  dtype_code(feats), stream_ptr(dev))
+                  dtype_code(feats), WALK_SLOT_BYTES["fwd"], WALK_CELLS, stream_ptr(dev))
     return out
 
 
@@ -244,9 +317,11 @@ def segment_max_bwd(feats: torch.Tensor, keys: torch.Tensor, out: torch.Tensor,
         raise ValueError("out must be [B, hw, C] in the feature dtype")
     g = g.to(out.dtype).reshape(B, hw, C).contiguous()
     dev = check_cuda_args(feats, keys, out, g)
+    feats, out, g = aligned16(feats), aligned16(out), aligned16(g)
     d = torch.empty_like(feats)
     KERNEL_BWD.launch("scatter_sorted_bwd", ptr(feats), ptr(keys), ptr(out), ptr(g), ptr(d),
-                      B, N, C, hw, dtype_code(feats), stream_ptr(dev))
+                      B, N, C, hw, dtype_code(feats), WALK_SLOT_BYTES["bwd"], WALK_CELLS,
+                      stream_ptr(dev))
     return d
 
 

@@ -187,8 +187,9 @@ def test_create_model_takes_fused_train_and_refuses_the_rest():
 
 def test_kernel_build_flags_and_sources():
     """Each kernel source exists and builds for sm_90a without fast math,
-    into a build directory that git ignores; a shared header's text is part
-    of every library's build hash."""
+    into a build directory that git ignores; each shared header is included
+    by the sources that share it, and its text is part of every library's
+    build hash."""
     from lmsu_tpu_torch.ops import _cuda
     ks = _cuda.kernels()
     assert set(ks) == {"scatter_sorted_fwd", "scatter_sorted_fwd_flat", "scatter_sorted_bwd",
@@ -204,9 +205,11 @@ def test_kernel_build_flags_and_sources():
     assert "arch=compute_90a,code=sm_90a" in flags and "fast_math" not in flags
     assert _cuda.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert "/build/" in (ROOT / ".gitignore").read_text().split()
-    headers = sorted(_cuda.CSRC.glob("*.cuh"))
-    assert headers and all(f'#include "{h.name}"' in (_cuda.CSRC / k.source).read_text()
-                           for h in headers for k in ks.values() if k.name.startswith("ir_train"))
+    users = {"ir_train_common.cuh": [k for k in ks.values() if k.name.startswith("ir_train")],
+             "scatter_sorted_common.cuh": [ks["scatter_sorted_fwd"], ks["scatter_sorted_bwd"]]}
+    assert {h.name for h in _cuda.CSRC.glob("*.cuh")} == set(users)
+    assert all(f'#include "{h}"' in (_cuda.CSRC / k.source).read_text()
+               for h, sources in users.items() for k in sources)
 
 
 def test_build_skipped_without_nvcc_is_an_error(monkeypatch):
