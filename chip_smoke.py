@@ -34,13 +34,21 @@ Phases:
              (padded K, rows that are not 16-byte multiples, x streamed past
              a 32-row tile). The scatter kernels K4, K5 and K6 (and
              K1 beside K4) also on a skewed cloud: 2,000 of the 5,000 points
-             in one cell, as zero padding puts them. K1 and K5 print their
-             walk's plan (vector bytes, walkers, rows a step, shared memory,
-             blocks per SM, blocks) at each shape and are also checked at
-             B=2 on edge clouds (check_sorted_scatter_edges): C = 40, 42,
-             136 and 2, N = 4,999, an all-invalid image, a 100 x 100 grid,
-             cells of each kernel's long-span threshold - 1, + 0 and + 1
-             rows and of 2,000 rows; K1 bit for bit, K5 exactly. K6 is also held bit for
+             in one cell, as zero padding puts them. K1, K4 and K5 print
+             their plan (vector bytes, walkers, rows a step or a window,
+             shared memory, blocks per SM, blocks) at each shape and are
+             also checked at B=2 on edge clouds (check_sorted_scatter_edges):
+             C = 40, 42, 136 and 2, N = 4,999, an all-invalid image, a 100 x
+             100 grid, cells of each walk's long-span threshold - 1, + 0 and
+             + 1 rows and of 2,000 rows, and for K4 (with each of its two
+             stage sizes) cells of 255, 256, 257 and 2,000 points placed at
+             its window edges; K1 and K4 bit for bit, K5 exactly. The NaN
+             contract (check_nan_scatter, check_nan_dense): on clouds with
+             NaN of both signs K1, K4 and K6 give NaN exactly where their
+             plain versions (run on the CPU) do and equal them bit for bit
+             elsewhere, K5 equals its plain version exactly; on inputs with
+             a few NaN K2, K3 and the five fused training blocks (K8-K13)
+             keep NaN where their plain versions do. K6 is also held bit for
              bit to an integer-keyed reference (signs of zero too) and, at
              B=2, on edge clouds: +-0.0 features, an all-invalid image, N =
              4,999, C = 40 and 136, a 100 x 100 grid; its launch plan (slice,
@@ -302,10 +310,14 @@ def keyed_scatter_max(feats, keys, hw):
     an int64 scatter_reduce_ amax from 0 (untouched), and back. Integers take
     no rounding and their max no order, so this gives -0.0 below +0.0 bit
     for bit, where the float amax of the plain version returns whichever
-    zero its atomics met first (torch.equal takes -0.0 == +0.0)."""
+    zero its atomics met first (torch.equal takes -0.0 == +0.0); a cell
+    holding a NaN is NaN."""
     Bn, N, C = feats.shape
     bits = feats.float().view(torch.int32).long() & 0xFFFFFFFF
     key = torch.where(bits >= 2 ** 31, ~bits & 0xFFFFFFFF, bits | 2 ** 31)
+    # A NaN of either sign takes the largest key: it wins, as the max of the
+    # JAX package's xla route keeps it (written back as the NaN 0x7fffffff).
+    key = torch.where(torch.isnan(feats.float()), 0xFFFFFFFF, key)
     idx = torch.where((keys >= 0) & (keys < hw), keys, hw).long()
     acc = torch.zeros(Bn, hw + 1, C, dtype=torch.int64, device=feats.device)
     acc.scatter_reduce_(1, idx.unsqueeze(-1).expand(Bn, N, C), key, "amax")
@@ -319,6 +331,27 @@ def keyed_scatter_max(feats, keys, hw):
 def same_bits(a, b) -> bool:
     view = torch.int32 if a.element_size() == 4 else torch.int16
     return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def same_bits_nan(a, b) -> bool:
+    """NaN at the same places (any NaN equals any NaN: the kernels write the
+    canonical one, the plain versions the one they met), every other
+    element bit for bit."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (a.shape == b.shape and torch.equal(na, nb)
+            and same_bits(a.masked_fill(na, 0), b.masked_fill(nb, 0)))
+
+
+def check_close_nan(name, got, want, dtype, scaled: bool = False, some: bool = True) -> float:
+    """NaN at exactly the plain version's places (which must hold some, with
+    `some`), the other elements within check_close's limits."""
+    ng, nw = torch.isnan(got), torch.isnan(want)
+    if some and not nw.any():
+        raise AssertionError(f"{name} [{dtype}]: the inputs' NaN reached no output")
+    if not torch.equal(ng, nw):
+        raise AssertionError(f"{name} [{dtype}]: NaN at {int(ng.sum())} places, the plain "
+                             f"version at {int(nw.sum())} ({int((ng != nw).sum())} differ)")
+    return check_close(name, got.masked_fill(ng, 0), want.masked_fill(nw, 0), dtype, scaled)
 
 
 def check_unsorted(what, feats, keys, hw):
@@ -386,9 +419,22 @@ def check_voxelize_edges(rng, dev, dtype, B=2) -> dict:
     return out
 
 
+def flat_plan(B, N, C, hw, dtype) -> dict:
+    """K4's plan, held to ops/scatter_sorted.py::flat_geometry."""
+    from lmsu_tpu_torch.ops import scatter_sorted as ss
+    pl = ss.segment_max_flat_plan(B, N, C, hw, dtype)
+    geo = ss.flat_geometry(C, 4 if dtype == torch.float32 else 2, pl["slot_bytes"])
+    if ((pl["vector_bytes"], pl["lanes"], pl["walkers"], pl["window_rows"], pl["chunk_rows"],
+         pl["slices"], pl["windows_per_image"])
+            != (geo["vec"], geo["lanes"], geo["walkers"], geo["window_rows"], geo["chunk_rows"],
+                geo["slices"], -(-N // geo["window_rows"]))):
+        raise AssertionError(f"scatter_sorted_fwd_flat: plan {pl} is not {geo}")
+    return pl
+
+
 def kernel_flat(rng, dev, dtype, C, B=B, skew=False):
     """K4 against its plain version, K1 and scatter_reduce_, bit for bit,
-    on cell-sorted points; K1 timed beside it."""
+    on cell-sorted points, with its plan; K1 timed beside it."""
     from lmsu_tpu_torch.ops import scatter_sorted as ss
     hw = GRID * GRID
     feats, keys = sorted_inputs(rng, C, dtype, dev, B, skew)
@@ -401,7 +447,8 @@ def kernel_flat(rng, dev, dtype, C, B=B, skew=False):
                              f"bit-exact ({(got.float() - want.float()).abs().max().item():g})")
     bound, by = scatter_bound(feats, keys, hw)
     run = lambda: ss.segment_max_flat(feats, keys, hw)  # noqa: E731
-    return {"ms": time_ms(run), "eager_ms": eager_ms(run),
+    plan = flat_plan(B, NPTS, C, hw, dtype) if dev.type == "cuda" else None
+    return {"plan": plan, "ms": time_ms(run), "eager_ms": eager_ms(run),
             "plain_ms": time_ms(lambda: ss.segment_max_flat_plain(feats, keys, hw),
                                 reps=5, inner=1),
             "library_ms": time_ms(library), "library": "scatter_reduce_ amax",
@@ -465,15 +512,21 @@ def kernel_scatter_bwd(rng, dev, dtype, C=128, B=B, skew=False):
 
 
 def check_sorted_scatter_edges(rng, dev, dtype, B=2) -> dict:
-    """K1 and K5 off the main path's shapes, at B=2 on cell-sorted clouds
-    of their own: K1 bit for bit against its plain version and
-    scatter_reduce_, K5 exactly against its plain version. C = 40, 42, 136
-    and 2 (rows that are not 16-byte multiples take narrower vectors on the
-    same walk), N = 4,999, an all-invalid image, a 100 x 100 grid, and at
-    C=128 a cell of exactly each kernel's long-span threshold (its rows a
-    step, one ring slot), of the threshold - 1 and + 1 rows (a span longer
-    than a slot) and of 2,000 rows. Returns each kernel's plan for each
-    cloud; its geometry must be ops/scatter_sorted.py::walk_geometry's."""
+    """K1, K4 and K5 off the main path's shapes, at B=2 on cell-sorted
+    clouds of their own: K1 and K4 bit for bit against their plain versions
+    and scatter_reduce_ (K4 also against K1), K5 exactly against its plain
+    version. C = 40, 42, 136 and 2 (rows that are not 16-byte multiples
+    take narrower vectors on the same walk), N = 4,999, an all-invalid
+    image, a 100 x 100 grid, and at C=128 a cell of exactly each walk's
+    long-span threshold (its rows a step, one ring slot), of the threshold
+    - 1 and + 1 rows (a span longer than a slot) and of 2,000 rows; and for
+    K4 cells of 255, 256, 257 and 2,000 points placed at its windows (in
+    image 0 from the first point of a window of the larger stage, in image
+    1 from three points before one of the smaller), so that runs start, end
+    and cross at window edges and one run spans many windows. K4 runs with
+    each of its two stage sizes (flat_stage) on every cloud. Returns each
+    kernel's plan for each cloud; K1's and K5's geometry must be
+    ops/scatter_sorted.py::walk_geometry's, K4's flat_geometry's."""
     from lmsu_tpu_torch.ops import scatter_sorted as ss
     es = 2 if dtype == torch.bfloat16 else 4
     hw0 = GRID * GRID
@@ -485,16 +538,26 @@ def check_sorted_scatter_edges(rng, dev, dtype, B=2) -> dict:
         clouds += [(f"{kind} threshold {span}", NPTS, 128, hw0, span)
                    for span in (cap - 1, cap, cap + 1)]
     clouds.append(("span 2000", NPTS, 128, hw0, 2000))
+    clouds += [(f"flat window run {span}", NPTS, 128, hw0, span) for span in (255, 256, 257, 2000)]
+    windows = [ss.flat_geometry(128, es, slot)["window_rows"]
+               for slot in (ss.FLAT_SLOT_BYTES, ss.FLAT_SLOT_BYTES_SMALL)]
     out = {}
     for what, n, C, hw, span in clouds:
         keys = rng.integers(0, hw, (B, n))
         keys[:, -n // 12:] = hw  # invalid points
         if what == "all-invalid image":
             keys[0] = hw
-        if span:  # one cell of exactly `span` points in each image
+        if span and not what.startswith("flat"):  # one cell of exactly `span` points an image
             keys[keys == 777] = hw
             keys[:, :span] = 777
         keys = np.sort(keys, axis=1)
+        if what.startswith("flat"):  # the run of one cell from a window's edge
+            for b, p0 in ((0, 2 * windows[0]), (1, 3 * windows[1] - 3)):
+                c = int(keys[b, p0])
+                keys[b, :p0][keys[b, :p0] == c] = c - 1
+                keys[b, p0:p0 + span] = c
+                after = keys[b, p0 + span:]
+                after[after == c] = c + 1
         f = np.round(rng.normal(0, 1, (B, n, C)) * 4) / 4
         f[1] = -np.abs(f[1]) - 0.25
         feats = torch.from_numpy(f.astype(np.float32)).to(dev, dtype)
@@ -504,6 +567,14 @@ def check_sorted_scatter_edges(rng, dev, dtype, B=2) -> dict:
         _, lib = scatter_library(feats, keys_d, hw)
         if not (torch.equal(got, want) and torch.equal(got, lib)):
             raise AssertionError(f"scatter_sorted_fwd {what} {dtype}: not bit-exact")
+        for large in (True, False):
+            with flat_stage(large):
+                flat = ss.segment_max_flat(feats, keys_d, hw)
+            if not (torch.equal(flat, want) and torch.equal(flat, lib)
+                    and torch.equal(flat, got)):
+                raise AssertionError(f"scatter_sorted_fwd_flat {what} {dtype} (stage of "
+                                     f"{'FLAT_SLOT_BYTES' if large else 'FLAT_SLOT_BYTES_SMALL'})"
+                                     f": not bit-exact")
         g = torch.from_numpy(rng.normal(0, 1, (B, hw, C)).astype(np.float32)).to(dev, dtype)
         if not torch.equal(ss.segment_max_bwd(feats, keys_d, got, g, hw),
                            ss.segment_max_bwd_plain(feats, keys_d, got, g, hw)):
@@ -520,7 +591,185 @@ def check_sorted_scatter_edges(rng, dev, dtype, B=2) -> dict:
                     != (geo["vec"], geo["lanes"], geo["walkers"], geo["cap"], geo["long_rows"],
                         geo["slices"])):
                 raise AssertionError(f"scatter_sorted_{kind} {what}: plan {pl} is not {geo}")
+        for large in (True, False):
+            with flat_stage(large):
+                plans["flat" if large else "flat_small_stage"] = flat_plan(B, n, C, hw, dtype)
         out[what] = plans
+    return out
+
+
+def nan_features(rng, keys, hw, C, dtype, dev):
+    """Features for the NaN clouds: quarters of N(0, 1) (every zero +0.0:
+    which zero a max of -0.0 and +0.0 gives is not part of the contract,
+    and K6's edge clouds hold the signs of zero), image 1 all negative, and
+    NaN of both signs at about 1 in 2,000 elements, at the last point of
+    each image's longest run and at the first point of its second longest."""
+    B, N = keys.shape
+    f = np.round(rng.normal(0, 1, (B, N, C)) * 4) / 4 + 0.0
+    f[1] = -np.abs(f[1]) - 0.25
+    hit = rng.random((B, N, C)) < 5e-4
+    f[hit] = np.where(rng.random(int(hit.sum())) < 0.5, np.nan, -np.nan)
+    for b in range(B):
+        cells, first, counts = np.unique(keys[b], return_index=True, return_counts=True)
+        order = [i for i in np.argsort(-counts) if cells[i] < hw]
+        f[b, first[order[0]] + counts[order[0]] - 1, 3] = np.nan
+        f[b, first[order[1]], 5] = -np.nan
+    return torch.from_numpy(f.astype(np.float32)).to(dev, dtype)
+
+
+def check_nan_scatter(rng, dev, dtype, B=2) -> dict:
+    """The NaN contract of the scatter kernels (the JAX package's xla route:
+    a cell holding a NaN is NaN, and the NaN stays in its cell), on
+    cell-sorted clouds with NaN features (nan_features): the uniform and the
+    skewed cloud of the kernel phase and the 2,000-point window run of
+    check_sorted_scatter_edges. K1, K4 (with each stage size) and K6 (on
+    the points permuted) must equal their plain versions and each other,
+    NaN at the same places and
+    every other element bit for bit (same_bits_nan), and K6 its keyed
+    reference; K5 on K1's output must equal its plain version exactly (a
+    NaN cell ties no point: its points get 0). The plain versions run on
+    the CPU: CUDA's scatter_reduce_ amax is not relied on to keep a NaN
+    (whether it does is printed)."""
+    from lmsu_tpu_torch.ops import scatter_sorted as ss
+    from lmsu_tpu_torch.ops import voxelize as vx
+    hw = GRID * GRID
+    out = {}
+    cpu = torch.device("cpu")
+    for what in ("uniform", "skewed", "flat window run 2000"):
+        if what == "flat window run 2000":
+            keys = np.sort(rng.integers(0, hw, (B, NPTS)), axis=1)
+            keys[:, -NPTS // 12:] = hw
+            window = ss.flat_geometry(128, 4 if dtype == torch.float32 else 2)["window_rows"]
+            p0, c = 2 * window, int(keys[0, 2 * window])
+            keys[:, :p0][keys[:, :p0] == c] = c - 1
+            keys[:, p0:p0 + 2000] = c
+            tail = keys[:, p0 + 2000:]
+            tail[tail == c] = c + 1
+            keys = torch.from_numpy(np.sort(keys, axis=1).astype(np.int32)).to(dev)
+        else:
+            _, keys = sorted_inputs(rng, 8, dtype, dev, B, skew=what == "skewed")
+        feats = nan_features(rng, keys.cpu().numpy(), hw, 128, dtype, dev)
+        want = ss.segment_max_plain(feats.to(cpu), keys.to(cpu), hw)
+        res = {"k1": ss.segment_max(feats, keys, hw),
+               "k4_plain": ss.segment_max_flat_plain(feats.to(cpu), keys.to(cpu), hw)}
+        for large in (True, False):
+            with flat_stage(large):
+                res["k4" if large else "k4_small_stage"] = ss.segment_max_flat(feats, keys, hw)
+        perm = torch.from_numpy(rng.permutation(NPTS)).to(dev)
+        fp, kp = feats[:, perm].contiguous(), keys[:, perm].contiguous()
+        res["k6"] = vx.scatter_max(fp, kp, hw)
+        res["k6_plain"] = vx.scatter_max_plain(fp.to(cpu), kp.to(cpu), hw)
+        res["k6_keyed"] = keyed_scatter_max(fp, kp, hw)
+        for name, got in res.items():
+            if not same_bits_nan(got.to(cpu), want):
+                raise AssertionError(f"NaN cloud {what} {dtype}: {name} != segment_max_plain "
+                                     f"(NaN {int(torch.isnan(got).sum())} vs "
+                                     f"{int(torch.isnan(want).sum())})")
+        _, lib = scatter_library(fp, kp, hw)
+        g = torch.from_numpy(rng.normal(0, 1, (B, hw, 128)).astype(np.float32)).to(dev, dtype)
+        d = ss.segment_max_bwd(feats, keys, res["k1"], g, hw)
+        d_want = ss.segment_max_bwd_plain(feats.to(cpu), keys.to(cpu), want, g.to(cpu), hw)
+        if not torch.equal(d.to(cpu), d_want):
+            raise AssertionError(f"NaN cloud {what} {dtype}: scatter_sorted_bwd not exact")
+        out[what] = {"nan_inputs": int(torch.isnan(feats).sum()),
+                     "nan_cells": int(torch.isnan(want).sum()),
+                     "cuda_scatter_reduce_keeps_nan": same_bits_nan(lib.to(cpu), want)}
+    return out
+
+
+@contextlib.contextmanager
+def flat_stage(large: bool):
+    """While on, K4 plans every call with the larger stage (FLAT_SLOT_BYTES,
+    the KD step's B=128) or with the smaller one (FLAT_SLOT_BYTES_SMALL,
+    serving's B=8), whatever the call's size, so that both are checked on
+    the edge clouds."""
+    from lmsu_tpu_torch.ops import scatter_sorted as ss
+    before = ss.FLAT_WINDOWS_A_BLOCK
+    ss.FLAT_WINDOWS_A_BLOCK = 0 if large else 1 << 30
+    ss._FLAT_PLANS.clear()
+    try:
+        yield
+    finally:
+        ss.FLAT_WINDOWS_A_BLOCK = before
+        ss._FLAT_PLANS.clear()
+
+
+def check_nan_dense(rng, dev, dtype, Bn=2) -> dict:
+    """The NaN contract of the kernels with a ReLU or ReLU6 (K2's gate
+    ReLU, relu6 of K3 and K9-K12): on inputs holding a few NaN, each keeps
+    NaN exactly where its plain version, run on the CPU, keeps it, and
+    agrees elsewhere within check_close (check_close_nan). K2 at
+    cam/lid [2, 64, 64, 128]; K3 at the student's five stages; K8-K13
+    through each of the student's five fused InvertedResidual blocks in
+    train mode (f32 only, as check_fused_blocks; a NaN input makes the
+    batch statistics NaN, so every output and gradient is NaN in the plain
+    module: a kernel that drops NaN gives finite values there)."""
+    import copy
+    from lmsu_tpu_torch.models.layers import InvertedResidual
+    from lmsu_tpu_torch.ops import fusion_gate as fg
+    from lmsu_tpu_torch.ops import ir_fused as irf
+    cpu = torch.device("cpu")
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+
+    def with_nan(a):
+        a = np.asarray(a, np.float32).copy()
+        hit = rng.random(a.shape) < 2e-5
+        hit.flat[rng.integers(0, a.size)] = True
+        a[hit] = np.where(rng.random(int(hit.sum())) < 0.5, np.nan, -np.nan)
+        return a
+
+    C = 128
+    cam = t(with_nan(rng.normal(0, 1, (Bn, GRID, GRID, C)))).to(dtype)
+    lid = t(with_nan(rng.normal(0, 1, (Bn, GRID, GRID, C)))).to(dtype)
+    ws = (t(rng.normal(0, 0.08, (C, 2 * C, 1, 1))), t(rng.normal(0, 0.1, (C,))),
+          t(rng.normal(0, 0.1, (2, C, 1, 1))), t(rng.normal(0, 0.1, (2,))))
+    want = fg.fusion_gate_plain(cam.to(cpu), lid.to(cpu), *(w.to(cpu) for w in ws))
+    got = fg.fusion_gate(cam, lid, *ws)
+    out = {"fusion_gate": {"max_abs_err": check_close_nan("fusion_gate NaN", got.to(cpu), want,
+                                                          dtype),
+                           "nan_out": int(torch.isnan(want).sum())}}
+    out["ir_fused_infer"] = []
+    for H, Cin, Cout, stride, exp in IR_STAGES:
+        x = t(with_nan(rng.uniform(0, 3, (Bn, H, H, Cin)))).to(dtype)
+        p = random_ir_params(rng, dev, Cin, Cout, exp)
+        p_cpu = irf.IRParams(*(None if v is None else v.to(cpu) for v in p))
+        want = irf.fused_ir_infer_plain(x.to(cpu), p_cpu, stride)
+        err = check_close_nan(f"ir_fused_infer NaN {H}x{Cin}->{Cout}/s{stride}",
+                              irf.fused_ir_infer(x, p, stride).to(cpu), want, dtype)
+        out["ir_fused_infer"].append({"stage": f"{H}x{H} {Cin}->{Cout} s{stride} e{exp}",
+                                      "max_abs_err": err, "nan_out": int(torch.isnan(want).sum())})
+    if dtype != torch.float32:
+        return out
+    out["fused_blocks"] = []
+    gen = torch.Generator().manual_seed(23)
+    for H, Cin, Cout, stride, exp in IR_STAGES:
+        torch.manual_seed(23)
+        m = InvertedResidual(Cin, Cout, stride, exp, fused_train=True)
+        randomize_bn(m, 23)
+        m.train()
+        x = torch.from_numpy(with_nan(torch.rand(Bn, Cin, H, H, generator=gen).numpy() * 3))
+        dy = torch.randn(Bn, Cout, H // stride, H // stride, generator=gen)
+        res = {}
+        for where in (dev, cpu):
+            mi = copy.deepcopy(m).to(where)
+            xi = x.to(where).requires_grad_(True)
+            y = mi(xi)
+            y.backward(dy.to(where))
+            res[where.type] = {"out": y.detach(), "dx": xi.grad,
+                               **{f"grad {k}": q.grad for k, q in mi.named_parameters()},
+                               **{k: v for k, v in mi.named_buffers()
+                                  if not k.endswith("num_batches_tracked")}}
+        stage = f"{H}x{H} {Cin}->{Cout} s{stride} e{exp}"
+        worst = 0.0
+        for k, want in res["cpu"].items():
+            got = res[dev.type][k].to(cpu)
+            if k.startswith("grad ") or k == "dx" or k == "out":
+                worst = max(worst, check_close_nan(f"fused block NaN {stage} {k}", got, want,
+                                                   dtype, scaled=True, some=k == "out"))
+            elif not torch.equal(torch.isnan(got), torch.isnan(want)):
+                raise AssertionError(f"fused block NaN {stage} {k}: NaN at other places")
+        out["fused_blocks"].append({"stage": stage, "max_abs_err": worst,
+                                    "nan_out": int(torch.isnan(res["cpu"]["out"]).sum())})
     return out
 
 
@@ -1225,7 +1474,12 @@ def phase_kernels(dev):
         edges = check_voxelize_edges(np.random.default_rng(4999), dev, dtype)
         log(f"[kernels] voxelize_scatter_max edge clouds {name}, B=2: {json.dumps(edges)}")
         edges = check_sorted_scatter_edges(np.random.default_rng(1010), dev, dtype)
-        log(f"[kernels] scatter_sorted_fwd/bwd edge clouds {name}, B=2: {json.dumps(edges)}")
+        log(f"[kernels] scatter_sorted_fwd/fwd_flat/bwd edge clouds {name}, B=2: "
+            f"{json.dumps(edges)}")
+        nan = check_nan_scatter(np.random.default_rng(1111), dev, dtype)
+        log(f"[kernels] NaN clouds, K1 K4 K5 K6 {name}, B=2: {json.dumps(nan)}")
+        nan = check_nan_dense(np.random.default_rng(2222), dev, dtype)
+        log(f"[kernels] NaN inputs, K2 K3 and the fused blocks {name}, B=2: {json.dumps(nan)}")
         irt, blocks = kernel_ir_train(rng, dev, dtype)
         for k, r in irt.items():
             res[(k, name, 0, TRAIN_B)] = r
@@ -1316,8 +1570,8 @@ def profile_forward(pred, frames, prepped, reps: int = 5):
 
 @contextlib.contextmanager
 def fwd_flat(on: bool = True):
-    """While on, the sorted scatter's forward is the flat chunk-table kernel
-    K4 (the JAX package's _FWD_FLAT switch) instead of K1."""
+    """While on, the sorted scatter's forward is the flat kernel K4, split
+    by points (the JAX package's _FWD_FLAT switch), instead of K1."""
     from lmsu_tpu_torch.ops import scatter_sorted as ss
     before = ss._FWD_FLAT
     ss._FWD_FLAT = on

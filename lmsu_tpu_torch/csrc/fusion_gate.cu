@@ -365,7 +365,7 @@ fusion_gate_kernel(const Params P) {
           for (int j = 0; j < 4; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e)
-              part = fmaf(fmaxf(__fadd_rn(acc[mt][j][2 * h + e], bias[j][e]), 0.f), w2d[j][e],
+              part = fmaf(fmax_nan(__fadd_rn(acc[mt][j][2 * h + e], bias[j][e]), 0.f), w2d[j][e],
                           part);
           part += __shfl_xor_sync(0xffffffffu, part, 1);
           part += __shfl_xor_sync(0xffffffffu, part, 2);

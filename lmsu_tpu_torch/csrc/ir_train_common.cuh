@@ -41,7 +41,22 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
-__device__ __forceinline__ float relu6(float v) { return fminf(fmaxf(v, 0.f), 6.f); }
+// NaN-propagating max and min (PTX max.NaN / min.NaN, sm_80 and up): NaN
+// where either operand is NaN, else what max.f32 / min.f32 give. fmaxf and
+// fminf return the other operand, dropping a NaN that the reference keeps.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// ReLU6 that keeps NaN, as the reference's clip does.
+__device__ __forceinline__ float relu6(float v) { return fmin_nan(fmax_nan(v, 0.f), 6.f); }
 
 // The fused path's ReLU6 derivative: 1 strictly inside (0, 6), 0 at the ties.
 __device__ __forceinline__ float relu6_mask(float v) { return (v > 0.f && v < 6.f) ? 1.f : 0.f; }

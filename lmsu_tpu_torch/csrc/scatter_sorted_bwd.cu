@@ -7,8 +7,10 @@
 //   d[p, c] = [feat[p, c] == out[cell(p), c]] * g[cell(p), c] / max(ties, 1)
 //   ties[cell, c] = #{p in cell : feat[p, c] == out[cell, c]}
 //
-// and d = 0 for invalid points (key == HW). The TPU kernel gathers out and g
-// per point and counts ties with one-hot placement matmuls, and splits the
+// and d = 0 for invalid points (key == HW). A NaN cell ties no point (NaN
+// equals nothing), so its points get 0, as in the plain version. The TPU
+// kernel gathers out and g per point and counts ties with one-hot
+// placement matmuls, and splits the
 // counts into two bf16-exact parts because its matrix unit rounds f32
 // operands; here the counts are plain integers, exact at any size.
 //

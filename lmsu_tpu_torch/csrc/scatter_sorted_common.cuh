@@ -43,6 +43,10 @@
 // Keys past N read as ncell, which no group reaches. K1 walks ncell = HW
 // cells an image; K5 walks HW + 1, the last being the invalid points
 // (key HW), whose rows of d it zeroes in the walk.
+//
+// The flat forward K4 (scatter_sorted_fwd_flat.cu), split by points, walks
+// windows of its own but takes its vectors (Vec, whose max_with keeps NaN),
+// copies and geometry from here.
 
 #pragma once
 
@@ -152,6 +156,21 @@ __device__ __forceinline__ void copy_wait_older() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+// NaN-propagating maxima (PTX max.NaN, sm_80 and up): NaN (the canonical
+// one) where either operand is NaN, else what max.f32 gives, signed zeros
+// included. fmaxf and __hmax2 return the other operand, dropping a NaN.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+// Two bf16 a word.
+__device__ __forceinline__ uint32_t bmax2_nan(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
 // V bytes of T: elements as f32 (bf16 widened exactly).
 template <typename T, int V>
 struct Vec {
@@ -221,22 +240,18 @@ struct Vec {
       w[e >> 1] |= h << (16 * (e & 1));
     }
   }
-  // this = the elementwise max of this and o (exact: a max moves values).
+  // this = the elementwise max of this and o (exact: a max moves values;
+  // NaN where either is NaN, as the reference's max keeps it).
   __device__ __forceinline__ void max_with(const Vec& o) {
     if constexpr (sizeof(T) == 4) {
 #pragma unroll
       for (int i = 0; i < W; ++i)
-        w[i] = __float_as_uint(fmaxf(__uint_as_float(w[i]), __uint_as_float(o.w[i])));
+        w[i] = __float_as_uint(fmax_nan(__uint_as_float(w[i]), __uint_as_float(o.w[i])));
     } else if constexpr (V >= 4) {
 #pragma unroll
-      for (int i = 0; i < W; ++i) {
-        __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-        const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&o.w[i]);
-        a = __hmax2(a, b);
-        w[i] = *reinterpret_cast<const uint32_t*>(&a);
-      }
+      for (int i = 0; i < W; ++i) w[i] = bmax2_nan(w[i], o.w[i]);
     } else {
-      w[0] = __bfloat16_as_ushort(__float2bfloat16(fmaxf(get(0), o.get(0))));
+      w[0] = __bfloat16_as_ushort(__float2bfloat16(fmax_nan(get(0), o.get(0))));
     }
   }
 };

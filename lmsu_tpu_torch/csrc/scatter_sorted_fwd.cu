@@ -25,7 +25,7 @@
 // cap rows, whose feature rows (one contiguous byte range) are copied into
 // a two-stage shared-memory ring with cp.async a group ahead; each walker
 // takes a cell, its max over the cell's rows in shared memory as 16-byte
-// vectors (bf16 pairs by __hmax2), and writes the cell's row, an empty cell
+// vectors (max.NaN, bf16 in pairs: a NaN wins), and writes the cell's row, an empty cell
 // as zeros. A long span's chunks are shared by all walkers, each keeping a
 // running max; walker 0 joins them. Every output element has one writer:
 // no atomics, and the result is exact (a max only moves values).

@@ -30,7 +30,9 @@
 //   atomicMax is the update, the fill is a zero fill, and the write-out
 //   turns key 0 into 0.0. A max takes no rounding: any order of updates
 //   gives the same bits, so the result is exact and deterministic. bf16 is
-//   widened to f32 bits (exact). NaN is outside the contract, as on the TPU.
+//   widened to f32 bits (exact). A NaN of either sign takes the largest
+//   key (0xffffffff, written back as the NaN 0x7fffffff): a cell holding a
+//   NaN is NaN, as the reference's max gives it.
 // - Loads in flight, held in registers. A thread owns one 16-byte vector
 //   of the slice (4 f32 or 8 bf16 channels; a slice of 8 is two threads
 //   a point in f32, one in bf16) and takes kU = 4 points a batch. The
@@ -70,10 +72,13 @@ constexpr int kThreads = 1024;
 constexpr int kMaxSlice = 8;  // channels an item
 constexpr int kU = 4;         // points a thread loads per batch
 
+// A NaN of either sign takes the largest key, so that it wins the max as
+// the reference's max keeps it; the other keys order as the floats do.
 __device__ __forceinline__ uint32_t key_of(uint32_t bits) {
+  if ((bits & 0x7fffffffu) > 0x7f800000u) return 0xffffffffu;
   return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
 }
-// f32 bits of a nonzero key.
+// f32 bits of a nonzero key (the largest key gives back 0x7fffffff, a NaN).
 __device__ __forceinline__ uint32_t bits_of(uint32_t key) {
   return (key & 0x80000000u) ? (key & 0x7fffffffu) : ~key;
 }

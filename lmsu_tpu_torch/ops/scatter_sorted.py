@@ -9,17 +9,23 @@ custom VJP). On the H100 all three are bound by bytes: each feature row is
 read once and each cell row written once (see the source notes in the .cu
 files). With the points sorted by cell, each cell owns one contiguous span
 of points. The forward (K1) and the backward (K5) share one walk over the
-cell-sorted spans (csrc/scatter_sorted_common.cuh; its constants WALK_* and
-walk_geometry below): segmented passes over groups of cells with no
-atomics; the flat forward (K4, taken when the module
-constant `_FWD_FLAT` is set, as in the JAX package) walks the TPU kernel's
-static chunk table of fixed windows of points and combines a run that
-crosses a window's edge with an atomic max. Both forwards are bit-exact
-against any other max.
+cell-sorted spans, split by cells (csrc/scatter_sorted_common.cuh; its
+constants WALK_* and walk_geometry below): segmented passes over groups of
+cells with no atomics. The flat forward (K4, taken when the module
+constant `_FWD_FLAT` is set, as in the JAX package) computes the same
+function split by points (its constants FLAT_* and flat_geometry below):
+persistent blocks over fixed windows of sorted points, one pass over the
+output (each window writes its runs and the empty cells before them), and
+a second small launch that joins the runs crossing a block's edge from
+their partial maxima. It does not consume the TPU kernel's chunk table;
+the plain version segment_max_flat_plain keeps that route. All forwards
+are bit-exact against any other max, and keep a NaN in its cell as the
+JAX package's `xla` route does (a max that meets a NaN is NaN).
 
 The backward splits a cell's gradient evenly over its tied winners, per
 channel (the JAX package's dense-VJP parity rule):
 d[p] = [feat[p] == out[cell]] * g[cell] / ties[cell]; invalid points get 0.
+A NaN cell matches no point: its points get 0.
 
 Input contract: `where(valid, flat_idx, H*W)` is non-decreasing along the
 point axis of every batch row (invalid points last). The Predictor and the
@@ -44,7 +50,8 @@ KERNEL = CudaKernel("scatter_sorted_fwd.cu", {
     "scatter_sorted_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "scatter_sorted_fwd_plan": _PLAN})
 KERNEL_FLAT = CudaKernel("scatter_sorted_fwd_flat.cu", {
-    "scatter_sorted_fwd_flat": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)})
+    "scatter_sorted_fwd_flat": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "scatter_sorted_fwd_flat_plan": (_I, _I, _I, _I, _I, _I, _P)})
 KERNEL_BWD = CudaKernel("scatter_sorted_bwd.cu", {
     "scatter_sorted_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "scatter_sorted_bwd_plan": _PLAN})
@@ -115,10 +122,75 @@ def segment_max_bwd_plan(B: int, N: int, C: int, hw: int, dtype: torch.dtype) ->
                  dtype)
 
 
+# The flat forward K4 (csrc/scatter_sorted_fwd_flat.cu), split by points:
+# the constants the wrapper passes to the kernel, which
+# tests/test_torch_scatter_flat_walk.py's emulation of its plan reads too.
+# A stage's buffer of feature rows (one window): FLAT_SLOT_BYTES, or
+# FLAT_SLOT_BYTES_SMALL where the larger windows would give the persistent
+# blocks fewer than FLAT_WINDOWS_A_BLOCK windows each. A small call (serving's
+# B=8) is then cut finer, so that no block takes much more than its share
+# and more blocks fit an SM; a large one keeps the fewer, longer windows.
+FLAT_SLOT_BYTES = 24576
+FLAT_SLOT_BYTES_SMALL = 16384
+FLAT_WINDOWS_A_BLOCK = 4
+
+
+def flat_geometry(C: int, element_size: int, slot_bytes: int = FLAT_SLOT_BYTES) -> dict:
+    """What K4 decides from a row of C elements (as
+    scatter_sorted_fwd_flat.cu::flat_geometry): K1's vectors, channel
+    slices, threads a walker and walkers a block (walk_geometry's "fwd"
+    kind), and chunk_rows, the sorted points a walker takes from a window,
+    and window_rows = chunk_rows * walkers, the points a window (the rows of
+    a window fit slot_bytes where one row a walker does, and a window holds
+    at most WALK_THREADS keys, one a thread)."""
+    g = walk_geometry(C, element_size, "fwd")
+    rbs = g["rowvec"] * g["vec"]
+    chunk = max(1, min(slot_bytes // rbs, WALK_THREADS) // g["walkers"])
+    return {k: g[k] for k in ("vec", "epv", "rowvec", "cw", "slices", "lanes", "walkers")} | {
+        "rbs": rbs, "chunk_rows": chunk, "window_rows": chunk * g["walkers"]}
+
+
+def flat_block_windows(k: int, windows: int, grid: int) -> Tuple[int, int]:
+    """The windows [g0, g1) of the flattened (image, window) list that
+    block k of a persistent launch of `grid` blocks takes."""
+    return windows * k // grid, windows * (k + 1) // grid
+
+
+_FLAT_PLAN_KEYS = ("vector_bytes", "lanes", "walkers", "window_rows", "chunk_rows",
+                   "smem_bytes", "blocks_per_sm", "blocks", "slices", "windows_per_image",
+                   "workspace_bytes")
+_FLAT_PLANS: dict = {}
+
+
+def segment_max_flat_plan(B: int, N: int, C: int, hw: int, dtype: torch.dtype) -> dict:
+    """K4's plan for these shapes on the current card (chip_smoke.py prints
+    it; the wrapper caches it): the stage bytes it chose (FLAT_SLOT_BYTES,
+    or FLAT_SLOT_BYTES_SMALL for a call that would give a block fewer than
+    FLAT_WINDOWS_A_BLOCK windows), vector bytes, threads a walker,
+    walkers, points a window and a walker's chunk, shared memory a block,
+    resident blocks per SM, blocks launched a slice (the persistent grid),
+    channel slices, windows an image, and the bytes of the workspace where
+    blocks leave the partial maxima of the runs crossing their edges."""
+    key = (torch.cuda.current_device(), B, N, C, hw, dtype)
+    plan = _FLAT_PLANS.get(key)
+    if plan is None:
+        for slot in (FLAT_SLOT_BYTES, FLAT_SLOT_BYTES_SMALL):
+            o = (ctypes.c_int * len(_FLAT_PLAN_KEYS))()
+            err = KERNEL_FLAT.lib().scatter_sorted_fwd_flat_plan(
+                B, N, C, hw, 0 if dtype == torch.float32 else 1, slot, ctypes.addressof(o))
+            if err:
+                raise RuntimeError(f"scatter_sorted_fwd_flat_plan: CUDA error {err}")
+            plan = {"slot_bytes": slot, **dict(zip(_FLAT_PLAN_KEYS, o))}
+            if B * plan["windows_per_image"] >= FLAT_WINDOWS_A_BLOCK * plan["blocks"]:
+                break
+        _FLAT_PLANS[key] = plan
+    return dict(plan)
+
+
 # The JAX package's switch between its two sorted forwards
 # (lmsu_tpu/ops/scatter_sorted_pallas.py::_FWD_FLAT): False runs K1, True the
-# flat chunk-table forward K4. segment_max reads it at call time. The TPU
-# kernel's chunk geometry is kept so that the table is the same:
+# flat forward K4. segment_max reads it at call time. The TPU kernel's chunk
+# geometry is kept so that the plain version's chunk table is the same:
 _FWD_FLAT = False
 _TILE = 128     # output cells per tile
 _CW_FWD = 256   # points per window of the flat forward
@@ -166,7 +238,7 @@ def segment_max_plain(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> torch
 def segment_max(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> torch.Tensor:
     """Sorted segment max: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. feats [B, N, C] f32/bf16, keys [B, N] int32.
-    With `_FWD_FLAT` set, the flat chunk-table forward (segment_max_flat)."""
+    With `_FWD_FLAT` set, the flat forward split by points (segment_max_flat)."""
     if _FWD_FLAT:
         return segment_max_flat(feats, keys, hw)
     if feats.device.type == "cpu":
@@ -263,9 +335,11 @@ def segment_max_flat_plain(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> 
 
 
 def segment_max_flat(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> torch.Tensor:
-    """Sorted segment max by the flat chunk table: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors. feats [B, N, C] f32/bf16,
-    keys [B, N] int32 sorted per row."""
+    """Sorted segment max split by points (K4): the CUDA kernel for CUDA
+    tensors, the plain version (the TPU kernel's chunk-table route) for
+    CPU tensors. feats [B, N, C] f32/bf16, keys [B, N] int32 sorted per
+    row. One call of the C entry point: the walk over the windows, then
+    the join of the runs that cross a block's edge."""
     if feats.device.type == "cpu":
         return segment_max_flat_plain(feats, keys, hw)
     if feats.device.type != "cuda":
@@ -274,11 +348,12 @@ def segment_max_flat(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> torch.
     if keys.shape != (B, N) or keys.dtype != torch.int32:
         raise ValueError(f"keys must be int32 [{B}, {N}], got {keys.dtype} {tuple(keys.shape)}")
     dev = check_cuda_args(feats, keys)
-    starts, NP, ntiles = flat_prep(keys, hw)
-    off, tile, S = chunk_table(starts, ntiles, NP, _align(feats.dtype), _CW_FWD)
+    feats = aligned16(feats)
+    plan = segment_max_flat_plan(B, N, C, hw, feats.dtype)
     out = torch.empty(B, hw, C, dtype=feats.dtype, device=dev)
-    KERNEL_FLAT.launch("scatter_sorted_fwd_flat", ptr(feats), ptr(keys), ptr(off), ptr(tile),
-                       ptr(out), B, N, C, hw, S, _CW_FWD, _TILE, dtype_code(feats),
+    work = torch.empty(plan["workspace_bytes"], dtype=torch.uint8, device=dev)
+    KERNEL_FLAT.launch("scatter_sorted_fwd_flat", ptr(feats), ptr(keys), ptr(out), ptr(work),
+                       B, N, C, hw, dtype_code(feats), plan["slot_bytes"], plan["blocks"],
                        stream_ptr(dev))
     return out
 

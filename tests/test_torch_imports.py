@@ -206,7 +206,8 @@ def test_kernel_build_flags_and_sources():
     assert _cuda.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert "/build/" in (ROOT / ".gitignore").read_text().split()
     users = {"ir_train_common.cuh": [k for k in ks.values() if k.name.startswith("ir_train")],
-             "scatter_sorted_common.cuh": [ks["scatter_sorted_fwd"], ks["scatter_sorted_bwd"]]}
+             "scatter_sorted_common.cuh": [ks["scatter_sorted_fwd"], ks["scatter_sorted_bwd"],
+                                           ks["scatter_sorted_fwd_flat"]]}
     assert {h.name for h in _cuda.CSRC.glob("*.cuh")} == set(users)
     assert all(f'#include "{h}"' in (_cuda.CSRC / k.source).read_text()
                for h, sources in users.items() for k in sources)
