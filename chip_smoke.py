@@ -30,7 +30,9 @@ Phases:
              also on a near-teacher student (S = T.P + 1e-3 N(0, 1)); K2
              also at C=512 (a 4x teacher; whether it is no slower than its
              plain version is printed), with each shape's tile rows, shared
-             memory and resident blocks, and at six other widths at B=2
+             memory and resident blocks; K7 also at B=128 with Cs 256 and
+             Ct 512 (the concat/256 student's post_fusion tap and its 2x
+             teacher's, Ct at the kernel's limit), and at six other widths at B=2
              (padded K, rows that are not 16-byte multiples, x streamed past
              a 32-row tile). The scatter kernels K4, K5 and K6 (and
              K1 beside K4) also on a skewed cloud: 2,000 of the 5,000 points
@@ -67,6 +69,12 @@ Phases:
              two f32 runs of 16 frames with the other scatter kernels: the
              unsorted scatter (scatter_impl="pallas", K6; no host sort) and
              the flat sorted forward (`_FWD_FLAT`, K4), each without K1.
+             Then concat/256 (ModelConfig(num_classes=2)'s defaults, with
+             the sorted scatter and fused_inference): 16 frames in f32
+             with the same checks, K1 and K3 launched, K2 not; and one B=8
+             f32 forward each of minimal/128, gated_sum/128 and minimal/128
+             with the x4 head (256^2 logits), kernel path against plain
+             path, K1 and K3 launched, K2 not.
   4. train   the KD step of bench.py (weighted/128 student, 2x teacher,
              seeded weights) through DistillationTrainer.train_step at
              B=128 on one fixed cell-sorted batch, f32 then bf16, with the
@@ -87,10 +95,20 @@ Phases:
              must launch). Then scatter_impl="pallas": one B=8 f32 step on
              the kernel path against the plain path, and the in-loop step at
              B=128 in f32 and bf16 on points in their own order (loss must
-             fall, K6 twice per step, K1 and K5 never).
+             fall, K6 twice per step, K1 and K5 never). Then the concat/256
+             student with its 2x teacher: one B=8 f32 step, kernel path
+             against plain path; and the in-loop B=128 step of concat/256
+             and of minimal/128 in f32 and bf16 (loss must fall; K1, K5 and
+             K7 must launch, K2 must not). Then one epoch of `python -m
+             lmsu_tpu_torch.train_fusion_ablation` (concat, minimal and
+             weighted at full width; each exact parameter count checked in
+             its JSON) and of `python -m lmsu_tpu_torch.train_synthetic`
+             (concat/256), whose latest.pth `python -m
+             lmsu_tpu_torch.evaluate` must read back at the val mIoU the
+             trainer recorded.
 
 Output: the card's name and power limit (nvidia-smi), then per-phase lines,
-then one `{"kernels": [...]}` JSON line, the serving and train summaries,
+the whole run's seconds, then one `{"kernels": [...]}` JSON line, the serving and train summaries,
 the nvidia-smi line again, and as the last line `{"ok": true, "device":
 {...}}`. Any failed check raises and the script exits non-zero; without a
 GPU it exits non-zero at once.
@@ -1441,12 +1459,16 @@ def phase_kernels(dev):
     rng_k4_k6 = np.random.default_rng(4)
     rng_c512 = np.random.default_rng(512)
     rng_k5_skew = np.random.default_rng(5)
+    rng_kd512 = np.random.default_rng(1024)  # K7 at Ct 512, a stream of its own
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
         runs = [("scatter", C, b, kernel_scatter) for b in (B, TRAIN_B) for C in (128, 256)]
         runs += [("scatter_bwd", 128, b, kernel_scatter_bwd) for b in (B, TRAIN_B)]
         runs += [("kd_mse", 256, b, kernel_kd_mse) for b in (B, TRAIN_B)]
+        # K7 at the concat/256 student's post_fusion tap: Cs 256 against its
+        # 2x teacher's Ct 512, the widest Ct the kernel takes.
+        runs.append(("kd_mse", 512, TRAIN_B, kernel_kd_mse))
         # K2 also at C=512 (a 4x teacher; inputs from a stream of its own).
         runs += [("gate", 128, B, kernel_gate), ("gate", 128, TRAIN_B, kernel_gate),
                  ("gate", 256, TRAIN_B, kernel_gate), ("gate", 512, B, kernel_gate)]
@@ -1455,11 +1477,14 @@ def phase_kernels(dev):
                      for b, C in ((B, 128), (TRAIN_B, 128), (TRAIN_B, 256))]
         runs.append(("scatter_bwd_skew", 128, TRAIN_B, kernel_scatter_bwd))
         for kind, C, b, fn in runs:
-            kw = {"B": b} if kind == "kd_mse" else {"C": C, "B": b}
+            kw = {"C": C, "B": b}
+            if kind == "kd_mse":
+                kw = {"B": b, "cs": C // 2, "ct": C}
             if kind.endswith("_skew"):
                 kw["skew"] = True
             src = (rng_k4_k6 if fn in (kernel_unsorted, kernel_flat)
                    else rng_k5_skew if kind == "scatter_bwd_skew"
+                   else rng_kd512 if kind == "kd_mse" and C == 512
                    else rng_c512 if C == 512 else rng)
             r = fn(src, dev, dtype, **kw)
             res[(kind, name, C, b)] = r
@@ -1505,11 +1530,23 @@ def phase_kernels(dev):
 # -- serving phase -----------------------------------------------------------
 
 
-def serving_config(dtype, kernels=True, scatter="sorted_pallas"):
+# The models this script drives: (fusion_type, fusion_out_channels,
+# output_mode). "weighted" is the weighted/128 student; "concat" is
+# ModelConfig(num_classes=2)'s own defaults, concat/256.
+MODELS = {"weighted": ("weighted", 128, "same"), "concat": ("concat", 256, "same"),
+          "minimal": ("minimal", 128, "same"), "gated_sum": ("gated_sum", 128, "same"),
+          "minimal_x4": ("minimal", 128, "x4")}
+
+
+def serving_config(dtype, kernels=True, scatter="sorted_pallas", model="weighted"):
+    """`model` at full width with the kernel opt-ins (the scatter `scatter`,
+    fused_inference, and the fused gate where the fusion is weighted, the
+    only one that has it) or without them (the xla scatter)."""
     from lmsu_tpu_torch.config import CameraEncoderConfig, LidarEncoderConfig, ModelConfig
+    fusion, channels, head = MODELS[model]
     return ModelConfig(
-        num_classes=2, fusion_type="weighted", fusion_out_channels=128,
-        use_pallas_fusion=kernels,
+        num_classes=2, fusion_type=fusion, fusion_out_channels=channels, output_mode=head,
+        use_pallas_fusion=kernels and fusion == "weighted",
         camera=CameraEncoderConfig(fused_inference=kernels),
         lidar=LidarEncoderConfig(scatter_impl=scatter if kernels else "xla"),
         compute_dtype=dtype)
@@ -1568,6 +1605,40 @@ def profile_forward(pred, frames, prepped, reps: int = 5):
             "top": [{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:12]]}
 
 
+def check_model_forward(dev, model):
+    """One B=8 f32 forward of `model` at full width, seeded weights and
+    randomised BatchNorms, on the kernel path (sorted scatter K1, fused
+    blocks K3; the points cell-sorted by the Predictor) against the same
+    weights on the plain path (the xla scatter on the points in another
+    order, unfused blocks): within 1e-3, as the serving check (b). K1 and K3
+    must launch in the kernel path's forward, K2 (the weighted fusion's
+    gate) must not."""
+    from lmsu_tpu_torch.inference import Predictor
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    pred = Predictor(serving_config(torch.float32, model=model), device=dev, seed=0)
+    randomize_bn(pred.model, 1)
+    plain = Predictor(serving_config(torch.float32, kernels=False, model=model),
+                      pred.model.state_dict(), device=dev)
+    rng = np.random.default_rng(8)
+    imgs = rng.integers(0, 256, (B, IMG, IMG, 3), dtype=np.uint8)
+    pts = make_points(rng, NPTS, B)
+    pv = rng.uniform(size=(B, NPTS)) > 0.1
+    reset_launch_counts()
+    a = pred(imgs, pts, pv).float().cpu().numpy()
+    launches = {k: v.launches for k, v in kernels().items()}
+    perm = rng.permutation(NPTS)
+    b = plain.forward_batch(imgs, pts[:, perm], pv[:, perm]).float().cpu().numpy()
+    up = 4 if MODELS[model][2] == "x4" else 1
+    err = float(np.abs(a - b).max())
+    if a.shape != (B, GRID * up, GRID * up, 2) or not np.isfinite(a).all() or err > 1e-3:
+        raise AssertionError(f"{model}: kernel path != plain path: shape {a.shape}, {err:g}")
+    if (any(launches[k] <= 0 for k in ("scatter_sorted_fwd", "ir_fused_infer"))
+            or launches["fusion_gate"]):
+        raise AssertionError(f"{model}: launches in the forward: {launches}")
+    return {"err_kernels_vs_plain_path": err, "logits_shape": list(a.shape),
+            "launches": {k: n for k, n in launches.items() if n}}
+
+
 @contextlib.contextmanager
 def fwd_flat(on: bool = True):
     """While on, the sorted scatter's forward is the flat kernel K4, split
@@ -1581,10 +1652,12 @@ def fwd_flat(on: bool = True):
         ss._FWD_FLAT = before
 
 
-def phase_serving(dev, dtype, state_dict=None, scatter="sorted_pallas", n_frames=32):
+def phase_serving(dev, dtype, state_dict=None, scatter="sorted_pallas", n_frames=32,
+                  model="weighted"):
     """With scatter="sorted_pallas" K1 (K4 under fwd_flat) serves the
     scatter, with "pallas" K6; of the three scatter kernels only that one
-    may launch, and with "pallas" no host sort runs."""
+    may launch, and with "pallas" no host sort runs. K2 launches for the
+    weighted fusion and for no other."""
     from lmsu_tpu_torch.inference import Predictor
     from lmsu_tpu_torch.ops import scatter_sorted as ss
     from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
@@ -1594,7 +1667,10 @@ def phase_serving(dev, dtype, state_dict=None, scatter="sorted_pallas", n_frames
                       "scatter_sorted_fwd_flat" if ss._FWD_FLAT else "scatter_sorted_fwd")
     if scatter_kernel != "scatter_sorted_fwd":
         name = f"{name} {scatter_kernel}"
-    pred = Predictor(serving_config(dtype, scatter=scatter), state_dict, device=dev, seed=0)
+    if model != "weighted":
+        name = f"{model} {name}"
+    pred = Predictor(serving_config(dtype, scatter=scatter, model=model), state_dict,
+                     device=dev, seed=0)
     if state_dict is None:
         randomize_bn(pred.model, 1)
     engine = ServingEngine.from_predictor(pred, batch_size=B, image_size=(IMG, IMG),
@@ -1631,9 +1707,10 @@ def phase_serving(dev, dtype, state_dict=None, scatter="sorted_pallas", n_frames
         with urllib.request.urlopen(req, timeout=120) as r:
             http_logits = np.load(io.BytesIO(r.read()))["logits"]
         launches = {k: v.launches for k, v in kernels().items()}
-        need = ("fusion_gate", "ir_fused_infer", scatter_kernel)
-        if (any(launches[k] <= 0 for k in need)
-                or any(launches[k] for k in SCATTER_KERNELS if k != scatter_kernel)):
+        need = ["ir_fused_infer", scatter_kernel]
+        not_run = [k for k in SCATTER_KERNELS if k != scatter_kernel]
+        (need if model == "weighted" else not_run).append("fusion_gate")
+        if any(launches[k] <= 0 for k in need) or any(launches[k] for k in not_run):
             raise AssertionError(f"{name}: launches while serving: {launches}")
         if scatter == "pallas" and (pred._sorter is not None or engine._sorter is not None):
             raise AssertionError("the pallas scatter takes points unsorted; a sorter is set")
@@ -1663,8 +1740,8 @@ def phase_serving(dev, dtype, state_dict=None, scatter="sorted_pallas", n_frames
         # (b) f32: the same weights on the plain path (unsorted scatter,
         # unfused gate and blocks) give the same logits.
         if dtype == torch.float32:
-            plain = Predictor(serving_config(dtype, kernels=False), pred.model.state_dict(),
-                              device=dev)
+            plain = Predictor(serving_config(dtype, kernels=False, model=model),
+                              pred.model.state_dict(), device=dev)
             err_b = 0.0
             for s in range(0, len(frames), B):
                 idx = list(range(s, min(s + B, len(frames))))
@@ -1692,23 +1769,25 @@ def phase_serving(dev, dtype, state_dict=None, scatter="sorted_pallas", n_frames
 
 
 def train_config(dtype, kernels=True, batch=TRAIN_B, save_dir=None, fused_train=False,
-                 scatter="sorted_pallas"):
-    """The KD student step of bench.py: the weighted/128 student, the 2x
-    teacher, AdamW lr 1e-3 (constant: eta_min = lr) and wd 1e-3, class
-    weights (0.4, 3.5), the three default taps; kernels on (with the
-    scatter `scatter`) or off; the student's InvertedResidual stages fused
-    in training (K8-K13) or not."""
+                 scatter="sorted_pallas", model="weighted"):
+    """The KD student step of bench.py: the student `model` (MODELS; the
+    weighted/128 student unless said), its 2x teacher, AdamW lr 1e-3
+    (constant: eta_min = lr) and wd 1e-3, class weights (0.4, 3.5), the
+    three default taps; kernels on (with the scatter `scatter`, and the
+    fused gate where the fusion is weighted) or off; the student's
+    InvertedResidual stages fused in training (K8-K13) or not."""
     from lmsu_tpu_torch.config import (CameraEncoderConfig, DataConfig, ExperimentConfig,
                                        KDConfig, LidarEncoderConfig, ModelConfig, TrainConfig)
-    model = ModelConfig(num_classes=2, fusion_type="weighted", fusion_out_channels=128,
-                        use_pallas_fusion=kernels,
-                        camera=CameraEncoderConfig(fused_train=fused_train),
-                        lidar=LidarEncoderConfig(scatter_impl=scatter if kernels else "xla"),
-                        compute_dtype=dtype)
+    fusion, channels, head = MODELS[model]
+    student = ModelConfig(num_classes=2, fusion_type=fusion, fusion_out_channels=channels,
+                          output_mode=head, use_pallas_fusion=kernels and fusion == "weighted",
+                          camera=CameraEncoderConfig(fused_train=fused_train),
+                          lidar=LidarEncoderConfig(scatter_impl=scatter if kernels else "xla"),
+                          compute_dtype=dtype)
     train = TrainConfig(lr=1e-3, eta_min=1e-3, weight_decay=1e-3, class_weights=(0.4, 3.5),
                         kd=KDConfig(enabled=True, use_pallas=kernels),
                         save_dir=save_dir or os.path.join("build", "train_smoke"))
-    return ExperimentConfig(model=model, data=DataConfig(batch_size=batch), train=train)
+    return ExperimentConfig(model=student, data=DataConfig(batch_size=batch), train=train)
 
 
 def train_batch(rng, batch, dev, sort=True):
@@ -1940,10 +2019,11 @@ def hold_step(what, got, want, noise=None, jumps=None) -> dict:
     return out
 
 
-def check_kernel_vs_plain_step(dev, scatter="sorted_pallas"):
-    """One f32 KD step at B=8, TF32 off: the kernel path (sorted scatter
-    K1+K5, or with scatter="pallas" the unsorted scatter K6 with the dense
-    backward; fused gate K2, fused feature MSE K7) against the plain path
+def check_kernel_vs_plain_step(dev, scatter="sorted_pallas", model="weighted"):
+    """One f32 KD step of the student `model` at B=8, TF32 off: the kernel
+    path (sorted scatter K1+K5, or with scatter="pallas" the unsorted
+    scatter K6 with the dense backward; fused gate K2 for the weighted
+    fusion; fused feature MSE K7) against the plain path
     (unsorted scatter_reduce with autograd, unfused softmax gate,
     kd_total_loss) from the same weights and the same cell-sorted batch,
     held to hold_step's fixed limits. The two differ in f32 rounding only.
@@ -1957,9 +2037,10 @@ def check_kernel_vs_plain_step(dev, scatter="sorted_pallas"):
     checks differ by the scatter alone."""
     rng = np.random.default_rng(11)
     batch = train_batch(rng, B, dev)
-    return hold_step(f"KD step, kernel path ({scatter}) vs plain path",
-                     kd_step(dev, batch, train_config(torch.float32, True, B, scatter=scatter)),
-                     kd_step(dev, batch, train_config(torch.float32, False, B)))
+    return hold_step(f"KD step of {model}, kernel path ({scatter}) vs plain path",
+                     kd_step(dev, batch, train_config(torch.float32, True, B, scatter=scatter,
+                                                      model=model)),
+                     kd_step(dev, batch, train_config(torch.float32, False, B, model=model)))
 
 
 def check_fused_step(dev):
@@ -2059,23 +2140,25 @@ def profile_steps(step, reps: int = 2):
 
 
 def phase_train(dev, dtype, warmup: int = 3, steps: int = 10, variants=("in_loop", "cached"),
-                fused_train=False, scatter="sorted_pallas"):
+                fused_train=False, scatter="sorted_pallas", model="weighted"):
     """The KD step at B=128 through DistillationTrainer.train_step on one
     fixed batch: in-loop teacher, then cached teacher (its outputs computed
     once for the batch, bench.py:233-244); with fused_train, the student's
     InvertedResidual stages run K8-K13; with scatter="pallas" the scatter
-    is K6 on points in their own order. Launches of each kernel per step
-    are counted over the timed steps; the loss must fall over them."""
+    is K6 on points in their own order; `model` the student (MODELS).
+    Launches of each kernel per step are counted over the timed steps; the
+    loss must fall over them."""
     from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
     from lmsu_tpu_torch.training import DistillationTrainer
     name = "f32" if dtype == torch.float32 else "bf16"
-    tag = " ".join([name] + (["fused_train"] if fused_train else [])
+    tag = " ".join(([model] if model != "weighted" else []) + [name]
+                   + (["fused_train"] if fused_train else [])
                    + ([scatter] if scatter != "sorted_pallas" else []))
     rng = np.random.default_rng(5)
     batch = train_batch(rng, TRAIN_B, dev, sort=scatter == "sorted_pallas")
     torch.cuda.reset_peak_memory_stats(dev)
-    tr = DistillationTrainer(train_config(dtype, fused_train=fused_train, scatter=scatter),
-                             [batch], [batch], device=dev)
+    tr = DistillationTrainer(train_config(dtype, fused_train=fused_train, scatter=scatter,
+                                          model=model), [batch], [batch], device=dev)
     out = {}
     for variant in variants:
         t_out = tr.teacher_forward(batch) if variant == "cached" else None
@@ -2129,6 +2212,72 @@ def run_train_cli(dev):
     return {"seconds": secs, "best_val_miou": best, "files": files, "launches": launches}
 
 
+ABLATION_PARAMS = {"concat": "573,442", "minimal": "494,978", "weighted": "528,132"}
+
+
+def run_ablation_cli(dev):
+    """The fusion-ablation entry point on the card: one epoch of each
+    variant at full width on synthetic data with the sorted scatter;
+    fusion_ablation_results.json must hold each variant's finite mIoU and
+    exact parameter count."""
+    import tempfile
+
+    from lmsu_tpu_torch import train_fusion_ablation
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "fusion_ablation_results.json")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        train_fusion_ablation.main(["--device", str(dev), "--epochs", "1", "--num-train", "16",
+                                    "--num-val", "8", "--batch-size", "8",
+                                    "--scatter-impl", "sorted_pallas", "--num-workers", "4",
+                                    "--run-prefix", os.path.join(d, "ablation"),
+                                    "--output", out])
+        secs = time.perf_counter() - t0
+        with open(out) as f:
+            res = json.load(f)
+    launches = {k: v.launches for k, v in kernels().items()}
+    if ({k: r["total_params"] for k, r in res.items()} != ABLATION_PARAMS
+            or not all(np.isfinite(r["miou"]) for r in res.values())):
+        raise AssertionError(f"train_fusion_ablation wrote {res}")
+    if any(launches[k] <= 0 for k in ("scatter_sorted_fwd", "scatter_sorted_bwd")):
+        raise AssertionError(f"train_fusion_ablation: launches {launches}")
+    return {"seconds": secs, "results": res, "launches": launches}
+
+
+def run_synthetic_cli(dev):
+    """The quickstart entry point on the card: one epoch of the concat/256
+    model on synthetic data with the sorted scatter, history and checkpoints
+    written; then the evaluate entry point on its latest.pth must read back
+    the val mIoU the trainer recorded (the same weights, split and eval
+    path; within 1e-3, for an argmax that sits on a rounding tie)."""
+    import tempfile
+
+    from lmsu_tpu_torch import evaluate, train_synthetic
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    with tempfile.TemporaryDirectory() as d:
+        common = ["--device", str(dev), "--num-train", "16", "--num-val", "8",
+                  "--batch-size", "8", "--scatter-impl", "sorted_pallas", "--num-workers", "4"]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        best = train_synthetic.main(common + ["--epochs", "1", "--save-dir", d])
+        secs = time.perf_counter() - t0
+        launches = {k: v.launches for k, v in kernels().items()}
+        files = sorted(os.listdir(d))
+        with open(os.path.join(d, "training_history.json")) as f:
+            val_miou = json.load(f)["val_miou"][-1]
+        ev = evaluate.main(common + ["--checkpoint", os.path.join(d, "latest.pth"),
+                                     "--save-dir", os.path.join(d, "eval")])
+    if "latest.pth" not in files or not np.isfinite(best):
+        raise AssertionError(f"train_synthetic wrote {files}, best {best}")
+    if abs(ev["miou"] - val_miou) > 1e-3 or not np.isfinite(ev["loss"]):
+        raise AssertionError(f"evaluate read {ev}, the trainer recorded {val_miou}")
+    if any(launches[k] <= 0 for k in ("scatter_sorted_fwd", "scatter_sorted_bwd")):
+        raise AssertionError(f"train_synthetic: launches {launches}")
+    return {"seconds": secs, "best_val_miou": best, "files": files, "launches": launches,
+            "evaluate": ev, "recorded_val_miou": val_miou}
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -2138,6 +2287,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="kernels,serving,train",
                     help="comma list of kernels,serving,train (build always runs)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2168,6 +2318,12 @@ def main(argv=None) -> int:
         sres["pallas_f32"], _ = phase_serving(dev, torch.float32, sd, "pallas", 16)
         with fwd_flat():
             sres["flat_f32"], _ = phase_serving(dev, torch.float32, sd, n_frames=16)
+        # concat/256, the package's default model: 16 frames in f32 (K1, K3;
+        # no K2), then one B=8 forward of each other fusion and the x4 head.
+        sres["concat_f32"], _ = phase_serving(dev, torch.float32, n_frames=16, model="concat")
+        for model in ("minimal", "gated_sum", "minimal_x4"):
+            sres[f"forward_{model}"] = check_model_forward(dev, model)
+            log(f"[serving {model}] B={B} forward: {json.dumps(sres[f'forward_{model}'])}")
     if "train" in phases:
         t0 = time.perf_counter()
         tres["check"] = check_kernel_vs_plain_step(dev)
@@ -2203,6 +2359,23 @@ def main(argv=None) -> int:
                     or any(per_step[k] for k in ("scatter_sorted_fwd", "scatter_sorted_fwd_flat",
                                                  "scatter_sorted_bwd"))):
                 raise AssertionError(f"train pallas {dt}: launches per step {per_step}")
+        # The concat/256 student (K7 at its post_fusion tap, Cs 256 / Ct 512)
+        # and the minimal/128 one: the B=8 step check for concat, then the
+        # in-loop B=128 step of each in f32 and bf16 (K1, K5, K7; no K2).
+        tres["concat_check"] = check_kernel_vs_plain_step(dev, model="concat")
+        log(f"[train] concat: kernel path == plain path: {json.dumps(tres['concat_check'])}")
+        for model in ("concat", "minimal"):
+            for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                run = tres[f"{model}_{dt}"] = phase_train(dev, dtype, variants=("in_loop",),
+                                                          model=model)
+                n = run["in_loop"]["launches"]
+                if (any(n[k] <= 0 for k in ("scatter_sorted_fwd", "scatter_sorted_bwd",
+                                            "kd_feature_mse")) or n["fusion_gate"]):
+                    raise AssertionError(f"train {model} {dt}: launches {n}")
+        tres["ablation_cli"] = run_ablation_cli(dev)
+        log(f"[train] train_fusion_ablation CLI: {json.dumps(tres['ablation_cli'])}")
+        tres["synthetic_cli"] = run_synthetic_cli(dev)
+        log(f"[train] train_synthetic + evaluate CLIs: {json.dumps(tres['synthetic_cli'])}")
         log(f"[train] phase {time.perf_counter() - t0:.1f} s")
 
     # Each kernel's launches are counted on its slice's main path, f32: the
@@ -2253,6 +2426,15 @@ def main(argv=None) -> int:
             train = "train_pallas" if path == "serving_pallas" else "train"
             entry["train_launches"] = launches(train, "f32", name)
             entry["train_launches_bf16"] = launches(train, "bf16", name)
+        # This slice's own paths: the concat/256 serving run and the
+        # concat/256 and minimal/128 f32 KD runs.
+        if path == "serving" and "concat_f32" in sres:
+            entry["concat256_serving_launches"] = sres["concat_f32"]["launches"][name]
+        if path in ("serving", "train"):
+            for model in ("concat", "minimal"):
+                if f"{model}_f32" in tres:
+                    entry[f"{model}_train_launches"] = \
+                        tres[f"{model}_f32"]["in_loop"]["launches"][name]
         if kres:
             f32 = kres[(op, "f32", C, b)]
             bf16 = dict(kres[(op, "bf16", C, b)])
@@ -2287,15 +2469,17 @@ def main(argv=None) -> int:
             entry["dtype"] = "float32"
             entry["bf16"] = bf16
         lines.append(entry)
+    log(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": lines}))
     if sres:
-        print(json.dumps({"serving": {k: v["stats"] for k, v in sres.items()},
+        print(json.dumps({"serving": {k: v["stats"] for k, v in sres.items() if "stats" in v},
                           "card": smi}))
     if tres:
         summary = {dt: {v: {k: tres[dt][v][k] for k in ("step_ms", "frames_per_s")}
                         for v in ("in_loop", "cached")} for dt in ("f32", "bf16")}
         for dt in ("f32", "bf16"):
-            for run, key in (("fused", "fused_train"), ("pallas", "pallas_scatter")):
+            for run, key in (("fused", "fused_train"), ("pallas", "pallas_scatter"),
+                             ("concat", "concat256"), ("minimal", "minimal128")):
                 summary[f"{key}_{dt}"] = {"in_loop": {
                     k: tres[f"{run}_{dt}"]["in_loop"][k] for k in ("step_ms", "frames_per_s")}}
         print(json.dumps({"train": summary, "batch": TRAIN_B, "card": smi}))

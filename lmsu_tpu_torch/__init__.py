@@ -7,10 +7,11 @@ kernel under `csrc/`, built with nvcc at first use (ops/_cuda.py), with a
 plain PyTorch version beside it that CPU tensors take.
 
 The package imports neither jax nor anything of `lmsu_tpu`. Entry points
-(`inference.Predictor`, `serving.ServingEngine.from_predictor`,
-`python -m lmsu_tpu_torch.serve`) run on CUDA unless asked for the CPU.
+(`inference.Predictor`, `serving.ServingEngine.from_predictor`, the
+trainers, `python -m lmsu_tpu_torch.{serve, train_distill, train_synthetic,
+train_fusion_ablation, evaluate}`) run on CUDA unless asked for the CPU.
 
-Ported so far: the serving path (Predictor -> ServingEngine -> HTTP) of the
-weighted-fusion model, with the sorted-scatter, fusion-gate and fused
-InvertedResidual kernels.
+Ported so far: the model with its four fusions and both heads, serving
+(Predictor -> ServingEngine -> HTTP), CE and KD training, and every kernel
+of the JAX package (ROADMAP.md lists what is still to port).
 """

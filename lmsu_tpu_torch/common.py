@@ -1,0 +1,118 @@
+"""Shared CLI plumbing of the port's entry points (the JAX package's
+scripts/common.py): the common flags, their overrides of a preset
+ExperimentConfig, the loaders and resuming.
+
+Only flags whose options the port has are here. Those of refused options
+(PandaSet and packed data, the pillar encoder, scan steps and on-device
+epochs, augmentation, model parallelism, snapshot and async checkpoints,
+SIGTERM handling, progress bars) are absent, so argparse rejects them
+rather than dropping them. The port adds --device (CUDA unless 'cpu' is
+asked for) and --bf16. The data is the synthetic dataset: --dataset sets
+DataConfig.dataset whatever the preset says.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+import torch
+
+from lmsu_tpu_torch.config import ExperimentConfig
+
+FUSION_TYPES = ("concat", "minimal", "weighted", "gated_sum")
+SCATTER_IMPLS = ("xla", "xla_fastbwd", "sorted", "pallas", "sorted_pallas")
+
+
+def add_common_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain versions")
+    p.add_argument("--dataset", default="synthetic", choices=["synthetic"])
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--save-dir", default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--num-train", type=int, default=None, help="synthetic: #train samples")
+    p.add_argument("--num-val", type=int, default=None)
+    p.add_argument("--difficulty", default=None, choices=["easy", "hard"],
+                   help="synthetic dataset difficulty: 'easy' saturates (plumbing "
+                   "checks); 'hard' is the discriminative benchmark")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from <save-dir>/latest.pth if present")
+    p.add_argument("--num-workers", type=int, default=None,
+                   help="per-sample decode threads in the input pipeline")
+    p.add_argument("--fusion-type", default=None, choices=FUSION_TYPES,
+                   help="override the script's fusion variant (single-run scripts; "
+                   "the ablation sweep sets its own)")
+    p.add_argument("--fusion-channels", type=int, default=None,
+                   help="override ModelConfig.fusion_out_channels")
+    p.add_argument("--scatter-impl", default=None, choices=SCATTER_IMPLS,
+                   help="BEV scatter-max (LidarEncoderConfig.scatter_impl): 'xla' "
+                   "scatter_reduce with autograd's backward; 'xla_fastbwd' the same "
+                   "forward with the dense tie-splitting backward; 'sorted' sort + "
+                   "segmented prefix max, dense backward; 'pallas' the unsorted "
+                   "scatter-max kernel, dense backward; 'sorted_pallas' the "
+                   "sorted-scatter kernels, and it also turns on the loaders' "
+                   "by-cell point sort")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute, f32 parameters")
+    p.add_argument("--grad-clip-norm", type=float, default=None,
+                   help="clip gradients to this global L2 norm")
+    p.add_argument("--ema-decay", type=float, default=None,
+                   help="keep an EMA of the parameters; validation, the best "
+                   "checkpoint and evaluation use it")
+
+
+def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
+    """`cfg` with every common flag that was given written into it."""
+    def given(pairs):
+        return {field: getattr(args, flag) for flag, field in pairs
+                if getattr(args, flag) is not None}
+
+    data_kw = given((("dataset", "dataset"), ("batch_size", "batch_size"),
+                     ("num_train", "synthetic_num_train"), ("num_val", "synthetic_num_val"),
+                     ("difficulty", "synthetic_difficulty"), ("num_workers", "num_workers")))
+    train_kw = given((("epochs", "num_epochs"), ("lr", "lr"), ("save_dir", "save_dir"),
+                      ("seed", "seed"), ("grad_clip_norm", "grad_clip_norm"),
+                      ("ema_decay", "ema_decay")))
+    model = cfg.model.replace(**given((("fusion_type", "fusion_type"),
+                                       ("fusion_channels", "fusion_out_channels"))))
+    if args.scatter_impl is not None:
+        model = model.replace(lidar=dataclasses.replace(model.lidar,
+                                                        scatter_impl=args.scatter_impl))
+    if args.bf16:
+        model = model.replace(compute_dtype=torch.bfloat16)
+    return cfg.replace(model=model, data=dataclasses.replace(cfg.data, **data_kw),
+                       train=dataclasses.replace(cfg.train, **train_kw))
+
+
+def build_loaders(cfg: ExperimentConfig, verbose: bool = True):
+    """Train/val loaders; the cell sort rides the decode workers when the
+    sorted scatter is on (scripts/common.py::build_loaders)."""
+    from lmsu_tpu_torch.data import create_datasets, make_loader
+    from lmsu_tpu_torch.data.rasterize import make_point_sorter
+    train_ds, val_ds = create_datasets(cfg.data, verbose=verbose)
+    transform = None
+    if cfg.model.lidar.scatter_impl == "sorted_pallas":
+        transform = make_point_sorter(cfg.model.lidar.grid_size,
+                                      cfg.model.lidar.point_cloud_range)
+    train_loader = make_loader(train_ds, cfg.data.batch_size, shuffle=cfg.data.shuffle_train,
+                               seed=cfg.train.seed, decode_workers=cfg.data.num_workers,
+                               sample_transform=transform)
+    val_loader = make_loader(val_ds, cfg.data.batch_size, shuffle=False,
+                             decode_workers=cfg.data.num_workers, sample_transform=transform)
+    if verbose:
+        print(f"Dataset: {cfg.data.dataset} — {len(train_ds)} train / "
+              f"{len(val_ds)} val samples")
+    return train_loader, val_loader
+
+
+def maybe_resume(trainer, cfg: ExperimentConfig, resume: bool) -> int:
+    """The epoch to start from: after <save_dir>/latest.pth's when `resume`
+    and the file exists, else 0."""
+    from lmsu_tpu_torch.training.checkpoint import LATEST
+    latest = os.path.join(cfg.train.save_dir, LATEST)
+    if resume and os.path.exists(latest):
+        return trainer.load_checkpoint(latest)
+    return 0

@@ -7,11 +7,10 @@ Defaults of record (reference file:line):
   max_points 5000                       pandaset_dataset.py:58
   lidar pc range [-50,-50,-5,50,50,3]   lidar_encoder.py:12
 
-The port serves and trains (KD) the weighted-fusion model with the
-same-resolution head. Fields that select paths the port does not have yet
-(other fusions, the x4 head, the pillar encoder, the fused training
-blocks, augmentation, the teacher cache, parallelism, on-device epochs)
-are kept so configurations stay interchangeable; `models.factory` and the
+The port serves and trains (CE and KD) the four fusions with either head.
+Fields that select paths the port does not have yet (the pillar encoder,
+remat, augmentation, the teacher cache, parallelism, on-device epochs) are
+kept so configurations stay interchangeable; `models.factory` and the
 trainers reject them by name.
 
 Training defaults of record (reference file:line):
@@ -227,3 +226,21 @@ class ExperimentConfig:
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
+
+
+# Reference experiment presets -------------------------------------------------
+
+def preset_fusion_ablation(fusion_type: str) -> ExperimentConfig:
+    """train_with_fusion_ablation.py:10-66: 2-class, 20 epochs per variant
+    (the JAX package's config.py::preset_fusion_ablation). Its dataset is
+    PandaSet, which the port does not read yet: the port's entry points set
+    DataConfig.dataset to "synthetic"."""
+    out_ch = {"concat": 256, "minimal": 128, "weighted": 128,
+              "gated_sum": 128}[fusion_type]
+    return ExperimentConfig(
+        model=ModelConfig(num_classes=2, fusion_type=fusion_type,
+                          fusion_out_channels=out_ch),
+        data=DataConfig(dataset="pandaset"),
+        train=TrainConfig(num_epochs=20, class_weights=(0.4, 3.5),
+                          save_dir=f"checkpoints/fusion_ablation_{fusion_type}"),
+    )

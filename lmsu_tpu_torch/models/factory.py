@@ -9,7 +9,7 @@ share weights through utils/weights.py instead.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -19,16 +19,8 @@ from lmsu_tpu_torch.models.fusion import CompleteSegmentationModel
 from lmsu_tpu_torch.models.layers import InvertedResidual
 from lmsu_tpu_torch.ops.ir_fused import check_fused_infer, check_fused_train
 
-# What this slice of the port runs; other values are not ported yet.
-_SUPPORTED = {"fusion_type": ("weighted",), "output_mode": ("same",)}
-
 
 def _check_supported(config: ModelConfig) -> None:
-    for field, allowed in _SUPPORTED.items():
-        if getattr(config, field) not in allowed:
-            raise NotImplementedError(
-                f"{field}={getattr(config, field)!r} is not ported yet "
-                f"(supported: {allowed})")
     if config.camera.remat:
         raise NotImplementedError("remat is a training option that is not ported yet")
     if config.compute_dtype not in (torch.float32, torch.bfloat16):
@@ -74,3 +66,24 @@ def check_kernel_shapes(model: nn.Module, device: torch.device, train: bool = Tr
 def count_parameters(model: nn.Module) -> int:
     """Trainable parameter count (BatchNorm running stats are buffers)."""
     return sum(p.numel() for p in model.parameters())
+
+
+def get_architecture_summary(model: CompleteSegmentationModel) -> Dict[str, str]:
+    """Per-subsystem parameter split (reference: fusion_module.py:265-286),
+    with the JAX package's keys and formatting: the fusion's count includes
+    the camera FPN."""
+    counts: Dict[str, int] = {}
+    for name, p in model.named_parameters():
+        top = name.split(".")[0]
+        counts[top] = counts.get(top, 0) + p.numel()
+    cfg = model.config
+    return {
+        "camera_params": f"{counts.get('camera_encoder', 0):,}",
+        "lidar_params": f"{counts.get('lidar_encoder', 0):,}",
+        "fusion_params": f"{counts.get('fusion', 0) + counts.get('camera_fpn', 0):,}",
+        "head_params": f"{counts.get('head', 0):,}",
+        "total_params": f"{count_parameters(model):,}",
+        "fusion_type": cfg.fusion_type,
+        "output_mode": cfg.output_mode,
+        "use_multiscale": cfg.camera.return_multiscale,
+    }

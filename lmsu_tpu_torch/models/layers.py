@@ -120,6 +120,10 @@ def apply_seq(seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
             bias = None if m.bias is None else m.bias.to(x.dtype)
             x = conv(x, m.weight.to(x.dtype), bias, m.stride, m.padding, m.dilation,
                      m.groups)
+        elif isinstance(m, nn.ConvTranspose2d):
+            bias = None if m.bias is None else m.bias.to(x.dtype)
+            x = F.conv_transpose2d(x, m.weight.to(x.dtype), bias, m.stride, m.padding,
+                                   m.output_padding, m.groups, m.dilation)
         else:
             x = m(x)
     return x

@@ -1,13 +1,15 @@
 """Serve the model over HTTP with dynamic batching, on a CUDA card.
 
 Counterpart of scripts/serve.py for the PyTorch port. The model is the
-weighted-fusion student with the port's three kernels on its path: the
-sorted-input BEV scatter (points are cell-sorted on the request threads),
-the fused fusion gate and the fused InvertedResidual blocks.
+weighted/128 student unless --fusion-type and --fusion-channels say
+otherwise, with the port's kernels on its path: the sorted-input BEV
+scatter (points are cell-sorted on the request threads), the fused
+InvertedResidual blocks and, for the weighted fusion, the fused gate.
 
 Usage:
   python -m lmsu_tpu_torch.serve [--checkpoint model.pth | --seed 0] \\
-      [--device cuda] [--bf16] [--batch-size 8] [--max-delay-ms 2] [--port 8765]
+      [--device cuda] [--fusion-type {concat,minimal,weighted,gated_sum}] \\
+      [--fusion-channels 128] [--bf16] [--batch-size 8] [--max-delay-ms 2] [--port 8765]
 
 --checkpoint takes a reference .pth (trainer checkpoint with 'model_state'
 or a bare state dict) or a saved state dict of the port's model; without it
@@ -68,7 +70,8 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     p.add_argument("--num-classes", type=int, default=2)
-    p.add_argument("--fusion-type", default="weighted", choices=["weighted"])
+    p.add_argument("--fusion-type", default="weighted",
+                   choices=["concat", "minimal", "weighted", "gated_sum"])
     p.add_argument("--fusion-channels", type=int, default=128)
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--batch-size", type=int, default=8,

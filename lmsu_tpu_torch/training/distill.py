@@ -44,11 +44,19 @@ from lmsu_tpu_torch.training.trainer import Trainer
 
 
 def tap_channels(config: ModelConfig) -> Dict[str, int]:
-    """Channel widths of each KD tap for a model config (weighted fusion)."""
+    """Channel widths of each KD tap for a model config (the JAX package's
+    distill.py::_tap_channels): concat's pre_fusion is the camera and LiDAR
+    widths side by side and its post_fusion fusion_out_channels; the other
+    fusions keep the camera width for both."""
     cam = config.camera_fpn_channels if config.camera.return_multiscale \
         else config.camera.channels[2]
-    return {"camera_feat": cam, "lidar_feat": config.lidar.feature_dim,
-            "pre_fusion": cam, "post_fusion": cam, "logits": config.num_classes}
+    lidar = config.lidar.feature_dim
+    if config.fusion_type == "concat":
+        pre, post = cam + lidar, config.fusion_out_channels
+    else:
+        pre = post = cam
+    return {"camera_feat": cam, "lidar_feat": lidar, "pre_fusion": pre,
+            "post_fusion": post, "logits": config.num_classes}
 
 
 def channels_last(taps: Mapping[str, torch.Tensor], names) -> Dict[str, torch.Tensor]:

@@ -14,6 +14,8 @@ Layouts (flax -> torch):
   Depthwise [k, k, 1, C]        -> [C, 1, k, k]
   Dense [I, O]                  -> Conv1d [O, I, 1]
   attn1_kernel [1, 1, 2C, C]    -> attention.0.weight [C, 2C, 1, 1]
+  ConvTranspose2dTorch [kh, kw, O, I] -> ConvTranspose2d [I, O, kh, kw]
+                                   (a transpose only: no spatial flip)
   BN scale/bias/mean/var        -> weight/bias/running_mean/running_var
 """
 
@@ -46,6 +48,8 @@ class _Converter:
         self.sd[key] = torch.from_numpy(np.array(a, order="C"))  # a writable copy
 
     def conv(self, tkey: str, path: Tuple[str, ...], bias: bool = False) -> None:
+        # [kh, kw, I, O] -> [O, I, kh, kw]; for a transposed conv the same
+        # transpose takes [kh, kw, O, I] to torch's [I, O, kh, kw].
         self._put(f"{tkey}.weight", self._get(self.params, path + ("kernel",))
                   .transpose(3, 2, 0, 1))
         if bias:
@@ -90,21 +94,33 @@ def from_jax_variables(variables: Mapping[str, Any], config: ModelConfig
         b.dense(f"lidar_encoder.encoder.point_mlp.{idx}", ("lidar_encoder", "encoder", f"mlp{i}"))
         b.bn(f"lidar_encoder.encoder.point_mlp.{idx + 1}", ("lidar_encoder", "encoder", f"bn{i}"))
 
-    if config.fusion_type != "weighted":
-        raise NotImplementedError(f"fusion_type {config.fusion_type!r} is not ported yet")
-    for name in ("cam_proj", "lidar_proj"):
-        b.conv_bn(f"fusion.{name}.conv.0", f"fusion.{name}.conv.1", ("fusion", name, "block"))
-    for i, n in ((0, 1), (2, 2)):
-        b._put(f"fusion.attention.{i}.weight",
-               b._get(b.params, ("fusion", f"attn{n}_kernel")).transpose(3, 2, 0, 1))
-        b._put(f"fusion.attention.{i}.bias", b._get(b.params, ("fusion", f"attn{n}_bias")))
+    if config.fusion_type == "concat":
+        for name in ("camera_proj", "lidar_proj"):
+            b.conv_bn(f"fusion.{name}.conv.0", f"fusion.{name}.conv.1", ("fusion", name, "block"))
+        b.conv_bn("fusion.fuse.0", "fusion.fuse.1", ("fusion", "fuse_dw"))
+        b.conv_bn("fusion.fuse.3", "fusion.fuse.4", ("fusion", "fuse_pw"))
+    elif config.fusion_type in ("minimal", "weighted", "gated_sum"):
+        for name in ("cam_proj", "lidar_proj"):
+            b.conv_bn(f"fusion.{name}.conv.0", f"fusion.{name}.conv.1", ("fusion", name, "block"))
+        if config.fusion_type != "minimal":  # the gate net, weighted's names for both
+            for i, n in ((0, 1), (2, 2)):
+                b._put(f"fusion.attention.{i}.weight",
+                       b._get(b.params, ("fusion", f"attn{n}_kernel")).transpose(3, 2, 0, 1))
+                b._put(f"fusion.attention.{i}.bias", b._get(b.params, ("fusion", f"attn{n}_bias")))
+    else:
+        raise ValueError(f"Unknown fusion_type: {config.fusion_type}")
 
-    if config.output_mode != "same":
-        raise NotImplementedError(f"output_mode {config.output_mode!r} is not ported yet")
-    for i in (0, 1):
-        for j, sub in ((0, "dw"), (3, "pw")):
-            b.conv_bn(f"head.block.{i}.net.{j}", f"head.block.{i}.net.{j + 1}",
-                      ("head", f"block{i + 1}", sub))
+    if config.output_mode == "same":
+        for i in (0, 1):
+            for j, sub in ((0, "dw"), (3, "pw")):
+                b.conv_bn(f"head.block.{i}.net.{j}", f"head.block.{i}.net.{j + 1}",
+                          ("head", f"block{i + 1}", sub))
+    elif config.output_mode == "x4":
+        for i in (1, 2):
+            b.conv(f"head.up{i}.0", ("head", f"up{i}_deconv"))
+            b.bn(f"head.up{i}.1", ("head", f"up{i}_bn"))
+    else:
+        raise ValueError(f"Unknown output_mode: {config.output_mode}")
     b.conv("head.cls", ("head", "cls"), bias=True)
     return b.sd
 

@@ -14,12 +14,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_model import jax_init_model
 
 from lmsu_tpu.config import CameraEncoderConfig as JCam
 from lmsu_tpu.config import LidarEncoderConfig as JLidar
 from lmsu_tpu.config import ModelConfig as JModel
 from lmsu_tpu.models import create_model as jax_create_model
-from lmsu_tpu.models import init_model
 from lmsu_tpu_torch.config import CameraEncoderConfig, LidarEncoderConfig, ModelConfig
 from lmsu_tpu_torch.models import create_model
 from lmsu_tpu_torch.models.layers import BatchNorm1d, BatchNorm2d
@@ -47,17 +47,16 @@ def _configs():
 def test_train_forward_updates_running_stats_like_flax(rng):
     jcfg, pcfg = _configs()
     jm = jax_create_model(jcfg)
-    v = jax.device_get(init_model(jm, jax.random.PRNGKey(0), image_size=(IMG, IMG),
-                                  num_points=NPTS))
-    v = jax.tree_util.tree_map(np.asarray, v)
+    v = jax_init_model(jm, 0)
     # Running statistics away from their init, so the momentum term shows.
     v["batch_stats"] = jax.tree_util.tree_map(
         lambda a: rng.uniform(0.5, 1.5, a.shape).astype(np.float32), v["batch_stats"])
     images = rng.uniform(0, 1, (2, IMG, IMG, 3)).astype(np.float32)
     pts = rng.normal(0, 30, (2, NPTS, 4)).astype(np.float32)
     with jax.default_matmul_precision("highest"):
-        j_logits, mut = jm.apply(v, jnp.asarray(images), jnp.asarray(pts), train=True,
-                                 mutable=["batch_stats"])
+        j_logits, mut = jax.jit(lambda v, i, p: jm.apply(v, i, p, train=True,
+                                                         mutable=["batch_stats"]))(
+            v, jnp.asarray(images), jnp.asarray(pts))
     want = from_jax_variables({"params": v["params"],
                                "batch_stats": jax.device_get(mut["batch_stats"])}, pcfg)
 

@@ -1,0 +1,167 @@
+"""The port's fusion-ablation, quickstart and evaluation entry points
+(`python -m lmsu_tpu_torch.train_fusion_ablation`, `.train_synthetic`,
+`.evaluate`) on the CPU, against the JAX package's scripts of the same
+names: their configurations, the ablation's results file in the JAX schema
+with the JAX package's parameter counts, one epoch each at a small size
+(narrow encoders and 64^2 images; the fusion, its channels and the head as
+the entry point sets them), and the evaluation reading back what the
+trainer recorded. Each raises without a GPU unless given --device cpu."""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lmsu_tpu.config import CameraEncoderConfig as JCam
+from lmsu_tpu.config import LidarEncoderConfig as JLidar
+from lmsu_tpu.config import preset_fusion_ablation as jax_preset
+from lmsu_tpu.models import create_model as jax_create_model
+from lmsu_tpu.models import get_architecture_summary as jax_summary
+from lmsu_tpu_torch import evaluate, train_fusion_ablation, train_synthetic
+from lmsu_tpu_torch.config import CameraEncoderConfig, preset_fusion_ablation
+
+torch.set_num_threads(2)
+
+IMG, GRID, NPTS = 64, (16, 16), 256
+NARROW = dict(camera_fpn_channels=16)
+NARROW_LIDAR = dict(feature_dim=16, mlp_dims=(8, 16), grid_size=GRID)
+DATA = ["--num-train", "4", "--num-val", "4", "--batch-size", "2", "--num-workers", "0"]
+
+
+def small(cfg):
+    """`cfg` with narrow encoders, 64^2 images, a 16^2 grid and 256 points;
+    the fusion, its channels and the head as given."""
+    model = cfg.model.replace(camera=CameraEncoderConfig(base_channels=8),
+                              lidar=dataclasses.replace(cfg.model.lidar, **NARROW_LIDAR),
+                              **NARROW)
+    data = dataclasses.replace(cfg.data, image_size=(IMG, IMG), grid_size=GRID,
+                               max_points=NPTS)
+    return cfg.replace(model=model, data=data)
+
+
+def test_fusion_ablation_configs_match_jax():
+    """The preset is the JAX package's (models, class weights, epochs, run
+    dirs); the entry point sets the synthetic dataset and <prefix>_<type>."""
+    for fusion in ("concat", "minimal", "weighted", "gated_sum"):
+        j, p = jax_preset(fusion), preset_fusion_ablation(fusion)
+        for a, b in ((j.model, p.model), (j.train, p.train)):
+            for f in ("fusion_type", "fusion_out_channels", "num_classes", "output_mode",
+                      "num_epochs", "class_weights", "save_dir"):
+                assert getattr(a, f, None) == getattr(b, f, None), f
+        args = train_fusion_ablation.make_parser().parse_args(["--run-prefix", "runs/ab"])
+        cfg = train_fusion_ablation.variant_config(fusion, args)
+        assert (cfg.data.dataset, cfg.train.save_dir) == ("synthetic", f"runs/ab_{fusion}")
+        assert not cfg.train.kd.enabled
+    args = train_fusion_ablation.make_parser().parse_args(["--kd"])
+    assert train_fusion_ablation.variant_config("concat", args).train.kd.enabled
+    assert train_fusion_ablation.VARIANTS == ("concat", "minimal", "weighted")
+
+
+def test_fusion_ablation_cli_writes_the_jax_schema(tmp_path, monkeypatch):
+    """One epoch of each variant, sorted scatter: the results file has the
+    JAX script's schema, and its count strings are the JAX package's
+    get_architecture_summary for the same configurations."""
+    monkeypatch.setattr(train_fusion_ablation, "preset_fusion_ablation",
+                        lambda fusion: small(preset_fusion_ablation(fusion)))
+    out = tmp_path / "fusion_ablation_results.json"
+    res = train_fusion_ablation.main(
+        ["--device", "cpu", "--epochs", "1", "--scatter-impl", "sorted_pallas",
+         "--run-prefix", str(tmp_path / "ab"), "--output", str(out)] + DATA)
+    assert json.loads(out.read_text()) == res
+    assert list(res) == ["concat", "minimal", "weighted"]
+    for fusion, r in res.items():
+        assert set(r) == {"miou", "total_params", "fusion_params"}
+        assert 0.0 <= r["miou"] <= 1.0
+        j = jax_preset(fusion)
+        jcfg = j.model.replace(camera=JCam(base_channels=8),
+                               lidar=JLidar(**NARROW_LIDAR), **NARROW)
+        jm = jax_create_model(jcfg)
+        shapes = jax.eval_shape(lambda k: jm.init(  # noqa: B023
+            k, jnp.zeros((1, IMG, IMG, 3)), jnp.zeros((1, NPTS, 4)), train=False),
+            jax.random.PRNGKey(0))
+        want = jax_summary(jm, shapes)
+        assert (r["total_params"], r["fusion_params"]) == \
+            (want["total_params"], want["fusion_params"]), fusion
+        hist = json.loads((tmp_path / f"ab_{fusion}" / "training_history.json").read_text())
+        assert hist["val_miou"] == [r["miou"]]
+
+
+def test_fusion_ablation_cli_distils_with_kd(tmp_path, monkeypatch):
+    """--kd trains each chosen variant with DistillationTrainer from its 2x
+    teacher (random here, as without --teacher-checkpoint in the JAX
+    script); the results file holds the chosen variants only."""
+    monkeypatch.setattr(train_fusion_ablation, "preset_fusion_ablation",
+                        lambda fusion: small(preset_fusion_ablation(fusion)))
+    out = tmp_path / "kd.json"
+    res = train_fusion_ablation.main(
+        ["--device", "cpu", "--epochs", "1", "--variants", "concat", "--kd",
+         "--run-prefix", str(tmp_path / "kd"), "--output", str(out)] + DATA)
+    assert list(res) == ["concat"] and json.loads(out.read_text()) == res
+    assert set(torch.load(tmp_path / "kd_concat" / "latest.pth", weights_only=False)["proj"]) \
+        == {"camera_feat", "lidar_feat", "post_fusion"}
+
+
+@pytest.mark.parametrize("ema", [False, True], ids=["plain", "ema"])
+def test_train_synthetic_then_evaluate_reads_back_its_val_miou(tmp_path, monkeypatch, ema):
+    """train_synthetic builds concat/256 (5 epochs, class weights 0.4 / 3.5,
+    as scripts/train_synthetic.py); one epoch of it, then evaluate on its
+    latest.pth gives the val loss and mIoU the trainer recorded (the same
+    weights, split and eval epoch; with --ema-decay, the EMA's weights, as
+    the trainer validated with them)."""
+    args = train_synthetic.make_parser().parse_args([])
+    cfg = train_synthetic.build_config(args)
+    assert (cfg.model.fusion_type, cfg.model.fusion_out_channels, cfg.train.num_epochs,
+            cfg.train.class_weights) == ("concat", 256, 5, (0.4, 3.5))
+    for module in (train_synthetic, evaluate):
+        real = module.build_config
+        monkeypatch.setattr(module, "build_config", lambda a, real=real: small(real(a)))
+    run = tmp_path / "run"
+    flags = ["--device", "cpu", "--scatter-impl", "sorted_pallas"] + DATA
+    extra = ["--ema-decay", "0.5"] if ema else []
+    best = train_synthetic.main(flags + extra + ["--epochs", "1", "--save-dir", str(run)])
+    hist = json.loads((run / "training_history.json").read_text())
+    assert hist["val_miou"] == [best] or best == 0.0
+    payload = torch.load(run / "latest.pth", weights_only=False)
+    assert ("ema" in payload) == ema
+    res = evaluate.main(flags + ["--checkpoint", str(run / "latest.pth"),
+                                 "--save-dir", str(tmp_path / "eval"),
+                                 "--output-json", str(tmp_path / "m.json")])
+    assert json.loads((tmp_path / "m.json").read_text()) == res
+    assert set(res) == {"checkpoint", "split", "loss", "miou", "class_iou"}
+    assert res["split"] == "val" and len(res["class_iou"]) == 2
+    assert (res["loss"], res["miou"]) == (pytest.approx(hist["val_loss"][0], rel=1e-6),
+                                          hist["val_miou"][0])
+
+
+@pytest.mark.parametrize("cli, argv", [
+    (train_synthetic, []), (train_fusion_ablation, []),
+    (evaluate, ["--checkpoint", "latest.pth"])],
+    ids=["train_synthetic", "train_fusion_ablation", "evaluate"])
+def test_entry_point_raises_without_cuda(monkeypatch, cli, argv):
+    """CUDA is the default device; without a GPU the entry point raises
+    before it builds anything, unless given --device cpu."""
+    assert cli.make_parser().parse_args(argv).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(argv)
+
+
+def test_common_flags_are_the_ported_options_only():
+    """Flags of options the port refuses are absent (argparse rejects them);
+    --fusion-type takes the four fusions."""
+    p = train_synthetic.make_parser()
+    for flag in ("--onchip-epoch", "--augment", "--model-parallel", "--data-root",
+                 "--scan-steps", "--lidar-encoder", "--async-checkpoint"):
+        with pytest.raises(SystemExit):
+            p.parse_args([flag])
+    for fusion in ("concat", "minimal", "weighted", "gated_sum"):
+        cfg = train_synthetic.build_config(p.parse_args(["--fusion-type", fusion,
+                                                         "--fusion-channels", "64"]))
+        assert (cfg.model.fusion_type, cfg.model.fusion_out_channels) == (fusion, 64)
+    cfg = train_synthetic.build_config(p.parse_args(["--bf16", "--epochs", "2"]))
+    assert cfg.model.compute_dtype == torch.bfloat16 and cfg.train.num_epochs == 2
+    assert np.isclose(cfg.train.lr, 1e-3)

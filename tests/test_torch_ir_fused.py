@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_model import jax_init
 
 from lmsu_tpu.config import CameraEncoderConfig as JaxCameraConfig
 from lmsu_tpu.models.camera_encoder import TwinLiteEncoder as JaxTwinLite
@@ -75,7 +76,8 @@ def _to_torch_params(p):
 def test_plain_kernel_matches_jax_fused(rng, variant):
     x, _, v = _jax_block(rng, *variant)
     jp = params_from_variables(v)
-    want = np.asarray(jax_fused_ir_infer(jnp.asarray(x), jp, stride=variant[2]))
+    want = np.asarray(jax.jit(lambda x, p: jax_fused_ir_infer(x, p, stride=variant[2]))(
+        jnp.asarray(x), jp))
     got = fused_ir_infer(torch.from_numpy(x), _to_torch_params(jp), stride=variant[2])
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
@@ -134,7 +136,7 @@ def test_whole_encoder_fused_and_unfused_match_jax(rng):
     leave every stage spatially constant)."""
     x = rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)
     enc = JaxTwinLite(JaxCameraConfig())
-    v = enc.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)
+    v = jax_init(enc, jax.random.PRNGKey(0), jnp.asarray(x), train=False)
 
     def stat(path, a):
         if path[-1].key == "mean":
@@ -144,7 +146,7 @@ def test_whole_encoder_fused_and_unfused_match_jax(rng):
     v = {"params": jax.tree_util.tree_map(np.asarray, v["params"]),
          "batch_stats": jax.tree_util.tree_map_with_path(stat, v["batch_stats"])}
     with jax.default_matmul_precision("highest"):
-        want = enc.apply(v, jnp.asarray(x), train=False)
+        want = jax.jit(lambda v, x: enc.apply(v, x, train=False))(v, jnp.asarray(x))
     for k in want:
         w = np.asarray(want[k], np.float64)
         assert w.std(axis=(1, 2)).max() > 1e-2 * max(1.0, np.abs(w).max()), k

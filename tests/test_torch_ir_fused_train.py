@@ -299,7 +299,7 @@ def test_module_train_step_matches_jax(rng, variant):
                            jnp.asarray(x), train=True, mutable=["batch_stats"])
         return jnp.sum(jnp.sin(o)), (o, mut["batch_stats"])
 
-    (_, (want, new_stats)), g = jax.value_and_grad(loss, has_aux=True)(v["params"])
+    (_, (want, new_stats)), g = jax.jit(jax.value_and_grad(loss, has_aux=True))(v["params"])
     block = InvertedResidual(Cin, Cout, stride, exp, fused_train=True).train()
     block.load_state_dict(_ir_state_dict(v["params"], v["batch_stats"]), strict=True)
     out = block(torch.from_numpy(x).permute(0, 3, 1, 2))
@@ -403,71 +403,7 @@ def jax_kd_run():
     with CameraEncoderConfig(fused_train=True): STEPS steps from the initial
     weights, and the same from weights moved by 1e-6 of themselves (the
     reference's own spread)."""
-    import optax
-
-    from lmsu_tpu.config import KDConfig as JKD
-    from lmsu_tpu.config import LidarEncoderConfig as JLidar
-    from lmsu_tpu.config import ModelConfig as JModel
-    from lmsu_tpu.config import teacher_config as jax_teacher_config
-    from lmsu_tpu.models import create_model as jax_create_model
-    from lmsu_tpu.models import init_model
-    from lmsu_tpu.ops.kd_loss_pallas import kd_total_loss_fused
-    from lmsu_tpu.training.distill import _tap_channels
-    scfg = JModel(camera=JaxCameraConfig(base_channels=8, fused_train=True),
-                  lidar=JLidar(**kd._lidar_kw()), **kd._student_kw())
-    tcfg = jax_teacher_config(scfg, 2.0)
-    student, teacher = jax_create_model(scfg), jax_create_model(tcfg)
-    s_vars = init_model(student, jax.random.PRNGKey(0), image_size=(kd.IMG, kd.IMG),
-                        num_points=kd.NPTS)
-    t_vars = init_model(teacher, jax.random.PRNGKey(1), image_size=(kd.IMG, kd.IMG),
-                        num_points=kd.NPTS)
-    kdc = JKD(enabled=True, use_pallas=True)
-    s_ch, t_ch = _tap_channels(student, scfg), _tap_channels(teacher, tcfg)
-    keys = jax.random.split(jax.random.PRNGKey(2), len(kdc.feature_taps))
-    projs = {tap: jax.random.normal(k, (t_ch[tap], s_ch[tap])) / np.sqrt(t_ch[tap])
-             for tap, k in zip(kdc.feature_taps, keys)}
-    tx = optax.adamw(kd.LR, weight_decay=1e-3)
-    cw = jnp.asarray([0.4, 3.5], jnp.float32)
-    images, pts, labels = (jnp.asarray(a) for a in kd._batch())
-
-    def loss_fn(params, stats):
-        t_logits, t_feats = jax.lax.stop_gradient(teacher.apply(
-            t_vars, images, pts, train=False, return_intermediates=True))
-        (s_logits, s_feats), mut = student.apply(
-            {"params": params["model"], "batch_stats": stats}, images, pts, train=True,
-            return_intermediates=True, mutable=["batch_stats"])
-        loss, _ = kd_total_loss_fused(
-            s_logits, t_logits, s_feats, t_feats, labels, class_weights=cw, ignore_index=-1,
-            temperature=kdc.temperature, alpha_kl=kdc.alpha_kl, beta_feature=kdc.beta_feature,
-            feature_taps=kdc.feature_taps, projections=params["proj"])
-        return loss, mut["batch_stats"]
-
-    @jax.jit
-    def step(params, stats, opt_state):
-        (loss, stats), grads = jax.value_and_grad(loss_fn, has_aux=True)(params, stats)
-        updates, opt_state = tx.update(grads, opt_state, params)
-        return optax.apply_updates(params, updates), stats, opt_state, loss, grads
-
-    get = lambda t: jax.tree_util.tree_map(np.asarray, jax.device_get(t))  # noqa: E731
-
-    def trajectory(params):
-        stats, opt_state = s_vars["batch_stats"], tx.init(params)
-        losses, grads0 = [], None
-        with jax.default_matmul_precision("highest"):
-            for i in range(kd.STEPS):
-                params, stats, opt_state, loss, grads = step(params, stats, opt_state)
-                losses.append(float(loss))
-                grads0 = grads if i == 0 else grads0
-        return {"losses": np.asarray(losses), "grads0": get(grads0), "final": get(params),
-                "stats": get(stats)}
-
-    params = {"model": s_vars["params"], "proj": projs}
-    out = trajectory(params)
-    noise = np.random.default_rng(3)
-    out["perturbed"] = trajectory(jax.tree_util.tree_map(
-        lambda a: a * (1 + 1e-6 * noise.standard_normal(a.shape).astype(np.float32)), params))
-    out.update({"s_vars": get(s_vars), "t_vars": get(t_vars), "proj": get(projs)})
-    return out
+    return kd._jax_trajectory("sorted_pallas", fused_train=True)
 
 
 def test_kd_steps_with_fused_train_match_jax(jax_kd_run, tmp_path):
@@ -477,95 +413,5 @@ def test_kd_steps_with_fused_train_match_jax(jax_kd_run, tmp_path):
     a fixed margin plus min(10 N, cap), N the reference's spread under a
     1e-6 weight perturbation; per kind, the port needs the noise term no
     more often than the reference's spread exceeds the fixed margin."""
-    from lmsu_tpu_torch.config import (DataConfig, ExperimentConfig, KDConfig,
-                                       LidarEncoderConfig, ModelConfig, TrainConfig)
-    from lmsu_tpu_torch.training import DistillationTrainer
-    from lmsu_tpu_torch.utils.weights import from_jax_projections, from_jax_variables
-    model = ModelConfig(camera=CameraEncoderConfig(base_channels=8, fused_train=True),
-                        lidar=LidarEncoderConfig(**kd._lidar_kw()), **kd._student_kw())
-    train = TrainConfig(lr=kd.LR, eta_min=kd.LR, weight_decay=1e-3, class_weights=(0.4, 3.5),
-                        kd=KDConfig(enabled=True, use_pallas=True), save_dir=str(tmp_path))
-    cfg = ExperimentConfig(model=model, data=DataConfig(batch_size=kd.B), train=train)
-    images, pts, labels = kd._batch()
-    batch = {"image": images, "points": pts, "segmentation": labels}
-    ref, pert = jax_kd_run, jax_kd_run["perturbed"]
-    tr = DistillationTrainer(cfg, [batch], [batch], device="cpu")
-    tr.model.load_state_dict(from_jax_variables(ref["s_vars"], cfg.model))
-    tr.teacher.load_state_dict(from_jax_variables(ref["t_vars"], tr.teacher_config))
-    with torch.no_grad():
-        for tap, p in from_jax_projections(ref["proj"]).items():
-            tr.proj[tap].copy_(p)
+    tr = kd.hold_kd_steps(jax_kd_run, tmp_path, "in_loop", "sorted_pallas", fused_train=True)
     assert tr.model.camera_encoder.stage2.fused_train
-
-    losses, grads0 = [], None
-    for i in range(kd.STEPS):
-        loss, _ = tr.train_step(batch)
-        losses.append(float(loss))
-        if i == 0:
-            grads0 = {k: p.grad.detach().clone() for k, p in tr.params.items()}
-    counts = {}
-
-    def held(kind, name, err, fixed, noise, cap):
-        tol = fixed + min(10 * noise, cap)
-        assert err <= tol, (f"{kind} {name}: {err:g} > {tol:g} (fixed {fixed:g}, "
-                            f"reference spread {noise:g}, cap {cap:g})")
-        c = counts.setdefault(kind, [0, 0, 0])
-        c[0] += 1
-        c[1] += int(err > fixed)
-        c[2] += int(noise > fixed)
-
-    for i in range(kd.STEPS):
-        held("loss", f"step {i}", abs(losses[i] - ref["losses"][i]),
-             1e-6 * abs(ref["losses"][i]), abs(pert["losses"][i] - ref["losses"][i]),
-             1e-4 * abs(ref["losses"][i]))
-
-    def port_state(tree, stats):
-        return kd._port_state({"params": tree["model"], "batch_stats": stats}, tree["proj"],
-                              cfg.model)
-
-    want_g = port_state(ref["grads0"], ref["s_vars"]["batch_stats"])
-    noise_g = port_state(pert["grads0"], ref["s_vars"]["batch_stats"])
-    gmax = max(float(g.abs().max()) for g in grads0.values())
-    cancelled = []
-    for k, g in grads0.items():
-        w = want_g[k]
-        scale = float(w.abs().max())
-        if scale <= 1e-7 * gmax:
-            cancelled.append(k)
-        held("grad", k, float((g - w).abs().max()), 1e-3 * scale + 1e-6 * gmax,
-             float((noise_g[k] - w).abs().max()), 0.1 * scale)
-    assert len(cancelled) == 8, cancelled
-
-    init = port_state({"model": ref["s_vars"]["params"], "proj": ref["proj"]},
-                      ref["s_vars"]["batch_stats"])
-    want_p = port_state(ref["final"], ref["stats"])
-    noise_p = port_state(pert["final"], pert["stats"])
-    for k, p in tr.params.items():
-        if k in cancelled:
-            assert float((p.detach() - want_p[k]).abs().max()) <= 2 * kd.STEPS * kd.LR, k
-            continue
-        d_ref = (want_p[k] - init[k]).norm()
-        held("update", k, float((p.detach() - want_p[k]).norm() / d_ref), 1e-2,
-             float((noise_p[k] - want_p[k]).norm() / d_ref), 0.3)
-    absorbing = {f"camera_encoder.stage{i}.conv.1" for i in (2, 3, 4, 5)} | {
-        f"camera_fpn.laterals.stage{i}.conv.1" for i in (3, 4, 5)} | {
-        f"lidar_encoder.encoder.point_mlp.{i}" for i in (1, 4, 7)}
-    for k, v in tr.model.state_dict().items():
-        if k.endswith(("running_mean", "running_var")):
-            w = want_p[f"model.{k}"]
-            err = float((v - w).abs().max())
-            bn = k.rsplit(".", 1)[0]
-            if bn in absorbing and k.endswith("running_mean"):
-                conv = init[f"model.{bn[:-1]}{int(bn[-1]) - 1}.weight"]
-                rows = float(conv.abs().flatten(1).sum(1).max())
-                assert err <= 2 * kd.STEPS * kd.LR * max(1.0, rows), (k, err, rows)
-                continue
-            scale = float(w.abs().max())
-            held("stat", k, err, 1e-6 + 1e-4 * scale,
-                 float((noise_p[f"model.{k}"] - w).abs().max()), 1e-6 + 1e-2 * scale)
-        elif k.endswith("num_batches_tracked"):
-            assert int(v) == kd.STEPS, k
-    print(f"tensors checked / port error above the fixed margin / reference spread above "
-          f"it: {counts}")
-    for kind, (n, port_over, ref_over) in counts.items():
-        assert port_over <= ref_over, (kind, counts)

@@ -40,6 +40,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from test_torch_model import jax_init_model
 
 from lmsu_tpu.config import CameraEncoderConfig as JCam
 from lmsu_tpu.config import KDConfig as JKD
@@ -48,7 +49,6 @@ from lmsu_tpu.config import ModelConfig as JModel
 from lmsu_tpu.config import teacher_config as jax_teacher_config
 from lmsu_tpu.data.rasterize import bev_cell_key
 from lmsu_tpu.models import create_model as jax_create_model
-from lmsu_tpu.models import init_model
 from lmsu_tpu.ops.kd_loss_pallas import kd_total_loss_fused as jax_kd_total_loss_fused
 from lmsu_tpu.training.distill import _tap_channels
 from lmsu_tpu_torch.config import (CameraEncoderConfig, DataConfig, ExperimentConfig,
@@ -63,10 +63,11 @@ LR, STEPS = 1e-3, 3
 PC6 = (-50.0, -50.0, -5.0, 50.0, 50.0, 3.0)
 
 
-def _student_kw():
-    """bench.py's --tiny student with this slice's kernel opt-ins."""
-    return dict(num_classes=2, fusion_type="weighted", fusion_out_channels=32,
-                camera_fpn_channels=16, use_pallas_fusion=True)
+def _student_kw(student=None):
+    """bench.py's --tiny student with this slice's kernel opt-ins, with the
+    fields of `student` in place of the defaults."""
+    return {**dict(num_classes=2, fusion_type="weighted", fusion_out_channels=32,
+                   camera_fpn_channels=16, use_pallas_fusion=True), **(student or {})}
 
 
 def _lidar_kw(scatter="sorted_pallas"):
@@ -96,19 +97,18 @@ def jax_runs():
     return get
 
 
-def _jax_trajectory(scatter):
-    """The JAX trajectory: initial variables and projections, the per-step
-    losses, the first step's gradients, the final parameters and BN
-    statistics (all numpy); under "perturbed" the same from weights moved
-    by 1e-6 of themselves."""
-    scfg = JModel(camera=JCam(base_channels=8), lidar=JLidar(**_lidar_kw(scatter)),
-                  **_student_kw())
+def _jax_trajectory(scatter, steps=STEPS, student=None, fused_train=False):
+    """The JAX trajectory of `steps` steps: initial variables and
+    projections, the per-step losses, the first step's gradients, the final
+    parameters and BN statistics (all numpy); under "perturbed" the same
+    from weights moved by 1e-6 of themselves. `student` overrides fields of
+    the student's ModelConfig; `fused_train` is CameraEncoderConfig's."""
+    scfg = JModel(camera=JCam(base_channels=8, fused_train=fused_train),
+                  lidar=JLidar(**_lidar_kw(scatter)), **_student_kw(student))
     tcfg = jax_teacher_config(scfg, 2.0)
     student, teacher = jax_create_model(scfg), jax_create_model(tcfg)
-    s_vars = init_model(student, jax.random.PRNGKey(0), image_size=(IMG, IMG),
-                        num_points=NPTS)
-    t_vars = init_model(teacher, jax.random.PRNGKey(1), image_size=(IMG, IMG),
-                        num_points=NPTS)
+    s_vars = jax_init_model(student, 0)
+    t_vars = jax_init_model(teacher, 1)
     kd = JKD(enabled=True, use_pallas=True)
     s_ch, t_ch = _tap_channels(student, scfg), _tap_channels(teacher, tcfg)
     keys = jax.random.split(jax.random.PRNGKey(2), len(kd.feature_taps))
@@ -143,7 +143,7 @@ def _jax_trajectory(scatter):
         stats, opt_state = s_vars["batch_stats"], tx.init(params)
         losses, grads0 = [], None
         with jax.default_matmul_precision("highest"):
-            for i in range(STEPS):
+            for i in range(steps):
                 params, stats, opt_state, loss, grads = step(params, stats, opt_state)
                 losses.append(float(loss))
                 grads0 = grads if i == 0 else grads0
@@ -161,11 +161,11 @@ def _jax_trajectory(scatter):
     return out
 
 
-def _port_config(scatter):
-    model = ModelConfig(camera=CameraEncoderConfig(base_channels=8),
-                        lidar=LidarEncoderConfig(**_lidar_kw(scatter)), **_student_kw())
+def _port_config(scatter, save_dir, student=None, fused_train=False):
+    model = ModelConfig(camera=CameraEncoderConfig(base_channels=8, fused_train=fused_train),
+                        lidar=LidarEncoderConfig(**_lidar_kw(scatter)), **_student_kw(student))
     train = TrainConfig(lr=LR, eta_min=LR, weight_decay=1e-3, class_weights=(0.4, 3.5),
-                        kd=KDConfig(enabled=True, use_pallas=True))
+                        kd=KDConfig(enabled=True, use_pallas=True), save_dir=str(save_dir))
     return ExperimentConfig(model=model, data=DataConfig(batch_size=B), train=train)
 
 
@@ -178,18 +178,14 @@ def _port_state(variables, proj, cfg):
     return out
 
 
-@pytest.mark.parametrize("teacher, scatter", [("in_loop", "sorted_pallas"),
-                                              ("cached", "sorted_pallas"), ("in_loop", "pallas")],
-                         ids=["in_loop", "cached", "in_loop_pallas"])
-def test_three_kd_steps_match_jax(jax_runs, teacher, scatter, tmp_path):
-    """"in_loop_pallas": scatter_impl="pallas" (the unsorted scatter-max and
-    the dense backward) in the student and the teacher, on both sides, on
-    the same batch (the pallas scatter takes its cell-sorted points as it
-    would take any order)."""
-    jax_run = jax_runs(scatter)
-    cfg = _port_config(scatter)
-    cfg = cfg.replace(train=cfg.train.__class__(**{**cfg.train.__dict__,
-                                                   "save_dir": str(tmp_path)}))
+def hold_kd_steps(jax_run, save_dir, teacher, scatter, student=None, fused_train=False):
+    """The port's DistillationTrainer.train_step, from jax_run's weights, for
+    as many steps as jax_run took (`student` and `fused_train` as its),
+    held to the protocol of this module's docstring; over one step, the
+    loss, the gradients and the BatchNorm statistics only (an AdamW step of
+    lr sign(g) is no comparison). Returns the trainer."""
+    steps = len(jax_run["losses"])
+    cfg = _port_config(scatter, save_dir, student, fused_train)
     images, pts, labels = _batch()
     batch = {"image": images, "points": pts, "segmentation": labels}
     tr = DistillationTrainer(cfg, [batch], [batch], device="cpu")
@@ -201,7 +197,7 @@ def test_three_kd_steps_match_jax(jax_runs, teacher, scatter, tmp_path):
     t_out = tr.teacher_forward(batch) if teacher == "cached" else None
 
     losses, grads0 = [], None
-    for i in range(STEPS):
+    for i in range(steps):
         loss, _ = tr.train_step(batch, teacher_out=t_out)
         losses.append(float(loss))
         if i == 0:
@@ -221,7 +217,7 @@ def test_three_kd_steps_match_jax(jax_runs, teacher, scatter, tmp_path):
         c[1] += int(err > fixed)
         c[2] += int(noise > fixed)
 
-    for i in range(STEPS):
+    for i in range(steps):
         held("loss", f"step {i}", abs(losses[i] - ref["losses"][i]),
              1e-6 * abs(ref["losses"][i]), abs(pert["losses"][i] - ref["losses"][i]),
              1e-4 * abs(ref["losses"][i]))
@@ -251,11 +247,13 @@ def test_three_kd_steps_match_jax(jax_runs, teacher, scatter, tmp_path):
     want_p = port_state(ref["final"], ref["stats"])
     noise_p = port_state(pert["final"], pert["stats"])
     for k, p in tr.params.items():
+        if steps == 1:
+            break
         if k in cancelled:
             # AdamW's m / sqrt(v) turns both sides' rounding noise into a
             # step of about lr per step, in no particular direction: only
             # the size of the move is held.
-            assert float((p.detach() - want_p[k]).abs().max()) <= 2 * STEPS * LR, k
+            assert float((p.detach() - want_p[k]).abs().max()) <= 2 * steps * LR, k
             continue
         # The update of three steps, as a whole: an element whose gradient
         # is near 0 flips the sign of its AdamW step under any rounding.
@@ -265,7 +263,7 @@ def test_three_kd_steps_match_jax(jax_runs, teacher, scatter, tmp_path):
     # The running means that absorb a cancelled bias: the BatchNorm after
     # the next linear layer tracks the shift of that bias, whose update is
     # noise on both sides. Held to the largest shift such a move can give:
-    # every input channel moved by 2 * STEPS * lr, through |W| of the layer.
+    # every input channel moved by 2 * steps * lr, through |W| of the layer.
     absorbing = {f"camera_encoder.stage{i}.conv.1" for i in (2, 3, 4, 5)} | {
         f"camera_fpn.laterals.stage{i}.conv.1" for i in (3, 4, 5)} | {
         f"lidar_encoder.encoder.point_mlp.{i}" for i in (1, 4, 7)}
@@ -279,17 +277,31 @@ def test_three_kd_steps_match_jax(jax_runs, teacher, scatter, tmp_path):
             if bn in absorbing and k.endswith("running_mean"):
                 conv = init[f"model.{bn[:-1]}{int(bn[-1]) - 1}.weight"]
                 rows = float(conv.abs().flatten(1).sum(1).max())
-                assert err <= 2 * STEPS * LR * max(1.0, rows), (k, err, rows)
+                assert err <= 2 * steps * LR * max(1.0, rows), (k, err, rows)
                 continue
             scale = float(w.abs().max())
             held("stat", k, err, 1e-6 + 1e-4 * scale,
                  float((noise_p[f"model.{k}"] - w).abs().max()), 1e-6 + 1e-2 * scale)
         elif k.endswith("num_batches_tracked"):
-            assert int(v) == STEPS
-    assert n_stats == 2 * 29
+            assert int(v) == steps, k
+    assert n_stats == 2 * sum(isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+                              for m in tr.model.modules())
     print(f"[{teacher}] tensors checked / port error above the fixed margin / "
           f"reference spread above it: {counts}")
     for kind, (n, port_over, ref_over) in counts.items():
         # The port is held to the fixed margin as often as the reference's
         # own spread allows, and no more often.
         assert port_over <= ref_over, (kind, counts)
+    return tr
+
+
+@pytest.mark.parametrize("teacher, scatter", [("in_loop", "sorted_pallas"),
+                                              ("cached", "sorted_pallas"), ("in_loop", "pallas")],
+                         ids=["in_loop", "cached", "in_loop_pallas"])
+def test_three_kd_steps_match_jax(jax_runs, teacher, scatter, tmp_path):
+    """"in_loop_pallas": scatter_impl="pallas" (the unsorted scatter-max and
+    the dense backward) in the student and the teacher, on both sides, on
+    the same batch (the pallas scatter takes its cell-sorted points as it
+    would take any order)."""
+    tr = hold_kd_steps(jax_runs(scatter), tmp_path, teacher, scatter)
+    assert sum(k.endswith("running_mean") for k in tr.model.state_dict()) == 29

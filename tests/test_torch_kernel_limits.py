@@ -14,8 +14,9 @@ the f32 parity is held at.
 import pytest
 import torch
 
-from lmsu_tpu_torch import serve, train_distill
-from lmsu_tpu_torch.config import CameraEncoderConfig
+from lmsu_tpu_torch import (evaluate, serve, train_distill, train_fusion_ablation,
+                            train_synthetic)
+from lmsu_tpu_torch.config import CameraEncoderConfig, ModelConfig, teacher_config
 from lmsu_tpu_torch.models.camera_encoder import TwinLiteEncoder
 from lmsu_tpu_torch.models.factory import check_kernel_shapes
 from lmsu_tpu_torch.models.fusion import WeightedFusion
@@ -23,6 +24,7 @@ from lmsu_tpu_torch.ops import fusion_gate as fg
 from lmsu_tpu_torch.ops.ir_fused import (check_fused_infer, check_fused_train,
                                          fused_infer_limits, fused_train_limits)
 from lmsu_tpu_torch.ops.kd_loss import check_kd_feature_mse, kd_feature_mse_limits
+from lmsu_tpu_torch.training.distill import tap_channels
 
 torch.set_num_threads(2)
 
@@ -91,6 +93,24 @@ def test_kd_feature_mse_limits():
         check_kd_feature_mse("lidar_feat", 12, 48, 1.5)
 
 
+def test_kd_feature_mse_sees_the_concat_taps():
+    """The concat/256 student's KD taps: with its 2x teacher every tap fits
+    K7 (post_fusion Cs 256 / Ct 512, at the limit); with a 4x teacher
+    post_fusion (Ct 1,024) is refused by name, the other taps still fit."""
+    student = ModelConfig(num_classes=2)
+    s = tap_channels(student)
+    for mult in (2.0, 4.0):
+        t = tap_channels(teacher_config(student, mult))
+        for tap in ("camera_feat", "lidar_feat"):
+            check_kd_feature_mse(tap, s[tap], t[tap], mult)
+        if mult == 2.0:
+            assert (s["post_fusion"], t["post_fusion"]) == (256, 512)
+            check_kd_feature_mse("post_fusion", s["post_fusion"], t["post_fusion"], mult)
+        else:
+            with pytest.raises(ValueError, match=r"'post_fusion'.*=4.*Ct=1024"):
+                check_kd_feature_mse("post_fusion", s["post_fusion"], t["post_fusion"], mult)
+
+
 def test_check_kernel_shapes_names_the_stage():
     """A narrow encoder with fused_train: its expansion-1 stage has Ce = 8,
     which K12 does not take. Refused for CUDA (before any launch), not for
@@ -125,6 +145,9 @@ class _Stop(Exception):
 @pytest.mark.parametrize("cli,builder,argv", [
     (train_distill, "build_configs", ["--device", "cpu"]),
     (serve, "build_engine", ["--device", "cpu"]),
+    (train_synthetic, "build_config", ["--device", "cpu"]),
+    (train_fusion_ablation, "train_variant", ["--device", "cpu"]),
+    (evaluate, "build_config", ["--device", "cpu", "--checkpoint", "latest.pth"]),
 ])
 def test_cli_setup_turns_tf32_off(monkeypatch, cli, builder, argv):
     """Each CLI pins full f32 before it builds anything: the flags are on

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_model import jax_jit
 
 from lmsu_tpu.ops.scatter import bev_scatter_max as jax_bev_scatter_max
 from lmsu_tpu.ops.scatter_sorted_pallas import (
@@ -56,10 +57,14 @@ CASES = {
 
 
 def _jax_grad(fn, feats, idx, valid, grid, g, dtype):
-    jf = jnp.asarray(feats, dtype)
+    """The VJP of `fn` at feats for cotangent g, under jax_jit."""
+    def vjp(f, i, v, g):
+        _, back = jax.vjp(lambda f: fn(f, i, v, grid), f)
+        return back(g)[0]
+
     with jax.default_matmul_precision("highest"):  # the Pallas kernel counts ties by matmul
-        _, vjp = jax.vjp(lambda f: fn(f, jnp.asarray(idx), jnp.asarray(valid), grid), jf)
-        (d,) = vjp(jnp.asarray(g, dtype))
+        d = jax_jit(vjp)(jnp.asarray(feats, dtype), jnp.asarray(idx), jnp.asarray(valid),
+                         jnp.asarray(g, dtype))
     return np.asarray(d.astype(jnp.float32))
 
 

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_model import jax_init, jax_jit
 
 import lmsu_tpu.ops.scatter_sorted_pallas as jsp
 from lmsu_tpu.config import LidarEncoderConfig as JLidar
@@ -97,9 +98,13 @@ def test_flat_forward_equals_jax(rng, monkeypatch, dtype, cw):
     jdt, tdt = _dt(dtype)
     ji, jv = jnp.asarray(idx), jnp.asarray(valid)
     jf = jnp.asarray(feats, jdt)
-    want = np.asarray(jsp.bev_scatter_max_sorted_pallas(jf, ji, jv, grid).astype(jnp.float32))
-    want_g = np.asarray(jax.grad(lambda f: jnp.sum(jsp.bev_scatter_max_sorted_pallas(
-        f, ji, jv, grid).astype(jnp.float32) ** 2))(jf).astype(jnp.float32))
+
+    def ref(f):
+        out = jsp.bev_scatter_max_sorted_pallas(f, ji, jv, grid).astype(jnp.float32)
+        return out, jax.grad(lambda f: jnp.sum(jsp.bev_scatter_max_sorted_pallas(
+            f, ji, jv, grid).astype(jnp.float32) ** 2))(f).astype(jnp.float32)
+
+    want, want_g = (np.asarray(a) for a in jax_jit(ref)(jf))
     tf = torch.from_numpy(feats).to(tdt).requires_grad_(True)
     out = pss.bev_scatter_max_sorted_pallas(tf, torch.from_numpy(idx), torch.from_numpy(valid),
                                             grid)
@@ -216,7 +221,7 @@ def test_encoder_scatter_routes_equal_jax(rng, monkeypatch, route):
         j_pts, j_pv = jax_sort_points(jnp.asarray(pts), (8, 8), PC, jnp.asarray(pv))
         pts, pv = np.array(j_pts), np.array(j_pv)
     enc = JEncoder(jcfg)
-    variables = jax.device_get(enc.init(jax.random.PRNGKey(0), jnp.asarray(pts)))
+    variables = jax.device_get(jax_init(enc, jax.random.PRNGKey(0), jnp.asarray(pts)))
     r = np.random.default_rng(5)
     variables = {"params": variables["params"], "batch_stats": jax.tree_util.tree_map(
         lambda a: r.uniform(0.5, 1.5, a.shape).astype(np.float32), variables["batch_stats"])}

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_model import jax_jit
 
 from lmsu_tpu.ops.voxelize_pallas import bev_scatter_max_pallas as jax_pallas
 from lmsu_tpu_torch.ops import voxelize
@@ -57,9 +58,13 @@ def test_pallas_scatter_equals_jax(rng, case, dtype):
     feats, idx, valid = _case(rng, **kw)
     jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32, torch.float32)
     jf, ji, jv = jnp.asarray(feats, jdt), jnp.asarray(idx), jnp.asarray(valid)
-    want = np.asarray(jax_pallas(jf, ji, jv, grid).astype(jnp.float32))
-    want_g = np.asarray(jax.grad(lambda f: jnp.sum(
-        jax_pallas(f, ji, jv, grid).astype(jnp.float32) ** 2))(jf).astype(jnp.float32))
+
+    def ref(f):
+        out = jax_pallas(f, ji, jv, grid).astype(jnp.float32)
+        return out, jax.grad(lambda f: jnp.sum(
+            jax_pallas(f, ji, jv, grid).astype(jnp.float32) ** 2))(f).astype(jnp.float32)
+
+    want, want_g = (np.asarray(a) for a in jax_jit(ref)(jf))
 
     tf = torch.from_numpy(feats).to(tdt).requires_grad_(True)
     out = bev_scatter_max_pallas(tf, torch.from_numpy(idx), torch.from_numpy(valid), grid)
