@@ -105,7 +105,24 @@ Phases:
              its JSON) and of `python -m lmsu_tpu_torch.train_synthetic`
              (concat/256), whose latest.pth `python -m
              lmsu_tpu_torch.evaluate` must read back at the val mIoU the
-             trainer recorded.
+             trainer recorded. Before those, the best KD recipe
+             (best_overall_results.json: minimal/128, T=4, noisy-student
+             augmentation without the flip, the dataset-wide teacher cache,
+             the pallas scatter K6 and K7): apply_augment on the card against
+             the CPU with the same draws (labels and masks exactly, image
+             and points within 1e-6); one teacher epoch and one distill
+             epoch of `python -m lmsu_tpu_torch.train_distill` with the
+             recipe's flags on 400 + 64 hard synthetic samples (the cache on
+             the device under 6 GiB, its size printed; K6 and K7 must
+             launch); the same distill with the default 4 GiB limit, which
+             must spill to host memory and gather the first batch's targets
+             bit for bit as the device cache does (the spill's cost per step
+             printed); the recipe's step at B=128 in f32 and bf16 with its
+             cache on the device (K6 once and K7 three times a step; the
+             device time of the augmentation and of the gather printed; loss
+             must fall); a K=2 ensemble (its logits and taps the members'
+             mean, one B=8 step; K=1 the single teacher bit for bit) and its
+             in-loop B=128 f32 step.
 
 Output: the card's name and power limit (nvidia-smi), then per-phase lines,
 the whole run's seconds, then one `{"kernels": [...]}` JSON line, the serving and train summaries,
@@ -1769,15 +1786,18 @@ def phase_serving(dev, dtype, state_dict=None, scatter="sorted_pallas", n_frames
 
 
 def train_config(dtype, kernels=True, batch=TRAIN_B, save_dir=None, fused_train=False,
-                 scatter="sorted_pallas", model="weighted"):
+                 scatter="sorted_pallas", model="weighted", augment=None, kd=None):
     """The KD student step of bench.py: the student `model` (MODELS; the
     weighted/128 student unless said), its 2x teacher, AdamW lr 1e-3
     (constant: eta_min = lr) and wd 1e-3, class weights (0.4, 3.5), the
     three default taps; kernels on (with the scatter `scatter`, and the
     fused gate where the fusion is weighted) or off; the student's
-    InvertedResidual stages fused in training (K8-K13) or not."""
-    from lmsu_tpu_torch.config import (CameraEncoderConfig, DataConfig, ExperimentConfig,
-                                       KDConfig, LidarEncoderConfig, ModelConfig, TrainConfig)
+    InvertedResidual stages fused in training (K8-K13) or not; `augment`
+    an AugmentConfig, `kd` more KDConfig fields (the recipe's temperature,
+    the cache, an ensemble)."""
+    from lmsu_tpu_torch.config import (AugmentConfig, CameraEncoderConfig, DataConfig,
+                                       ExperimentConfig, KDConfig, LidarEncoderConfig,
+                                       ModelConfig, TrainConfig)
     fusion, channels, head = MODELS[model]
     student = ModelConfig(num_classes=2, fusion_type=fusion, fusion_out_channels=channels,
                           output_mode=head, use_pallas_fusion=kernels and fusion == "weighted",
@@ -1785,7 +1805,8 @@ def train_config(dtype, kernels=True, batch=TRAIN_B, save_dir=None, fused_train=
                           lidar=LidarEncoderConfig(scatter_impl=scatter if kernels else "xla"),
                           compute_dtype=dtype)
     train = TrainConfig(lr=1e-3, eta_min=1e-3, weight_decay=1e-3, class_weights=(0.4, 3.5),
-                        kd=KDConfig(enabled=True, use_pallas=kernels),
+                        kd=KDConfig(enabled=True, use_pallas=kernels, **(kd or {})),
+                        augment=augment or AugmentConfig(),
                         save_dir=save_dir or os.path.join("build", "train_smoke"))
     return ExperimentConfig(model=student, data=DataConfig(batch_size=batch), train=train)
 
@@ -2109,9 +2130,11 @@ def check_fused_step(dev):
                                          noise=unfused_p, jumps={GATE_W1: jump_b})}
 
 
-def profile_steps(step, reps: int = 2):
+def profile_steps(step, reps: int = 2, spans=()):
     """Device time by kernel over `reps` steps (torch.profiler) and the
-    share of the steps' wall time the device was idle."""
+    share of the steps' wall time the device was idle; for each
+    record_function range named in `spans`, the device time of the kernels
+    launched inside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2121,9 +2144,15 @@ def profile_steps(step, reps: int = 2):
             step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
+    averages = prof.key_averages()
+    # A range's own device-side annotation is not a kernel: left out.
     rows = [(e.key, e.self_device_time_total / reps / 1e3, e.count // reps)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            for e in averages
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key not in spans]
+    span_ms = {name: sum(e.device_time_total for e in averages
+                         if e.key == name and e.device_type == DeviceType.CPU) / reps / 1e3
+               for name in spans}
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     if device_ms <= 0:
@@ -2136,31 +2165,77 @@ def profile_steps(step, reps: int = 2):
                       "expand_bwd_kernel", "colsum_kernel")}
     return {"wall_ms": wall, "device_ms": device_ms,
             "idle_share": max(0.0, 1.0 - device_ms / wall), "our_kernels_ms": ours,
+            "spans_device_ms": span_ms,
             "top": [{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:15]]}
 
 
+class OneBatchLoader:
+    """A training loader of one fixed batch over a dataset of its rows, for
+    DistillationTrainer.build_teacher_cache."""
+
+    def __init__(self, batch):
+        self.batch = batch
+        self.batcher = argparse.Namespace(dataset=range(len(batch["sample_index"])))
+
+    def __len__(self):
+        return 1
+
+    def __iter__(self):
+        yield self.batch
+
+
+def spanned(name, fn):
+    """`fn` inside a torch.profiler.record_function range `name`."""
+    def call(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return call
+
+
+SPANS = ("augment", "teacher_cache_gather")
+
+
 def phase_train(dev, dtype, warmup: int = 3, steps: int = 10, variants=("in_loop", "cached"),
-                fused_train=False, scatter="sorted_pallas", model="weighted"):
+                fused_train=False, scatter="sorted_pallas", model="weighted", augment=None,
+                kd=None):
     """The KD step at B=128 through DistillationTrainer.train_step on one
     fixed batch: in-loop teacher, then cached teacher (its outputs computed
-    once for the batch, bench.py:233-244); with fused_train, the student's
-    InvertedResidual stages run K8-K13; with scatter="pallas" the scatter
-    is K6 on points in their own order; `model` the student (MODELS).
-    Launches of each kernel per step are counted over the timed steps; the
-    loss must fall over them."""
+    once for the batch, bench.py:233-244); "dataset_cache", the trainer's
+    own teacher cache (build_teacher_cache over a loader of this batch,
+    each step gathering its rows on the device); with fused_train, the
+    student's InvertedResidual stages run K8-K13; with scatter="pallas" the
+    scatter is K6 on points in their own order; `model` the student
+    (MODELS); `augment` and `kd` as train_config's. Launches of each kernel
+    per step are counted over the timed steps; the loss must fall over
+    them. The augmentation and the cache gather run inside profiler ranges
+    (SPANS), whose device time the profile reports."""
     from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
     from lmsu_tpu_torch.training import DistillationTrainer
     name = "f32" if dtype == torch.float32 else "bf16"
+    kd = dict(kd or {})
     tag = " ".join(([model] if model != "weighted" else []) + [name]
                    + (["fused_train"] if fused_train else [])
-                   + ([scatter] if scatter != "sorted_pallas" else []))
+                   + ([scatter] if scatter != "sorted_pallas" else [])
+                   + (["augment"] if augment else [])
+                   + ([f"ensemble {kd['ensemble_size']}"] if "ensemble_size" in kd else []))
     rng = np.random.default_rng(5)
     batch = train_batch(rng, TRAIN_B, dev, sort=scatter == "sorted_pallas")
+    batch["sample_index"] = torch.arange(TRAIN_B, device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
+    if "dataset_cache" in variants:
+        kd["cache_teacher"] = True
+    loader = OneBatchLoader(batch) if "dataset_cache" in variants else [batch]
     tr = DistillationTrainer(train_config(dtype, fused_train=fused_train, scatter=scatter,
-                                          model=model), [batch], [batch], device=dev)
+                                          model=model, augment=augment, kd=kd),
+                             loader, [batch], device=dev)
+    tr._augmented = spanned("augment", tr._augmented)
+    tr.gather_teacher = spanned("teacher_cache_gather", tr.gather_teacher)
     out = {}
     for variant in variants:
+        if variant == "dataset_cache":
+            tr.build_teacher_cache()
+            if tr.teacher_cache is None:
+                raise AssertionError(f"train {tag}: the teacher cache is not on the device")
         t_out = tr.teacher_forward(batch) if variant == "cached" else None
         step = lambda: tr.train_step(batch, teacher_out=t_out)  # noqa: E731
         for _ in range(warmup):
@@ -2180,7 +2255,7 @@ def phase_train(dev, dtype, warmup: int = 3, steps: int = 10, variants=("in_loop
         out[variant] = {"step_ms": step_ms, "frames_per_s": TRAIN_B / step_ms * 1e3,
                         "losses": losses, "launches": launches,
                         "launches_per_step": {k: n / steps for k, n in launches.items()},
-                        "profile": profile_steps(step)}
+                        "profile": profile_steps(step, spans=SPANS)}
         log(f"[train {tag}] {variant}: {json.dumps(out[variant])}")
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     out["loss_parts"] = tr.last_loss_parts
@@ -2278,6 +2353,204 @@ def run_synthetic_cli(dev):
             "evaluate": ev, "recorded_val_miou": val_miou}
 
 
+# -- the best KD recipe (best_overall_results.json) -----------------------------
+
+# scripts/experiment_best_overall.py's flags without --scan-steps, one teacher
+# epoch and one distill epoch on 400 + 64 hard synthetic samples.
+RECIPE_ARGS = ["--difficulty", "hard", "--num-train", "400", "--num-val", "64",
+               "--batch-size", "32", "--epochs", "1", "--teacher-epochs", "1",
+               "--fusion-type", "minimal", "--fusion-channels", "128", "--cache-teacher",
+               "--temperature", "4", "--augment", "--aug-hflip", "0", "--scatter-impl", "pallas",
+               "--use-pallas-kd", "--num-workers", "4"]
+
+
+def recipe_augment():
+    """The recipe's augmentation: the standard terms without the flip."""
+    from lmsu_tpu_torch.common import STANDARD_AUGMENT
+    from lmsu_tpu_torch.config import AugmentConfig
+    return AugmentConfig(**{**STANDARD_AUGMENT, "hflip_prob": 0.0})
+
+
+class Tee(io.TextIOBase):
+    """A stdout that also keeps what is written."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.kept.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def check_augment_on_card(dev):
+    """apply_augment on the card against the same call on the CPU, with the
+    same draws (made on the CPU): every term on, a uint8 batch at B=8 with a
+    prior point_valid. Flips (labels) and masks exactly, the image and the
+    points (mirror and jitter) within 1e-6 of scale."""
+    from lmsu_tpu_torch.config import AugmentConfig
+    from lmsu_tpu_torch.ops import augment
+    cfg = AugmentConfig(enabled=True, hflip_prob=0.5, brightness=0.1, contrast=0.1,
+                        image_noise_std=0.02, point_dropout=0.05, point_jitter_xy=0.05,
+                        point_jitter_z=0.05, intensity_jitter=0.02)
+    rng = np.random.default_rng(17)
+    pts = rng.normal(0, 30, (B, NPTS, 4)).astype(np.float32)
+    cpu = {"image": torch.from_numpy(rng.integers(0, 256, (B, IMG, IMG, 3), dtype=np.uint8)),
+           "points": torch.from_numpy(pts),
+           "segmentation": torch.from_numpy(rng.integers(-1, 2, (B, GRID, GRID))),
+           "point_valid": torch.from_numpy(rng.uniform(size=(B, NPTS)) > 0.1)}
+    draws = augment.draw_augment(torch.Generator().manual_seed(3), cfg, cpu)
+    pc = (-50.0, 50.0, -50.0, 50.0)
+    want = augment.apply_augment(cpu, draws, cfg, pc)
+    got = augment.apply_augment({k: v.to(dev) for k, v in cpu.items()},
+                                {k: v.to(dev) for k, v in draws.items()}, cfg, pc)
+    got = {k: v.cpu() for k, v in got.items()}
+    flips = int(draws["flip"].sum())
+    res = {"flipped": flips, "dropped": int((~draws["keep"]).sum()),
+           "segmentation_equal": torch.equal(got["segmentation"], want["segmentation"]),
+           "point_valid_equal": torch.equal(got["point_valid"], want["point_valid"]),
+           "image_err": float((got["image"] - want["image"]).abs().max()),
+           "points_err": float((got["points"] - want["points"]).abs().max()
+                               / want["points"].abs().max())}
+    if not (0 < flips < B and res["segmentation_equal"] and res["point_valid_equal"]
+            and res["image_err"] <= 1e-6 and res["points_err"] <= 1e-6
+            and got["image"].dtype == torch.float32):
+        raise AssertionError(f"augmentation on the card != on the CPU: {res}")
+    return res
+
+
+def run_recipe_cli(dev, d):
+    """The best KD recipe through `python -m lmsu_tpu_torch.train_distill` at
+    full width: one teacher epoch, the cache on the device under a 6 GiB
+    budget (its size printed), one distill epoch; the history is written,
+    K6 and K7 launched."""
+    from lmsu_tpu_torch import train_distill
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    run = os.path.join(d, "student")
+    reset_launch_counts()
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        best = train_distill.main(["--device", str(dev), "--train-teacher", "--cache-hbm-gb", "6",
+                                   "--save-dir", run] + RECIPE_ARGS)
+    secs = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in kernels().items()}
+    cache = [ln for ln in tee.kept.getvalue().splitlines() if ln.startswith("teacher cache:")]
+    with open(os.path.join(run, "training_history.json")) as f:
+        hist = json.load(f)
+    if (len(cache) != 1 or "on the device" not in cache[0] or not np.isfinite(best)
+            or len(hist["train_loss"]) != 1
+            or any(launches[k] <= 0 for k in ("voxelize_scatter_max", "kd_feature_mse"))):
+        raise AssertionError(f"recipe: cache {cache}, best {best}, history {hist}, "
+                             f"launches {launches}")
+    return {"seconds": secs, "best_val_miou": best, "cache": cache[0], "history": hist,
+            "launches": launches}
+
+
+def check_recipe_spill(dev, d):
+    """The recipe's distill with the default 4 GiB limit, from the teacher
+    the CLI trained: the cache must spill to host memory, and the first
+    batch's gathered targets must equal, bit for bit, those of the same
+    distill with the 6 GiB limit (cache on the device). Then the cost of the
+    spill per step: each batch's gather (host gather, pinned staging,
+    copy; against the device's index_select), and one distill epoch of
+    each."""
+    import dataclasses
+
+    from lmsu_tpu_torch import train_distill
+    from lmsu_tpu_torch.common import build_loaders
+    from lmsu_tpu_torch.training import DistillationTrainer
+    args = train_distill.make_parser().parse_args(
+        RECIPE_ARGS + ["--device", str(dev), "--save-dir", os.path.join(d, "spill"),
+                       "--teacher-checkpoint", os.path.join(d, "student_teacher", "latest.pth")])
+    cfg, tcfg = train_distill.build_configs(args)
+    loaders = build_loaders(cfg, verbose=False)
+    six = cfg.replace(train=dataclasses.replace(cfg.train, kd=dataclasses.replace(
+        cfg.train.kd, cache_hbm_limit_bytes=6 << 30)))
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        host = DistillationTrainer(cfg, *loaders, teacher_model_config=tcfg, device=dev)
+        host.build_teacher_cache()
+        ondev = DistillationTrainer(six, *loaders, teacher_model_config=tcfg, device=dev)
+        ondev.build_teacher_cache()
+    if host.teacher_cache_host is None or ondev.teacher_cache is None:
+        raise AssertionError("recipe spill: the 4 GiB cache did not spill, or the 6 GiB one did")
+    first = next(iter(loaders[0]))
+    b = ondev._to_device(first)
+    (hl, ht), (dl, dt) = host.gather_teacher(first, b), ondev.gather_teacher(first, b)
+    equal = torch.equal(hl, dl) and all(torch.equal(ht[k], dt[k]) for k in dt)
+    if not equal:
+        raise AssertionError("recipe spill: the spilled targets differ from the device cache's")
+    gather = {"host": [], "device": []}
+    for batch in loaders[0]:
+        b = ondev._to_device(batch)
+        for side, tr in (("host", host), ("device", ondev)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.gather_teacher(batch, b)
+            torch.cuda.synchronize()
+            gather[side].append((time.perf_counter() - t0) * 1e3)
+    epoch = {}
+    for side, tr in (("host", host), ("device", ondev)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = tr.train_epoch()
+        torch.cuda.synchronize()
+        epoch[side] = {"seconds": time.perf_counter() - t0, "loss": loss}
+    steps = len(gather["host"])
+    out = {"cache_lines": [ln for ln in tee.kept.getvalue().splitlines()
+                           if ln.startswith("teacher cache:")],
+           "first_batch_bit_equal": equal, "steps": steps,
+           "gather_ms_per_step": {k: float(np.mean(v)) for k, v in gather.items()},
+           "epoch": epoch,
+           "spill_ms_per_step": (epoch["host"]["seconds"] - epoch["device"]["seconds"])
+           * 1e3 / steps}
+    del host, ondev
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_ensemble(dev):
+    """Teacher ensembles on the card, minimal/128 with the pallas scatter,
+    f32, B=8: the K=2 ensemble's logits and taps equal the mean of its two
+    members' own forwards, one in-loop K=2 step runs, and K=1 (a
+    one-member EnsembleTeacher, and ensemble_size=1) gives the single
+    teacher's outputs bit for bit."""
+    from lmsu_tpu_torch.training import DistillationTrainer
+    from lmsu_tpu_torch.training.distill import EnsembleTeacher
+    rng = np.random.default_rng(13)
+    batch = train_batch(rng, B, dev, sort=False)
+
+    def trainer(k):
+        return DistillationTrainer(train_config(torch.float32, batch=B, scatter="pallas",
+                                                model="minimal", kd={"ensemble_size": k}),
+                                   [batch], [batch], device=dev)
+    two = trainer(2)
+    logits, taps = two.teacher_forward(batch)
+    with torch.no_grad():
+        outs = [m(batch["image"], batch["points"], return_intermediates=True)
+                for m in two.teacher.members]
+        one = EnsembleTeacher([two.teacher.members[0]])(batch["image"], batch["points"],
+                                                        return_intermediates=True)
+    mean_l = torch.stack([o[0] for o in outs]).mean(0)
+    errs = {"logits": float((logits - mean_l).abs().max() / mean_l.abs().max())}
+    for k, v in taps.items():
+        want = torch.stack([o[1][k] for o in outs]).mean(0)
+        errs[k] = float((v - want).abs().max() / want.abs().max())
+    loss, _ = two.train_step(batch)
+    single = trainer(1)
+    s_logits, s_taps = single.teacher_forward(batch)
+    k1_equal = (torch.equal(s_logits, outs[0][0]) and torch.equal(one[0], outs[0][0])
+                and all(torch.equal(s_taps[k], outs[0][1][k]) for k in s_taps)
+                and all(torch.equal(one[1][k], outs[0][1][k]) for k in outs[0][1]))
+    res = {"k2_rel_err": errs, "k2_step_loss": float(loss), "k1_bit_equal": k1_equal}
+    if max(errs.values()) > 1e-6 or not np.isfinite(res["k2_step_loss"]) or not k1_equal:
+        raise AssertionError(f"ensemble on the card: {res}")
+    return res
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -2372,6 +2645,36 @@ def main(argv=None) -> int:
                 if (any(n[k] <= 0 for k in ("scatter_sorted_fwd", "scatter_sorted_bwd",
                                             "kd_feature_mse")) or n["fusion_gate"]):
                     raise AssertionError(f"train {model} {dt}: launches {n}")
+        # The best KD recipe (minimal/128, T=4, noisy-student augmentation,
+        # the dataset-wide cache, the pallas scatter, K7): the CLI at full
+        # width, its spill, its timed steps; then ensembles.
+        import tempfile
+        tres["augment_check"] = check_augment_on_card(dev)
+        log(f"[train] augmentation on the card == on the CPU: "
+            f"{json.dumps(tres['augment_check'])}")
+        with tempfile.TemporaryDirectory() as d:
+            tres["recipe_cli"] = run_recipe_cli(dev, d)
+            log(f"[train] recipe CLI: {json.dumps(tres['recipe_cli'])}")
+            tres["recipe_spill"] = check_recipe_spill(dev, d)
+            log(f"[train] recipe with the default cache limit (spilled): "
+                f"{json.dumps(tres['recipe_spill'])}")
+        for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            run = tres[f"recipe_{dt}"] = phase_train(
+                dev, dtype, variants=("dataset_cache",), scatter="pallas", model="minimal",
+                augment=recipe_augment(), kd={"temperature": 4.0})
+            per_step = run["dataset_cache"]["launches_per_step"]
+            # K6 in the student only (the teacher's outputs are cached), K7
+            # once per tap.
+            if per_step["voxelize_scatter_max"] != 1 or per_step["kd_feature_mse"] != 3:
+                raise AssertionError(f"train recipe {dt}: launches per step {per_step}")
+        tres["ensemble_check"] = check_ensemble(dev)
+        log(f"[train] ensemble: {json.dumps(tres['ensemble_check'])}")
+        run = tres["ensemble_f32"] = phase_train(dev, torch.float32, variants=("in_loop",),
+                                                 scatter="pallas", model="minimal",
+                                                 kd={"ensemble_size": 2})
+        if run["in_loop"]["launches_per_step"]["voxelize_scatter_max"] != 3:
+            raise AssertionError(f"train ensemble: launches per step "
+                                 f"{run['in_loop']['launches_per_step']}")
         tres["ablation_cli"] = run_ablation_cli(dev)
         log(f"[train] train_fusion_ablation CLI: {json.dumps(tres['ablation_cli'])}")
         tres["synthetic_cli"] = run_synthetic_cli(dev)
@@ -2430,6 +2733,10 @@ def main(argv=None) -> int:
         # concat/256 and minimal/128 f32 KD runs.
         if path == "serving" and "concat_f32" in sres:
             entry["concat256_serving_launches"] = sres["concat_f32"]["launches"][name]
+        if name in ("voxelize_scatter_max", "kd_feature_mse") and "recipe_cli" in tres:
+            entry["recipe_cli_launches"] = tres["recipe_cli"]["launches"][name]
+            entry["recipe_train_launches"] = \
+                tres["recipe_f32"]["dataset_cache"]["launches"][name]
         if path in ("serving", "train"):
             for model in ("concat", "minimal"):
                 if f"{model}_f32" in tres:
@@ -2482,6 +2789,17 @@ def main(argv=None) -> int:
                              ("concat", "concat256"), ("minimal", "minimal128")):
                 summary[f"{key}_{dt}"] = {"in_loop": {
                     k: tres[f"{run}_{dt}"]["in_loop"][k] for k in ("step_ms", "frames_per_s")}}
+        for dt in ("f32", "bf16"):
+            run = tres[f"recipe_{dt}"]["dataset_cache"]
+            summary[f"recipe_{dt}"] = {"dataset_cache": {
+                **{k: run[k] for k in ("step_ms", "frames_per_s")},
+                "idle_share": run["profile"]["idle_share"],
+                "augment_ms": run["profile"]["spans_device_ms"]["augment"],
+                "gather_ms": run["profile"]["spans_device_ms"]["teacher_cache_gather"]}}
+        summary["ensemble2_f32"] = {"in_loop": {
+            k: tres["ensemble_f32"]["in_loop"][k] for k in ("step_ms", "frames_per_s")}}
+        summary["recipe_spill"] = {k: tres["recipe_spill"][k]
+                                   for k in ("gather_ms_per_step", "spill_ms_per_step")}
         print(json.dumps({"train": summary, "batch": TRAIN_B, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

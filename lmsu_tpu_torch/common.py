@@ -4,11 +4,12 @@ ExperimentConfig, the loaders and resuming.
 
 Only flags whose options the port has are here. Those of refused options
 (PandaSet and packed data, the pillar encoder, scan steps and on-device
-epochs, augmentation, model parallelism, snapshot and async checkpoints,
-SIGTERM handling, progress bars) are absent, so argparse rejects them
-rather than dropping them. The port adds --device (CUDA unless 'cpu' is
-asked for) and --bf16. The data is the synthetic dataset: --dataset sets
-DataConfig.dataset whatever the preset says.
+epochs, model parallelism, snapshot and async checkpoints, SIGTERM
+handling, progress bars) are absent, so argparse rejects them rather than
+dropping them. The port adds --device (CUDA unless 'cpu' is asked for) and
+--bf16. The data is the synthetic dataset: --dataset sets
+DataConfig.dataset whatever the preset says. --augment and --aug-* set
+TrainConfig.augment (ops/augment.py).
 """
 
 from __future__ import annotations
@@ -16,10 +17,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+from typing import Optional
 
 import torch
 
-from lmsu_tpu_torch.config import ExperimentConfig
+from lmsu_tpu_torch.config import AugmentConfig, ExperimentConfig
 
 FUSION_TYPES = ("concat", "minimal", "weighted", "gated_sum")
 SCATTER_IMPLS = ("xla", "xla_fastbwd", "sorted", "pallas", "sorted_pallas")
@@ -62,6 +64,42 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ema-decay", type=float, default=None,
                    help="keep an EMA of the parameters; validation, the best "
                    "checkpoint and evaluation use it")
+    p.add_argument("--augment", action="store_true",
+                   help="the standard augmentation on the device: hflip 0.5, "
+                   "brightness / contrast 0.1, image noise 0.02, point dropout 0.05 "
+                   "(ops/augment.py; each term by --aug-*)")
+    p.add_argument("--aug-hflip", type=float, default=None,
+                   help="lateral mirror probability; an --aug-* flag without "
+                   "--augment turns on that term alone")
+    p.add_argument("--aug-brightness", type=float, default=None)
+    p.add_argument("--aug-contrast", type=float, default=None)
+    p.add_argument("--aug-image-noise", type=float, default=None)
+    p.add_argument("--aug-point-dropout", type=float, default=None)
+    p.add_argument("--aug-point-jitter-xy", type=float, default=None)
+    p.add_argument("--aug-flip-image-mode", default=None, choices=["aligned", "mirror"],
+                   help="'aligned' for top-down-aligned cameras (synthetic), 'mirror' "
+                   "for perspective cameras")
+
+
+#: The standard recipe --augment turns on (ops/augment.py; the flip needs a
+#: scatter other than sorted_pallas, which check_augment_compat enforces).
+STANDARD_AUGMENT = dict(enabled=True, hflip_prob=0.5, brightness=0.1, contrast=0.1,
+                        image_noise_std=0.02, point_dropout=0.05)
+
+
+def _augment_from_args(args) -> Optional[AugmentConfig]:
+    """The AugmentConfig of --augment / --aug-* (None when none is given):
+    --augment starts from STANDARD_AUGMENT, each --aug-* flag sets its term."""
+    knobs = {"hflip_prob": args.aug_hflip, "brightness": args.aug_brightness,
+             "contrast": args.aug_contrast, "image_noise_std": args.aug_image_noise,
+             "point_dropout": args.aug_point_dropout,
+             "point_jitter_xy": args.aug_point_jitter_xy,
+             "flip_image_mode": args.aug_flip_image_mode}
+    explicit = {k: v for k, v in knobs.items() if v is not None}
+    if not args.augment and not explicit:
+        return None
+    base = dict(STANDARD_AUGMENT) if args.augment else {"enabled": True}
+    return AugmentConfig(**{**base, **explicit})
 
 
 def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
@@ -76,6 +114,9 @@ def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
     train_kw = given((("epochs", "num_epochs"), ("lr", "lr"), ("save_dir", "save_dir"),
                       ("seed", "seed"), ("grad_clip_norm", "grad_clip_norm"),
                       ("ema_decay", "ema_decay")))
+    aug = _augment_from_args(args)
+    if aug is not None:
+        train_kw["augment"] = aug
     model = cfg.model.replace(**given((("fusion_type", "fusion_type"),
                                        ("fusion_channels", "fusion_out_channels"))))
     if args.scatter_impl is not None:

@@ -7,11 +7,12 @@ Defaults of record (reference file:line):
   max_points 5000                       pandaset_dataset.py:58
   lidar pc range [-50,-50,-5,50,50,3]   lidar_encoder.py:12
 
-The port serves and trains (CE and KD) the four fusions with either head.
-Fields that select paths the port does not have yet (the pillar encoder,
-remat, augmentation, the teacher cache, parallelism, on-device epochs) are
-kept so configurations stay interchangeable; `models.factory` and the
-trainers reject them by name.
+The port serves and trains (CE and KD) the four fusions with either head,
+with augmentation on the device, teacher ensembles and the dataset-wide
+teacher cache. Fields that select paths the port does not have yet (the
+pillar encoder, remat, parallelism, on-device epochs) are kept so
+configurations stay interchangeable; `models.factory` and the trainers
+reject them by name.
 
 Training defaults of record (reference file:line):
   lr 1e-3, weight_decay 1e-3            trainer.py:42
@@ -145,23 +146,65 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class AugmentConfig:
-    """Device-side training augmentation; not ported yet, so the trainer
-    refuses `enabled=True`. The JAX package's per-transform fields come
-    with the port of ops/augment.py."""
+    """Training augmentation on the device (the JAX package's AugmentConfig;
+    ops/augment.py). Every term runs inside the train step, on the batch
+    already on the device, with randomness keyed by (seed ^ seed_offset,
+    step), so a resume at step k reproduces the stream. Validation is never
+    augmented.
+
+    `hflip_prob` mirrors the world laterally (x -> x_min + x_max - x) in the
+    image, the points and the BEV labels; the labels map cell c to W-2-c
+    (ops/augment.py::flip_bev_labels), the "aligned" image flip shifts by
+    one BEV cell to match, "mirror" is a plain mirror for perspective
+    cameras.
+
+    Compatibility rules (ops/augment.py::check_augment_compat, at trainer
+    build): terms that move or drop points (hflip, point_dropout,
+    point_jitter_xy) break the pre-sorted input of
+    scatter_impl="sorted_pallas"; hflip breaks KDConfig.cache_teacher (the
+    cached taps are maps of the unflipped world). Photometric terms, point
+    dropout and z / intensity jitter compose with the cache as noisy-student
+    KD: targets from clean inputs, the student sees the augmented batch."""
 
     enabled: bool = False
+    hflip_prob: float = 0.0
+    flip_image_mode: str = "aligned"
+    brightness: float = 0.0        # per-sample additive delta ~ U(-b, b)
+    contrast: float = 0.0          # per-sample scale exp(U(-c, c)) about the mean
+    image_noise_std: float = 0.0   # per-pixel gaussian noise
+    point_dropout: float = 0.0     # per-point drop probability
+    point_jitter_xy: float = 0.0   # gaussian std on x / y (metres)
+    point_jitter_z: float = 0.0    # gaussian std on z (metres)
+    intensity_jitter: float = 0.0  # gaussian std on intensity
+    seed_offset: int = 0x5EED      # decorrelates the augmentation stream from init
+
+    @property
+    def moves_points(self) -> bool:
+        """True if a term changes points' cells or validity (refused with
+        the sorted_pallas input contract)."""
+        return self.hflip_prob > 0 or self.point_dropout > 0 or self.point_jitter_xy > 0
+
+    @property
+    def spatial(self) -> bool:
+        """True if a term moves scene geometry (refused with the cache)."""
+        return self.hflip_prob > 0
 
 
 @dataclass(frozen=True)
 class KDConfig:
     """Teacher->student distillation loss (JAX package: config.py KDConfig).
 
-    The port trains with one in-loop teacher. Ensembles
-    (`teacher_checkpoints`, `ensemble_size > 1`), the dataset-wide teacher
-    cache (`cache_teacher`) and teacher partitioning other than the
-    single-device default are refused by `training.DistillationTrainer`.
-    `use_pallas` routes the feature-matching loss through the hand-written
-    kernel (ops/kd_loss.py); the name is the JAX package's."""
+    Ensembles: `teacher_checkpoints` (the port's .pth files, one per member)
+    or `ensemble_size` random members present as one teacher with
+    member-averaged logits and taps (training/distill.py::EnsembleTeacher).
+    `cache_teacher` computes the frozen teacher's outputs once over the
+    training set, gathered per step by sample index; the cache lives on the
+    device up to `cache_hbm_limit_bytes` and spills to host memory above it;
+    `cache_dtype` "auto" stores it in the compute dtype, "bfloat16" halves
+    it. Teacher partitioning other than the single-device default ("sp",
+    "fsdp") is refused by `training.DistillationTrainer`. `use_pallas`
+    routes the feature-matching loss through the hand-written kernel
+    (ops/kd_loss.py); the name is the JAX package's."""
 
     enabled: bool = False
     temperature: float = 2.0
@@ -174,6 +217,8 @@ class KDConfig:
     ensemble_size: int = 1
     use_pallas: bool = False
     cache_teacher: bool = False
+    cache_hbm_limit_bytes: int = 4 << 30
+    cache_dtype: str = "auto"
     teacher_partition: str = "tp"
 
 
@@ -181,8 +226,8 @@ class KDConfig:
 class TrainConfig:
     """Optimization + loop (reference: trainer.py:40-74). Options the port
     does not have yet (scan_steps > 1, onchip_epoch, onchip_eval=True,
-    augmentation, SIGTERM handling, async and snapshot checkpoints,
-    debug_nans, progress bars) are refused by `training.Trainer`."""
+    SIGTERM handling, async and snapshot checkpoints, debug_nans, progress
+    bars) are refused by `training.Trainer`."""
 
     lr: float = 1e-3
     weight_decay: float = 1e-3

@@ -211,6 +211,10 @@ def kd_total_loss_fused(student_logits: torch.Tensor, teacher_logits: torch.Tens
         fms = []
         for tap in feature_taps:
             s, t = student_feats[tap], teacher_feats[tap]
+            if s.dtype != t.dtype:
+                # A bf16 teacher cache under f32 compute: the JAX kernel
+                # computes in f32 (kd_loss_pallas.py::_mse_partials).
+                s, t = s.float(), t.float()
             if sample_weight is None:
                 fms.append(fused_feature_mse(s, t, projections[tap]))
             else:

@@ -1,19 +1,31 @@
 """Teacher->student knowledge-distillation training on a CUDA card.
 
 Counterpart of scripts/train_distill.py for the PyTorch port. Two phases:
-  1. (optional, --train-teacher) train the 2x-wide teacher with CE;
+  1. (optional, --train-teacher) train the 2x-wide teacher with CE, or
+     --num-teachers of them (seeds offset by 1000 each, save dirs
+     <save-dir>_teacher, <save-dir>_teacher1, ...);
   2. distill into the student (weighted/128 unless --fusion-type and
      --fusion-channels say otherwise): CE + logit KL + feature matching on
-     the camera_feat / lidar_feat / post_fusion taps.
+     the camera_feat / lidar_feat / post_fusion taps, from one teacher or
+     from the average of an ensemble.
 
 Usage:
   python -m lmsu_tpu_torch.train_distill [--device cuda] [--epochs 20] \\
       [--batch-size 4] [--num-train 800 --num-val 200] [--difficulty easy] \\
       [--fusion-type {concat,minimal,weighted,gated_sum}] [--fusion-channels 128] \\
       [--scatter-impl {xla,xla_fastbwd,sorted,pallas,sorted_pallas}] \\
-      [--use-pallas-fusion] [--use-pallas-kd] \\
-      [--bf16] [--teacher-checkpoint teacher.pth | --train-teacher] \\
+      [--use-pallas-fusion] [--use-pallas-kd] [--bf16] \\
+      [--teacher-checkpoint teacher.pth [--teacher-checkpoint t1.pth ...] \\
+       | --train-teacher [--num-teachers N]] \\
+      [--cache-teacher [--cache-dtype {auto,bfloat16}] [--cache-hbm-gb 4]] \\
+      [--augment] [--aug-hflip P] [--aug-*] \\
       [--save-dir checkpoints/distill_student] [--resume]
+
+The best KD recipe (best_overall_results.json; scripts/experiment_best_overall.py
+without its --scan-steps):
+  python -m lmsu_tpu_torch.train_distill --difficulty hard --fusion-type minimal \\
+      --fusion-channels 128 --train-teacher --cache-teacher --cache-hbm-gb 6 \\
+      --temperature 4 --augment --aug-hflip 0 --scatter-impl pallas --use-pallas-kd
 
 The common flags are lmsu_tpu_torch/common.py's. The data is the synthetic
 dataset. --scatter-impl takes the JAX package's five scatter-max
@@ -21,7 +33,11 @@ algorithms; with sorted_pallas the loaders sort each sample's points by BEV
 cell (the sorted kernels' input contract), with the others the points stay
 in their order. --use-pallas-fusion and --use-pallas-kd turn on the
 fusion-gate (weighted fusion only) and feature-MSE kernels (the JAX
-package's names). Checkpoints are torch files (latest.pth, best.pth) in
+package's names). --cache-teacher computes the teacher's outputs once over
+the training set (on clean inputs) and gathers them per step; the cache
+spills to host memory above --cache-hbm-gb GiB. Augmentation (--augment,
+--aug-*) covers both phases; with the cache it is noisy-student KD, and the
+flip is refused. Checkpoints are torch files (latest.pth, best.pth) in
 --save-dir beside training_history.json.
 """
 
@@ -38,10 +54,17 @@ from lmsu_tpu_torch.config import (ExperimentConfig, KDConfig, ModelConfig, Trai
 def build_configs(args):
     """(student ExperimentConfig, teacher ModelConfig). The teacher's width
     is anchored to the reference-size model, before any --width shrink."""
+    ckpts = args.teacher_checkpoint or []
     kd = KDConfig(enabled=True, temperature=args.temperature, alpha_kl=args.alpha_kl,
                   beta_feature=args.beta_feature, teacher_width_mult=args.teacher_width,
-                  teacher_checkpoint=args.teacher_checkpoint,
-                  use_pallas=args.use_pallas_kd)
+                  teacher_checkpoint=ckpts[0] if len(ckpts) == 1 else None,
+                  teacher_checkpoints=tuple(ckpts) if len(ckpts) > 1 else None,
+                  ensemble_size=args.num_teachers if not ckpts else 1,
+                  use_pallas=args.use_pallas_kd, cache_teacher=args.cache_teacher)
+    if args.cache_hbm_gb is not None:
+        kd = dataclasses.replace(kd, cache_hbm_limit_bytes=int(args.cache_hbm_gb * (1 << 30)))
+    if args.cache_dtype is not None:
+        kd = dataclasses.replace(kd, cache_dtype=args.cache_dtype)
     cfg = ExperimentConfig(
         model=ModelConfig(num_classes=2, fusion_type="weighted", fusion_out_channels=128,
                           use_pallas_fusion=args.use_pallas_fusion),
@@ -62,17 +85,32 @@ def make_parser() -> argparse.ArgumentParser:
                    help="run the weighted-fusion gate through its kernel")
     p.add_argument("--use-pallas-kd", action="store_true",
                    help="run the feature-matching loss through its kernel")
-    p.add_argument("--teacher-checkpoint", default=None,
+    p.add_argument("--teacher-checkpoint", action="append", default=None,
                    help="trained teacher (.pth from this trainer, or a state dict); "
-                   "else a random teacher")
+                   "else a random teacher; repeat it for an ensemble teacher "
+                   "(member-averaged logits and taps)")
     p.add_argument("--train-teacher", action="store_true",
                    help="train the teacher first, then distill")
+    p.add_argument("--num-teachers", type=int, default=1,
+                   help="ensemble members: with --train-teacher, train this many "
+                   "(init and data-order seeds offset by 1000 each) and distill "
+                   "from their average; without it, random members")
     p.add_argument("--teacher-epochs", type=int, default=None)
     p.add_argument("--temperature", type=float, default=2.0)
     p.add_argument("--alpha-kl", type=float, default=0.5)
     p.add_argument("--beta-feature", type=float, default=0.5)
     p.add_argument("--teacher-width", type=float, default=2.0)
     p.add_argument("--width", type=float, default=1.0, help="student width multiplier")
+    p.add_argument("--cache-teacher", action="store_true",
+                   help="compute the frozen teacher's outputs once over the training "
+                   "set and gather them per step")
+    p.add_argument("--cache-dtype", default=None, choices=["auto", "bfloat16"],
+                   help="teacher-cache storage dtype (KDConfig.cache_dtype); bfloat16 "
+                   "halves it")
+    p.add_argument("--cache-hbm-gb", type=float, default=None,
+                   help="device-memory budget of the teacher cache in GiB "
+                   "(KDConfig.cache_hbm_limit_bytes, default 4); a larger cache "
+                   "spills to host memory with a per-step gather and copy")
     return p
 
 
@@ -86,15 +124,23 @@ def main(argv=None) -> float:
 
     teacher_sd = None
     if args.train_teacher:
-        tcfg = cfg.replace(model=tcfg_model, train=dataclasses.replace(
-            cfg.train, kd=KDConfig(enabled=False),
-            num_epochs=args.teacher_epochs or cfg.train.num_epochs,
-            save_dir=cfg.train.save_dir + "_teacher"))
-        print("=== Phase 1: training teacher ===")
-        tl, vl = build_loaders(tcfg)
-        t_trainer = Trainer(tcfg, tl, vl, device=args.device)
-        print(f"Teacher best mIoU: {t_trainer.train():.4f}")
-        teacher_sd = t_trainer.model.state_dict()
+        members = []
+        n = max(1, args.num_teachers)
+        for i in range(n):
+            tcfg = cfg.replace(model=tcfg_model, train=dataclasses.replace(
+                cfg.train, kd=KDConfig(enabled=False),
+                # Ensemble members differ in init and data order.
+                seed=cfg.train.seed + 1000 * i,
+                num_epochs=(args.teacher_epochs if args.teacher_epochs is not None
+                            else cfg.train.num_epochs),
+                save_dir=cfg.train.save_dir + ("_teacher" if i == 0 else f"_teacher{i}")))
+            print(f"=== Phase 1: training teacher {i + 1}/{n} ===")
+            tl, vl = build_loaders(tcfg)
+            t_trainer = Trainer(tcfg, tl, vl, device=args.device)
+            print(f"Teacher {i + 1} best mIoU: {t_trainer.train():.4f}")
+            members.append(t_trainer.model.state_dict())
+            del t_trainer
+        teacher_sd = members if len(members) > 1 else members[0]
 
     print("=== Distilling student ===")
     train_loader, val_loader = build_loaders(cfg)

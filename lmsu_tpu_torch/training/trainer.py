@@ -16,9 +16,13 @@ gradient, as in optax, so its moments and decay still advance.
 Loss and confusion matrix stay on the device during an epoch and are read
 once at its end, so the loop does not wait on the device per step.
 
+TrainConfig.augment runs inside the train step, on the batch on the
+device, before the forward (ops/augment.py); its stream is keyed by the
+step, so a resume reproduces it. Validation is never augmented.
+
 Not ported yet, and refused by name: scan_steps > 1, onchip_epoch,
-onchip_eval=True, augmentation, data/model parallelism, SIGTERM handling,
-async and snapshot checkpoints, debug_nans, progress bars.
+onchip_eval=True, data/model parallelism, SIGTERM handling, async and
+snapshot checkpoints, debug_nans, progress bars.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from lmsu_tpu_torch.config import ExperimentConfig
 from lmsu_tpu_torch.inference import resolve_device
 from lmsu_tpu_torch.models import create_model
 from lmsu_tpu_torch.models.factory import check_kernel_shapes
+from lmsu_tpu_torch.ops import augment
 from lmsu_tpu_torch.ops.losses import weighted_cross_entropy
 from lmsu_tpu_torch.ops.metrics import confusion_matrix, iou_from_confusion
 from lmsu_tpu_torch.training import checkpoint as ckpt
@@ -49,7 +54,6 @@ def check_train_config(config: ExperimentConfig) -> None:
         "TrainConfig.onchip_epoch": tc.onchip_epoch,
         "TrainConfig.onchip_eval=True": tc.onchip_eval is True,
         "TrainConfig.onchip_contiguous": tc.onchip_contiguous,
-        "TrainConfig.augment (augmentation)": tc.augment.enabled,
         "TrainConfig.handle_sigterm": tc.handle_sigterm,
         "TrainConfig.async_checkpoint": tc.async_checkpoint,
         "TrainConfig.snapshot_every": tc.snapshot_every is not None,
@@ -107,6 +111,8 @@ class Trainer:
     def __init__(self, config: ExperimentConfig, train_loader, val_loader, *,
                  device="cuda", model=None):
         check_train_config(config)
+        augment.check_augment_compat(config.train.augment, config.model.lidar.scatter_impl,
+                                     cache_teacher=config.train.kd.cache_teacher)
         self.device = resolve_device(device)
         self.config = config
         self.train_loader = train_loader
@@ -151,7 +157,21 @@ class Trainer:
         for k in ("point_valid", "sample_mask"):
             if k in batch:
                 out[k] = t(batch[k], torch.bool)
+        if "sample_index" in batch:
+            out["sample_index"] = t(batch["sample_index"], torch.long)
         return out
+
+    def _augmented(self, b: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """TrainConfig.augment applied to a batch on the device (identity
+        when off), with the draws of the current step."""
+        aug = self.config.train.augment
+        if not aug.enabled:
+            return b
+        gen = augment.step_generator(self.config.train.seed, aug.seed_offset, self.step,
+                                     self.device)
+        return augment.apply_augment(b, augment.draw_augment(gen, aug, b), aug,
+                                     pc_range=self.config.data.pc_range,
+                                     ignore_index=self.config.train.ignore_index)
 
     def _apply_update(self, loss: torch.Tensor) -> None:
         """Backward, optional clipping, AdamW at schedule(step), EMA."""
@@ -171,7 +191,7 @@ class Trainer:
 
     def train_step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """One CE step on `batch`; returns (loss, confusion matrix) on the device."""
-        b = self._to_device(batch)
+        b = self._augmented(self._to_device(batch))
         tc = self.config.train
         self.model.train()
         logits = self.model(b["image"], b["points"], b.get("point_valid"))

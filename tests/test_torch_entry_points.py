@@ -21,8 +21,10 @@ from lmsu_tpu.config import LidarEncoderConfig as JLidar
 from lmsu_tpu.config import preset_fusion_ablation as jax_preset
 from lmsu_tpu.models import create_model as jax_create_model
 from lmsu_tpu.models import get_architecture_summary as jax_summary
-from lmsu_tpu_torch import evaluate, train_fusion_ablation, train_synthetic
-from lmsu_tpu_torch.config import CameraEncoderConfig, preset_fusion_ablation
+from lmsu_tpu_torch import evaluate, train_distill, train_fusion_ablation, train_synthetic
+from lmsu_tpu_torch.common import STANDARD_AUGMENT
+from lmsu_tpu_torch.config import (AugmentConfig, CameraEncoderConfig, preset_fusion_ablation,
+                                   teacher_config)
 
 torch.set_num_threads(2)
 
@@ -154,10 +156,17 @@ def test_common_flags_are_the_ported_options_only():
     """Flags of options the port refuses are absent (argparse rejects them);
     --fusion-type takes the four fusions."""
     p = train_synthetic.make_parser()
-    for flag in ("--onchip-epoch", "--augment", "--model-parallel", "--data-root",
+    for flag in ("--onchip-epoch", "--model-parallel", "--data-root",
                  "--scan-steps", "--lidar-encoder", "--async-checkpoint"):
         with pytest.raises(SystemExit):
             p.parse_args([flag])
+    # Augmentation is ported: --augment is the standard recipe, an --aug-*
+    # flag sets its term (alone, without --augment).
+    assert not train_synthetic.build_config(p.parse_args([])).train.augment.enabled
+    aug = train_synthetic.build_config(p.parse_args(["--augment"])).train.augment
+    assert dataclasses.asdict(aug) == dataclasses.asdict(AugmentConfig(**STANDARD_AUGMENT))
+    aug = train_synthetic.build_config(p.parse_args(["--aug-brightness", "0.2"])).train.augment
+    assert (aug.enabled, aug.brightness, aug.hflip_prob, aug.point_dropout) == (True, 0.2, 0, 0)
     for fusion in ("concat", "minimal", "weighted", "gated_sum"):
         cfg = train_synthetic.build_config(p.parse_args(["--fusion-type", fusion,
                                                          "--fusion-channels", "64"]))
@@ -165,3 +174,83 @@ def test_common_flags_are_the_ported_options_only():
     cfg = train_synthetic.build_config(p.parse_args(["--bf16", "--epochs", "2"]))
     assert cfg.model.compute_dtype == torch.bfloat16 and cfg.train.num_epochs == 2
     assert np.isclose(cfg.train.lr, 1e-3)
+
+
+# -- the best KD recipe through train_distill ---------------------------------
+
+RECIPE = ["--difficulty", "hard", "--fusion-type", "minimal", "--fusion-channels", "128",
+          "--train-teacher", "--cache-teacher", "--cache-hbm-gb", "6", "--temperature", "4",
+          "--augment", "--aug-hflip", "0", "--scatter-impl", "pallas", "--use-pallas-kd"]
+
+
+def small_distill(monkeypatch):
+    """train_distill's configurations with small() students and their 2x
+    teachers."""
+    real = train_distill.build_configs
+
+    def build(args):
+        cfg = small(real(args)[0])
+        return cfg, teacher_config(cfg.model, args.teacher_width)
+    monkeypatch.setattr(train_distill, "build_configs", build)
+
+
+def test_train_distill_runs_the_best_recipe(tmp_path, monkeypatch, capsys):
+    """scripts/experiment_best_overall.py's flags (without --scan-steps): a
+    minimal/128 student, T=4, the standard augmentation without the flip in
+    both phases, the cache on the device under a 6 GiB budget, the unsorted
+    scatter and the feature-MSE kernel (their plain versions here). One
+    teacher epoch and one distill epoch, 6 samples in batches of 4 (the last
+    one padded)."""
+    cfg, _ = train_distill.build_configs(train_distill.make_parser().parse_args(RECIPE))
+    kd, aug = cfg.train.kd, cfg.train.augment
+    assert (cfg.model.fusion_type, cfg.model.fusion_out_channels) == ("minimal", 128)
+    assert (kd.cache_teacher, kd.cache_hbm_limit_bytes, kd.temperature, kd.use_pallas,
+            kd.ensemble_size) == (True, 6 << 30, 4.0, True, 1)
+    assert dataclasses.asdict(aug) == dataclasses.asdict(
+        AugmentConfig(**{**STANDARD_AUGMENT, "hflip_prob": 0.0}))
+    assert cfg.model.lidar.scatter_impl == "pallas"
+    small_distill(monkeypatch)
+    run = tmp_path / "student"
+    best = train_distill.main(RECIPE + ["--device", "cpu", "--epochs", "1", "--teacher-epochs",
+                                        "1", "--num-train", "6", "--num-val", "4",
+                                        "--batch-size", "4", "--num-workers", "0",
+                                        "--save-dir", str(run)])
+    out = capsys.readouterr().out
+    assert "teacher cache: " in out and "on the device (6 samples" in out
+    for d in (run, tmp_path / "student_teacher"):
+        hist = json.loads((d / "training_history.json").read_text())
+        assert len(hist["train_loss"]) == 1 and np.isfinite(hist["train_loss"]).all()
+    assert np.isfinite(best)
+
+
+def test_train_distill_trains_an_ensemble_of_teachers(tmp_path, monkeypatch, capsys):
+    """--train-teacher --num-teachers 2: two members with seeds 0 and 1000
+    in <save-dir>_teacher and <save-dir>_teacher1, then distillation from
+    their average."""
+    small_distill(monkeypatch)
+    run = tmp_path / "student"
+    train_distill.main(["--device", "cpu", "--train-teacher", "--num-teachers", "2",
+                        "--epochs", "1", "--save-dir", str(run)] + DATA)
+    out = capsys.readouterr().out
+    assert "training teacher 1/2" in out and "training teacher 2/2" in out
+    members = [torch.load(tmp_path / name / "latest.pth", weights_only=False)["model_state"]
+               for name in ("student_teacher", "student_teacher1")]
+    assert not all(torch.equal(members[0][k], v) for k, v in members[1].items())
+    assert (run / "latest.pth").exists()
+    args = train_distill.make_parser().parse_args(["--num-teachers", "2"])
+    assert train_distill.build_configs(args)[0].train.kd.ensemble_size == 2
+    args = train_distill.make_parser().parse_args(["--teacher-checkpoint", "a.pth",
+                                                   "--teacher-checkpoint", "b.pth"])
+    kd = train_distill.build_configs(args)[0].train.kd
+    assert (kd.teacher_checkpoints, kd.teacher_checkpoint) == (("a.pth", "b.pth"), None)
+
+
+def test_train_distill_rejects_unported_flags():
+    """PointPillars (--teacher-lidar-encoder), teacher partitioning
+    (--teacher-partition) and scan steps are not ported: argparse rejects
+    their flags."""
+    p = train_distill.make_parser()
+    for argv in (["--teacher-lidar-encoder", "pointpillars"], ["--teacher-partition", "fsdp"],
+                 ["--scan-steps", "13"]):
+        with pytest.raises(SystemExit):
+            p.parse_args(argv)

@@ -117,22 +117,41 @@ def test_resumed_run_ends_where_the_full_run_ends(full_run, tmp_path):
     ("MeshConfig", "mesh"),
 ])
 def test_unported_options_are_refused_by_name(tmp_path, option, field):
+    """Options the port does not have raise NotImplementedError naming
+    them. Augmentation, the teacher cache and ensembles are ported: they
+    are refused, by name, where the JAX package refuses them (ValueError):
+    a point-moving term with the sorted scatter, the flip with the cache,
+    one state dict for a two-member ensemble."""
     import dataclasses
 
     from lmsu_tpu_torch.config import AugmentConfig, MeshConfig
     cfg = _config(tmp_path)
     tc = cfg.train
+    teacher_sd, error = None, NotImplementedError
     if field == "augment":
-        cfg = cfg.replace(train=dataclasses.replace(tc, augment=AugmentConfig(enabled=True)))
+        cfg = cfg.replace(train=dataclasses.replace(
+            tc, augment=AugmentConfig(enabled=True, point_dropout=0.05)))
+        option, error = "sorted_pallas", ValueError
     elif field == "mesh":
         cfg = cfg.replace(mesh=MeshConfig(model_parallel=2))
     elif option in ("cache_teacher", "ensemble", "teacher_partition"):
         cfg = cfg.replace(train=dataclasses.replace(tc, kd=dataclasses.replace(tc.kd, **field)))
+        if option == "cache_teacher":
+            cfg = cfg.replace(train=dataclasses.replace(
+                cfg.train, augment=AugmentConfig(enabled=True, hflip_prob=0.5)),
+                model=cfg.model.replace(lidar=dataclasses.replace(cfg.model.lidar,
+                                                                  scatter_impl="pallas")))
+            error = ValueError
+        elif option == "ensemble":
+            from lmsu_tpu_torch.config import teacher_config
+            from lmsu_tpu_torch.models import create_model
+            teacher_sd = create_model(teacher_config(cfg.model, 2.0)).state_dict()
+            error = ValueError
     else:
         cfg = cfg.replace(train=dataclasses.replace(tc, **field))
     match = {"ensemble": "ensemble", "MeshConfig": "parallelism"}.get(option, option)
-    with pytest.raises(NotImplementedError, match=match):
-        DistillationTrainer(cfg, [], [], device="cpu")
+    with pytest.raises(error, match=match):
+        DistillationTrainer(cfg, [], [], device="cpu", teacher_state_dict=teacher_sd)
 
 
 def test_ce_trainer_evaluates_with_ema_weights(tmp_path):
