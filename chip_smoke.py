@@ -122,7 +122,36 @@ Phases:
              device time of the augmentation and of the gather printed; loss
              must fall); a K=2 ensemble (its logits and taps the members'
              mean, one B=8 step; K=1 the single teacher bit for bit) and its
-             in-loop B=128 f32 step.
+             in-loop B=128 f32 step. Then this slice's paths: both published
+             KD recipes whole through `train_distill` with --scan-steps 13
+             (the 13 batches of 400 samples at B=32 make one chunk), with and
+             without --onchip-epoch: the best one (minimal/128) and the
+             cross-architecture one (a weighted/128 PointPillars student,
+             a spatial 2x teacher); K6 and K7 must launch in each; each
+             phase's epoch seconds and input stall printed. The best recipe's
+             distill epoch through each loop from the same weights
+             (recipe_loops: host loop, 13-step chunk, on-device epoch,
+             contiguous on-device epoch; seconds and the idle share of a
+             profiled epoch each; deterministic cuDNN; each held to the host
+             loop, in the on-device epoch's order for those, by hold_epoch: the same
+             inputs at every step bit for bit, the first step's loss within
+             1e-5, the epoch within 10x the host loop's spread);
+             its spilled distill (now gathering a chunk's rows on the host).
+             A train_distill child with --handle-sigterm gets SIGTERM in its
+             first epoch, exits 0 after it, and --resume --async-checkpoint
+             --snapshot-every 1 finishes the run (epoch_002.pth loads as a
+             teacher); an async save equals a synchronous one bit for bit;
+             debug_nans raises at a LiDAR module on a NaN intensity, on the
+             kernel path. The pillar student at full width (528,324
+             parameters) with its spatial teacher: the B=8 step against the
+             plain path (hold_step + 10x the plain step's spread under 1e-7),
+             the in-loop B=128 step in f32 and bf16 (K1, K2, K5, K7 launch;
+             step ms, idle share, peak memory, device ms by kernel), one B=8
+             serving forward with fused_inference (K1, K2, K3). Remat: the
+             B=128 f32 in-loop step with CameraEncoderConfig.remat against
+             the step without it, unfused and fused_train, deterministic
+             cuDNN, hold_step's fixed limits; then both timed (5 steps each)
+             with their peak memory.
 
 Output: the card's name and power limit (nvidia-smi), then per-phase lines,
 the whole run's seconds, then one `{"kernels": [...]}` JSON line, the serving and train summaries,
@@ -1552,20 +1581,29 @@ def phase_kernels(dev):
 # ModelConfig(num_classes=2)'s own defaults, concat/256.
 MODELS = {"weighted": ("weighted", 128, "same"), "concat": ("concat", 256, "same"),
           "minimal": ("minimal", 128, "same"), "gated_sum": ("gated_sum", 128, "same"),
-          "minimal_x4": ("minimal", 128, "x4")}
+          "minimal_x4": ("minimal", 128, "x4"), "weighted_pillars": ("weighted", 128, "same")}
+# The LiDAR encoder of each model (spatial unless named here): the
+# cross-architecture recipe's student, whose teacher stays spatial.
+ENCODERS = {"weighted_pillars": "pointpillars"}
+
+
+def lidar_config(model, scatter):
+    from lmsu_tpu_torch.config import LidarEncoderConfig
+    return LidarEncoderConfig(scatter_impl=scatter,
+                              encoder_type=ENCODERS.get(model, "spatial"))
 
 
 def serving_config(dtype, kernels=True, scatter="sorted_pallas", model="weighted"):
     """`model` at full width with the kernel opt-ins (the scatter `scatter`,
     fused_inference, and the fused gate where the fusion is weighted, the
     only one that has it) or without them (the xla scatter)."""
-    from lmsu_tpu_torch.config import CameraEncoderConfig, LidarEncoderConfig, ModelConfig
+    from lmsu_tpu_torch.config import CameraEncoderConfig, ModelConfig
     fusion, channels, head = MODELS[model]
     return ModelConfig(
         num_classes=2, fusion_type=fusion, fusion_out_channels=channels, output_mode=head,
         use_pallas_fusion=kernels and fusion == "weighted",
         camera=CameraEncoderConfig(fused_inference=kernels),
-        lidar=LidarEncoderConfig(scatter_impl=scatter if kernels else "xla"),
+        lidar=lidar_config(model, scatter if kernels else "xla"),
         compute_dtype=dtype)
 
 
@@ -1628,8 +1666,8 @@ def check_model_forward(dev, model):
     blocks K3; the points cell-sorted by the Predictor) against the same
     weights on the plain path (the xla scatter on the points in another
     order, unfused blocks): within 1e-3, as the serving check (b). K1 and K3
-    must launch in the kernel path's forward, K2 (the weighted fusion's
-    gate) must not."""
+    must launch in the kernel path's forward; K2 (the weighted fusion's
+    gate) must launch for a weighted model and must not for the others."""
     from lmsu_tpu_torch.inference import Predictor
     from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
     pred = Predictor(serving_config(torch.float32, model=model), device=dev, seed=0)
@@ -1649,8 +1687,9 @@ def check_model_forward(dev, model):
     err = float(np.abs(a - b).max())
     if a.shape != (B, GRID * up, GRID * up, 2) or not np.isfinite(a).all() or err > 1e-3:
         raise AssertionError(f"{model}: kernel path != plain path: shape {a.shape}, {err:g}")
+    gate = MODELS[model][0] == "weighted"
     if (any(launches[k] <= 0 for k in ("scatter_sorted_fwd", "ir_fused_infer"))
-            or launches["fusion_gate"]):
+            or bool(launches["fusion_gate"]) != gate):
         raise AssertionError(f"{model}: launches in the forward: {launches}")
     return {"err_kernels_vs_plain_path": err, "logits_shape": list(a.shape),
             "launches": {k: n for k, n in launches.items() if n}}
@@ -1786,29 +1825,41 @@ def phase_serving(dev, dtype, state_dict=None, scatter="sorted_pallas", n_frames
 
 
 def train_config(dtype, kernels=True, batch=TRAIN_B, save_dir=None, fused_train=False,
-                 scatter="sorted_pallas", model="weighted", augment=None, kd=None):
+                 scatter="sorted_pallas", model="weighted", augment=None, kd=None,
+                 remat=False):
     """The KD student step of bench.py: the student `model` (MODELS; the
     weighted/128 student unless said), its 2x teacher, AdamW lr 1e-3
     (constant: eta_min = lr) and wd 1e-3, class weights (0.4, 3.5), the
     three default taps; kernels on (with the scatter `scatter`, and the
     fused gate where the fusion is weighted) or off; the student's
-    InvertedResidual stages fused in training (K8-K13) or not; `augment`
-    an AugmentConfig, `kd` more KDConfig fields (the recipe's temperature,
-    the cache, an ensemble)."""
+    InvertedResidual stages fused in training (K8-K13) or not, and
+    rematerialised (`remat`) or not; `augment` an AugmentConfig, `kd` more
+    KDConfig fields (the recipe's temperature, the cache, an ensemble). The
+    teacher is teacher_for(config)."""
     from lmsu_tpu_torch.config import (AugmentConfig, CameraEncoderConfig, DataConfig,
-                                       ExperimentConfig, KDConfig, LidarEncoderConfig,
-                                       ModelConfig, TrainConfig)
+                                       ExperimentConfig, KDConfig, ModelConfig, TrainConfig)
     fusion, channels, head = MODELS[model]
     student = ModelConfig(num_classes=2, fusion_type=fusion, fusion_out_channels=channels,
                           output_mode=head, use_pallas_fusion=kernels and fusion == "weighted",
-                          camera=CameraEncoderConfig(fused_train=fused_train),
-                          lidar=LidarEncoderConfig(scatter_impl=scatter if kernels else "xla"),
+                          camera=CameraEncoderConfig(fused_train=fused_train, remat=remat),
+                          lidar=lidar_config(model, scatter if kernels else "xla"),
                           compute_dtype=dtype)
     train = TrainConfig(lr=1e-3, eta_min=1e-3, weight_decay=1e-3, class_weights=(0.4, 3.5),
                         kd=KDConfig(enabled=True, use_pallas=kernels, **(kd or {})),
                         augment=augment or AugmentConfig(),
                         save_dir=save_dir or os.path.join("build", "train_smoke"))
     return ExperimentConfig(model=student, data=DataConfig(batch_size=batch), train=train)
+
+
+def teacher_for(cfg):
+    """The 2x teacher of a train_config: teacher_config of the student, with
+    the spatial LiDAR encoder (a pillar student's teacher is spatial, as in
+    the cross-architecture recipe; for the others this changes nothing)."""
+    import dataclasses
+
+    from lmsu_tpu_torch.config import teacher_config
+    t = teacher_config(cfg.model, 2.0)
+    return t.replace(lidar=dataclasses.replace(t.lidar, encoder_type="spatial"))
 
 
 def train_batch(rng, batch, dev, sort=True):
@@ -1921,7 +1972,8 @@ def kd_step(dev, batch, cfg, perturb: float = 0.0, twins: bool = False):
     place (the wrappers take them only for CPU tensors)."""
     from lmsu_tpu_torch.ops import ir_fused as irf
     from lmsu_tpu_torch.training import DistillationTrainer
-    tr = DistillationTrainer(cfg, [batch], [batch], device=dev)
+    tr = DistillationTrainer(cfg, [batch], [batch], device=dev,
+                             teacher_model_config=teacher_for(cfg))
     if perturb:
         gen = torch.Generator().manual_seed(3)
         with torch.no_grad():
@@ -2040,7 +2092,8 @@ def hold_step(what, got, want, noise=None, jumps=None) -> dict:
     return out
 
 
-def check_kernel_vs_plain_step(dev, scatter="sorted_pallas", model="weighted"):
+def check_kernel_vs_plain_step(dev, scatter="sorted_pallas", model="weighted",
+                               perturb: float = 0.0):
     """One f32 KD step of the student `model` at B=8, TF32 off: the kernel
     path (sorted scatter K1+K5, or with scatter="pallas" the unsorted
     scatter K6 with the dense backward; fused gate K2 for the weighted
@@ -2055,13 +2108,21 @@ def check_kernel_vs_plain_step(dev, scatter="sorted_pallas", model="weighted"):
     G term is for the biases that a train-mode BatchNorm follows: their true
     gradient is 0 and both paths give rounding noise. Both scatters get the
     same cell-sorted batch (the pallas one takes any order), so the two
-    checks differ by the scatter alone."""
+    checks differ by the scatter alone. With `perturb`, each limit also
+    gains ten times the plain step's own spread under that perturbation of
+    the weights (hold_step's `noise`, as check_fused_step holds the fused
+    step): the pillar student's step, whose camera-encoder gradients (convs
+    that a train-mode BatchNorm follows: sums that cancel) read 1.6e-3
+    relative L2 from the plain path's, over the fixed 1e-3, in a first
+    call on the card."""
     rng = np.random.default_rng(11)
     batch = train_batch(rng, B, dev)
+    plain = train_config(torch.float32, False, B, model=model)
     return hold_step(f"KD step of {model}, kernel path ({scatter}) vs plain path",
                      kd_step(dev, batch, train_config(torch.float32, True, B, scatter=scatter,
                                                       model=model)),
-                     kd_step(dev, batch, train_config(torch.float32, False, B, model=model)))
+                     kd_step(dev, batch, plain),
+                     noise=kd_step(dev, batch, plain, perturb=perturb) if perturb else None)
 
 
 def check_fused_step(dev):
@@ -2197,7 +2258,7 @@ SPANS = ("augment", "teacher_cache_gather")
 
 def phase_train(dev, dtype, warmup: int = 3, steps: int = 10, variants=("in_loop", "cached"),
                 fused_train=False, scatter="sorted_pallas", model="weighted", augment=None,
-                kd=None):
+                kd=None, remat=False):
     """The KD step at B=128 through DistillationTrainer.train_step on one
     fixed batch: in-loop teacher, then cached teacher (its outputs computed
     once for the batch, bench.py:233-244); "dataset_cache", the trainer's
@@ -2214,7 +2275,7 @@ def phase_train(dev, dtype, warmup: int = 3, steps: int = 10, variants=("in_loop
     name = "f32" if dtype == torch.float32 else "bf16"
     kd = dict(kd or {})
     tag = " ".join(([model] if model != "weighted" else []) + [name]
-                   + (["fused_train"] if fused_train else [])
+                   + (["fused_train"] if fused_train else []) + (["remat"] if remat else [])
                    + ([scatter] if scatter != "sorted_pallas" else [])
                    + (["augment"] if augment else [])
                    + ([f"ensemble {kd['ensemble_size']}"] if "ensemble_size" in kd else []))
@@ -2225,9 +2286,10 @@ def phase_train(dev, dtype, warmup: int = 3, steps: int = 10, variants=("in_loop
     if "dataset_cache" in variants:
         kd["cache_teacher"] = True
     loader = OneBatchLoader(batch) if "dataset_cache" in variants else [batch]
-    tr = DistillationTrainer(train_config(dtype, fused_train=fused_train, scatter=scatter,
-                                          model=model, augment=augment, kd=kd),
-                             loader, [batch], device=dev)
+    cfg = train_config(dtype, fused_train=fused_train, scatter=scatter, model=model,
+                       augment=augment, kd=kd, remat=remat)
+    tr = DistillationTrainer(cfg, loader, [batch], device=dev,
+                             teacher_model_config=teacher_for(cfg))
     tr._augmented = spanned("augment", tr._augmented)
     tr.gather_teacher = spanned("teacher_cache_gather", tr.gather_teacher)
     out = {}
@@ -2355,13 +2417,23 @@ def run_synthetic_cli(dev):
 
 # -- the best KD recipe (best_overall_results.json) -----------------------------
 
-# scripts/experiment_best_overall.py's flags without --scan-steps, one teacher
-# epoch and one distill epoch on 400 + 64 hard synthetic samples.
+# scripts/experiment_best_overall.py's flags (--scan-steps 13: the 13 batches
+# of 400 samples at B=32 make one chunk), one teacher epoch and one distill
+# epoch on 400 + 64 hard synthetic samples.
 RECIPE_ARGS = ["--difficulty", "hard", "--num-train", "400", "--num-val", "64",
                "--batch-size", "32", "--epochs", "1", "--teacher-epochs", "1",
                "--fusion-type", "minimal", "--fusion-channels", "128", "--cache-teacher",
-               "--temperature", "4", "--augment", "--aug-hflip", "0", "--scatter-impl", "pallas",
-               "--use-pallas-kd", "--num-workers", "4"]
+               "--temperature", "4", "--augment", "--aug-hflip", "0", "--scan-steps", "13",
+               "--scatter-impl", "pallas", "--use-pallas-kd", "--num-workers", "4"]
+# scripts/experiment_crossarch_best.py's flags (a weighted/128 PointPillars
+# student, a spatial 2x teacher), at the same depth, with the pallas scatter
+# and the feature-MSE kernel.
+CROSSARCH_ARGS = ["--difficulty", "hard", "--num-train", "400", "--num-val", "64",
+                  "--batch-size", "32", "--epochs", "1", "--teacher-epochs", "1",
+                  "--lidar-encoder", "pointpillars", "--teacher-lidar-encoder", "spatial",
+                  "--cache-teacher", "--temperature", "4", "--augment", "--aug-hflip", "0",
+                  "--scan-steps", "13", "--scatter-impl", "pallas", "--use-pallas-kd",
+                  "--num-workers", "4"]
 
 
 def recipe_augment():
@@ -2421,32 +2493,36 @@ def check_augment_on_card(dev):
     return res
 
 
-def run_recipe_cli(dev, d):
-    """The best KD recipe through `python -m lmsu_tpu_torch.train_distill` at
-    full width: one teacher epoch, the cache on the device under a 6 GiB
+def run_recipe_cli(dev, d, name="student", args=None, extra=()):
+    """A KD recipe through `python -m lmsu_tpu_torch.train_distill` at full
+    width (the best recipe, RECIPE_ARGS, unless `args` say otherwise, plus
+    `extra`): one teacher epoch, the cache on the device under a 6 GiB
     budget (its size printed), one distill epoch; the history is written,
-    K6 and K7 launched."""
+    K6 and K7 launched. Returns the run's seconds, each phase's epoch line
+    (its seconds and input stall) and the launches."""
     from lmsu_tpu_torch import train_distill
     from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
-    run = os.path.join(d, "student")
+    run = os.path.join(d, name)
     reset_launch_counts()
     tee = Tee(sys.stdout)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         best = train_distill.main(["--device", str(dev), "--train-teacher", "--cache-hbm-gb", "6",
-                                   "--save-dir", run] + RECIPE_ARGS)
+                                   "--save-dir", run] + list(args or RECIPE_ARGS) + list(extra))
     secs = time.perf_counter() - t0
     launches = {k: v.launches for k, v in kernels().items()}
-    cache = [ln for ln in tee.kept.getvalue().splitlines() if ln.startswith("teacher cache:")]
+    lines = tee.kept.getvalue().splitlines()
+    cache = [ln for ln in lines if ln.startswith("teacher cache:")]
+    epochs = [ln.split("]")[0] + "]" for ln in lines if ln.startswith("Epoch 1/1")]
     with open(os.path.join(run, "training_history.json")) as f:
         hist = json.load(f)
     if (len(cache) != 1 or "on the device" not in cache[0] or not np.isfinite(best)
-            or len(hist["train_loss"]) != 1
+            or len(hist["train_loss"]) != 1 or len(epochs) != 2
             or any(launches[k] <= 0 for k in ("voxelize_scatter_max", "kd_feature_mse"))):
-        raise AssertionError(f"recipe: cache {cache}, best {best}, history {hist}, "
+        raise AssertionError(f"recipe {name}: cache {cache}, best {best}, history {hist}, "
                              f"launches {launches}")
     return {"seconds": secs, "best_val_miou": best, "cache": cache[0], "history": hist,
-            "launches": launches}
+            "epochs_teacher_then_student": epochs, "launches": launches}
 
 
 def check_recipe_spill(dev, d):
@@ -2551,6 +2627,397 @@ def check_ensemble(dev):
     return res
 
 
+# -- chained steps, on-device epochs, run control -----------------------------
+
+
+class PermutedLoader:
+    """Host batches of a materialized set in the order of a permutation:
+    the host loop over the on-device epoch's batches."""
+
+    def __init__(self, host, perm, batch):
+        self.host, self.perm, self.batch = host, perm, batch
+
+    def __len__(self):
+        return len(self.perm) // self.batch
+
+    def __iter__(self):
+        for i in range(len(self)):
+            idx = self.perm[i * self.batch:(i + 1) * self.batch]
+            yield {k: v[idx] for k, v in self.host.items()}
+
+
+def epoch_result(tr, before, loss, log):
+    """(epoch loss, update of every parameter over the epoch, BN running
+    statistics in float64, and the steps' `instrument` log: fingerprints
+    stacked [steps, tensors], losses)."""
+    stats = {k: v.detach().double() for k, v in tr.model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    steps = {k: torch.stack(v) for k, v in log.items() if k != "loss"}
+    return (loss, {k: (p.detach() - before[k]).double() for k, p in tr.params.items()}, stats,
+            {**steps, "loss": list(log["loss"])})
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def fingerprint(tensors) -> torch.Tensor:
+    """An exact checksum of each tensor, on the device, no read-back: the
+    sum of its elements' bits (as integers) times their position's weight,
+    in wrapping int64 arithmetic, so the order of the sum does not matter."""
+    sums = []
+    for t in tensors:
+        t = t.contiguous()
+        bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+        flat = t.view(bits).reshape(-1).long()
+        sums.append((flat * (torch.arange(flat.numel(), device=t.device) % 65521 + 1)).sum())
+    return torch.stack(sums)
+
+
+def instrument(tr) -> dict:
+    """Record, for every train step of `tr`, a fingerprint of the batch the
+    step trains on (on the device, before augmentation), of the teacher
+    rows it gets (gathered from the cache or passed in) and its loss."""
+    log = {"batch": [], "teacher": [], "loss": []}
+    step, augmented, gather = tr.train_step, tr._augmented, tr.gather_teacher
+
+    def taps(out):
+        return fingerprint([out[0]] + [out[1][k] for k in sorted(out[1])])
+
+    def train_step(batch, teacher_out=None):
+        if teacher_out is not None:
+            log["teacher"].append(taps(teacher_out))
+        loss, cm = step(batch, teacher_out=teacher_out)
+        log["loss"].append(loss)
+        return loss, cm
+
+    def augmented_(b):
+        log["batch"].append(fingerprint([b[k] for k in sorted(b)]))
+        return augmented(b)
+
+    def gather_teacher(batch, b):
+        out = gather(batch, b)
+        log["teacher"].append(taps(out))
+        return out
+    tr.train_step, tr._augmented, tr.gather_teacher = train_step, augmented_, gather_teacher
+    return log
+
+
+def hold_epoch(what, got, want, noise) -> dict:
+    """Hold an epoch `got` (epoch_result) against `want`, with `noise` the
+    `want` epoch from weights moved by 1e-6 of themselves:
+      inputs            every step's batch and teacher rows bit for bit
+                        (fingerprints), in `noise` too: the loops must feed
+                        the same data in the same order;
+      the first step    its loss |d| <= 1e-5 |l| (same weights, same data);
+      the epoch loss, each BN running statistic
+                        hold_step's fixed limits (1e-5 |l|; 1e-4 max|s| +
+                        1e-6) plus 10x the spread N, uncapped;
+      all parameter updates
+                        relative L2 <= 1e-3 + 10 N, uncapped.
+    hold_step caps the spread (loss 1e-4, gradients 0.1): one step's
+    arithmetic noise stays under those caps, but thirteen AdamW steps carry
+    it far past them. The first calls on the card, with deterministic cuDNN
+    (the stock ops' atomic sums still reorder), read the chunk's epoch loss
+    5.8e-4 relative from the host loop's against a spread of 7.7e-4, and the
+    updates 0.14 relative L2 against 0.32; a single step's loss late in the
+    epoch can move by 10x its own one-sample spread (step 11: 3.2e-3 against
+    3.1e-4), so the steps after the first are printed (the largest ratio of
+    difference to spread), not held one by one. After the first step the
+    spread alone bounds the arithmetic, and the inputs, held exactly, carry
+    the check that the loops train on the same batches."""
+    (la, ua, sa, ga), (lb, ub, sb, gb), (lp, up, sp, gp) = got, want, noise
+    for k in ("batch", "teacher"):
+        if not (torch.equal(ga[k], gb[k]) and torch.equal(gp[k], gb[k])):
+            bad = [i for i in range(len(gb[k])) if not torch.equal(ga[k][i], gb[k][i])]
+            raise AssertionError(f"{what}: the steps {bad} saw other {k} inputs")
+    losses = [(float(a), float(b), float(c)) for a, b, c in zip(ga["loss"], gb["loss"],
+                                                                  gp["loss"])]
+    if not abs(losses[0][0] - losses[0][1]) <= 1e-5 * abs(losses[0][1]):
+        raise AssertionError(f"{what}: first step's loss {losses[0]}")
+    if not abs(la - lb) <= 1e-5 * abs(lb) + 10 * abs(lp - lb):
+        raise AssertionError(f"{what}: epoch loss {la} != {lb} (perturbed {lp})")
+    step_ratio = max(abs(a - b) / max(abs(c - b), 1e-12) for a, b, c in losses[1:])
+    norm = sum((u ** 2).sum().item() for u in ub.values()) ** 0.5
+    rel = sum(((ua[k] - ub[k]) ** 2).sum().item() for k in ub) ** 0.5 / norm
+    spread = sum(((up[k] - ub[k]) ** 2).sum().item() for k in ub) ** 0.5 / norm
+    if not rel <= 1e-3 + 10 * spread:
+        raise AssertionError(f"{what}: updates' relative L2 error {rel:g}, spread {spread:g}")
+    worst = (0.0, "")
+    for k in sb:
+        e = (sa[k] - sb[k]).abs().max().item()
+        tol = 1e-4 * sb[k].abs().max().item() + 1e-6 + 10 * (sp[k] - sb[k]).abs().max().item()
+        if not e <= tol:
+            raise AssertionError(f"{what}: bn_stat {k}: err {e:g} > {tol:g}")
+        worst = max(worst, (e / tol, k))
+    return {"steps_same_inputs": len(losses), "first_step_loss": losses[0],
+            "loss": la, "loss_want": lb, "loss_perturbed": lp,
+            "later_steps_max_loss_err_over_spread": step_ratio, "update_rel_l2_err": rel,
+            "update_rel_l2_spread": spread, "bn_stat_worst_err_over_limit": worst[0],
+            "bn_stat_worst": worst[1]}
+
+
+def same_epoch(a, b) -> bool:
+    """Whether two epoch_result()s are equal bit for bit."""
+    return (a[0] == b[0] and all(torch.equal(a[1][k], b[1][k]) for k in b[1])
+            and all(torch.equal(a[2][k], b[2][k]) for k in b[2])
+            and all(torch.equal(x, y) for x, y in zip(a[3]["loss"], b[3]["loss"])))
+
+
+def recipe_loops(dev, d):
+    """The best recipe's distill epoch (its flags, the teacher the CLI
+    trained, the cache on the device) through each loop, from the same
+    weights: the host loop (scan_steps 1), the 13-step chunk (scan_steps
+    13: the epoch's 13 batches in one chunk), the on-device epoch and the
+    contiguous on-device epoch. Each epoch's seconds (synchronised) and,
+    over one more profiled epoch, the device's idle share. The chunk is
+    held to the host loop, and the on-device epochs to the host loop run
+    over the same permuted batches, by hold_epoch: every step's inputs bit
+    for bit, the first step's loss within 1e-5, the epoch's loss, updates
+    and BN statistics within hold_step's fixed limits plus 10x the host
+    loop's own spread (the same epoch from weights moved by 1e-6 of
+    themselves), uncapped. The epochs run with
+    deterministic cuDNN; whether the loops then agree bit for bit is
+    printed, not asked. One teacher cache serves every trainer."""
+    import dataclasses
+
+    from lmsu_tpu_torch import train_distill
+    from lmsu_tpu_torch.common import build_loaders
+    from lmsu_tpu_torch.data import materialize_dataset
+    from lmsu_tpu_torch.training import DistillationTrainer
+    args = train_distill.make_parser().parse_args(
+        RECIPE_ARGS + ["--device", str(dev), "--save-dir", os.path.join(d, "loops"),
+                       "--teacher-checkpoint", os.path.join(d, "student_teacher", "latest.pth")])
+    base, tcfg = train_distill.build_configs(args)
+    base = base.replace(train=dataclasses.replace(base.train, kd=dataclasses.replace(
+        base.train.kd, cache_hbm_limit_bytes=6 << 30)))
+    loaders = build_loaders(base, verbose=False)
+    cache = {}
+
+    def trainer(perturb=0.0, **train):
+        cfg = base.replace(train=dataclasses.replace(base.train, **train))
+        tr = DistillationTrainer(cfg, *loaders, teacher_model_config=tcfg, device=dev)
+        if cache:
+            tr.teacher_cache = cache
+        else:
+            tr.build_teacher_cache()
+            cache.update(tr.teacher_cache)
+        if perturb:
+            gen = torch.Generator().manual_seed(3)
+            with torch.no_grad():
+                for p in tr.params.values():
+                    p.mul_(1 + perturb * torch.randn(p.shape, generator=gen).to(dev))
+        return tr
+
+    def epoch(tr, loader=None, profile=False):
+        loaders[0].set_epoch(0)
+        log = instrument(tr)
+        before = {k: p.detach().clone() for k, p in tr.params.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = tr.train_epoch() if loader is None else tr._run_epoch(loader, True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        res = epoch_result(tr, before, loss, log)
+        out = {"seconds": secs, "loss": loss, "steps": tr.step,
+               "input_stall": tr.last_host_stall_frac}
+        if profile:
+            prof = profile_steps(lambda: (tr.train_epoch() if loader is None
+                                          else tr._run_epoch(loader, True)), reps=1)
+            out.update(idle_share=prof["idle_share"], device_ms=prof["device_ms"],
+                       wall_ms=prof["wall_ms"])
+        return res, out
+
+    report, held = {}, {}
+    with deterministic_cudnn():
+        host, report["host_loop"] = epoch(trainer(), profile=True)
+        host_p, _ = epoch(trainer(perturb=1e-6))
+        chunk, report["chunk_13"] = epoch(trainer(scan_steps=13), profile=True)
+        held["chunk_13_vs_host_loop"] = hold_epoch("recipe epoch: 13-step chunk vs host loop",
+                                                   chunk, host, host_p)
+        held["chunk_13_bit_equal"] = same_epoch(chunk, host)
+        batcher = loaders[0].batcher
+        mat = materialize_dataset(batcher.dataset, batcher.batch_size,
+                                  batcher.sample_transform)
+        perm = np.random.default_rng(np.random.SeedSequence(
+            [base.train.seed, 0, 104729])).permutation(len(mat["sample_mask"]))
+        ordered = PermutedLoader(mat, perm, batcher.batch_size)
+        ref, report["host_loop_in_onchip_order"] = epoch(trainer(), ordered)
+        ref_p, _ = epoch(trainer(perturb=1e-6), ordered)
+        for name, kw in (("onchip", {}), ("onchip_contiguous", {"onchip_contiguous": True})):
+            got, report[name] = epoch(trainer(onchip_epoch=True, **kw), profile=True)
+            held[f"{name}_vs_host_loop"] = hold_epoch(f"recipe epoch: {name} vs host loop",
+                                                      got, ref, ref_p)
+            held[f"{name}_bit_equal"] = same_epoch(got, ref)
+    steps = {v["steps"] for v in report.values()}
+    if steps != {13}:
+        raise AssertionError(f"recipe loops: steps {report}")
+    cache.clear()
+    torch.cuda.empty_cache()
+    return {"epochs": report, "held": held}
+
+
+def check_remat_step(dev):
+    """One in-loop KD step of the weighted/128 student at B=128, f32, with
+    CameraEncoderConfig.remat against the same step without it, unfused and
+    with fused_train, deterministic cuDNN: the loss, every gradient and every
+    BN running statistic after the step held by hold_step's fixed limits
+    (remat recomputes the stages' forwards in the backward pass; the
+    running statistics must move once)."""
+    rng = np.random.default_rng(19)
+    batch = train_batch(rng, TRAIN_B, dev)
+    out = {}
+    with deterministic_cudnn():
+        for fused in (False, True):
+            steps = [kd_step(dev, batch, train_config(torch.float32, fused_train=fused,
+                                                      remat=remat))
+                     for remat in (True, False)]
+            out["fused_train" if fused else "unfused"] = hold_step(
+                f"remat KD step ({'fused' if fused else 'unfused'}) vs the same step without",
+                *steps)
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_sigterm_resume(dev, d):
+    """`python -m lmsu_tpu_torch.train_distill --handle-sigterm` in a child
+    process (weighted/128 student, random 2x teacher, cache on the device,
+    scan_steps 2, 64 + 32 hard samples at B=32, two epochs) gets SIGTERM as
+    its first epoch fills the teacher cache: it must finish that epoch, write
+    latest.pth, say it was preempted and exit 0. `--resume` with
+    `--async-checkpoint --snapshot-every 1` then finishes the run: two
+    epochs in the history, epoch_002.pth written, and it loads as a
+    --teacher-checkpoint."""
+    import signal
+
+    from lmsu_tpu_torch.models import create_model
+    from lmsu_tpu_torch.training.distill import _load_teacher_state
+    run = os.path.join(d, "sigterm")
+    cmd = [sys.executable, "-u", "-m", "lmsu_tpu_torch.train_distill", "--device", str(dev),
+           "--difficulty", "hard", "--num-train", "64", "--num-val", "32", "--batch-size", "32",
+           "--epochs", "2", "--cache-teacher", "--scan-steps", "2", "--scatter-impl", "pallas",
+           "--use-pallas-kd", "--num-workers", "4", "--handle-sigterm", "--save-dir", run]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    out, sent = [], False
+    try:
+        for line in proc.stdout:
+            out.append(line.rstrip())
+            if not sent and line.startswith("teacher cache:"):
+                proc.send_signal(signal.SIGTERM)
+                sent = True
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    first = time.perf_counter() - t0
+    with open(os.path.join(run, "training_history.json")) as f:
+        hist1 = json.load(f)
+    latest = torch.load(os.path.join(run, "latest.pth"), map_location="cpu", weights_only=False)
+    if (rc != 0 or not sent or not any(ln.startswith("Preempted") for ln in out)
+            or len(hist1["val_miou"]) != 1 or latest["epoch"] != 0):
+        raise AssertionError(f"SIGTERM run: rc {rc}, sent {sent}, history {hist1}, "
+                             f"output tail {out[-8:]}")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd + ["--resume", "--async-checkpoint", "--snapshot-every", "1"],
+                         cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, timeout=300)
+    second = time.perf_counter() - t0
+    with open(os.path.join(run, "training_history.json")) as f:
+        hist2 = json.load(f)
+    snap = os.path.join(run, "epoch_002.pth")
+    if (res.returncode != 0 or len(hist2["val_miou"]) != 2
+            or hist2["val_miou"][0] != hist1["val_miou"][0] or not os.path.exists(snap)
+            or os.path.exists(os.path.join(run, "epoch_001.pth"))):
+        raise AssertionError(f"resume after SIGTERM: rc {res.returncode}, history {hist2}, "
+                             f"files {sorted(os.listdir(run))}, "
+                             f"output tail {res.stdout.splitlines()[-8:]}")
+    from lmsu_tpu_torch import train_distill
+    cfg, _ = train_distill.build_configs(train_distill.make_parser().parse_args([]))
+    create_model(cfg.model).load_state_dict(_load_teacher_state(snap), strict=True)
+    return {"preempted_run_seconds": first, "resumed_run_seconds": second,
+            "val_miou": hist2["val_miou"], "files": sorted(os.listdir(run)),
+            "preempt_line": [ln for ln in out if ln.startswith("Preempted")][0]}
+
+
+def check_async_checkpoint(dev, d):
+    """An async save (snapshot included) and a synchronous save of the same
+    trainer state on the card (the weighted/128 student's KD trainer after
+    one B=8 step) load equal, every tensor bit for bit; the async save
+    returns before its write, which the flush waits for."""
+    import dataclasses
+
+    from lmsu_tpu_torch.training import DistillationTrainer
+    from lmsu_tpu_torch.training import checkpoint as ckpt
+    rng = np.random.default_rng(23)
+    batch = train_batch(rng, B, dev)
+    cfg = train_config(torch.float32, batch=B)
+    out = {}
+    tr = DistillationTrainer(cfg, [batch], [batch], device=dev,
+                             teacher_model_config=teacher_for(cfg))
+    tr.train_step(batch)
+    for name, on in (("async", True), ("sync", False)):
+        tr.config = cfg.replace(train=dataclasses.replace(cfg.train, async_checkpoint=on))
+        tr.save_dir = os.path.join(d, f"ckpt_{name}")
+        t0 = time.perf_counter()
+        tr.save_checkpoint(0, 0.5, is_best=True, snapshot=ckpt.snapshot_name(0))
+        out[f"{name}_save_returns_ms"] = (time.perf_counter() - t0) * 1e3
+        tr.flush_checkpoints()
+
+    def equal(x, y):
+        if isinstance(x, torch.Tensor):
+            return x.dtype == y.dtype and torch.equal(x, y)
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(equal(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(equal(u, v) for u, v in zip(x, y))
+        return x == y
+    for f in (ckpt.LATEST, ckpt.BEST, ckpt.snapshot_name(0)):
+        a, s = (ckpt.load_checkpoint(os.path.join(d, f"ckpt_{n}", f)) for n in ("async", "sync"))
+        if not equal(a, s):
+            raise AssertionError(f"async checkpoint {f} differs from the synchronous one")
+    out["files_equal"] = True
+    return out
+
+
+def check_debug_nans(dev):
+    """debug_nans on the kernel path (sorted scatter K1/K5, fused gate K2,
+    K7; weighted/128 at B=8, f32): a clean step runs; one point's intensity
+    NaN raises FloatingPointError at the first LiDAR module, the teacher's
+    in-loop encoder running first."""
+    import dataclasses
+
+    from lmsu_tpu_torch.training import DistillationTrainer
+    rng = np.random.default_rng(29)
+    batch = train_batch(rng, B, dev)
+    cfg = train_config(torch.float32, batch=B)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, debug_nans=True))
+    tr = DistillationTrainer(cfg, [batch], [batch], device=dev,
+                             teacher_model_config=teacher_for(cfg))
+    loss, _ = tr.train_step(batch)
+    bad = dict(batch, points=batch["points"].clone())
+    bad["points"][0, 7, 3] = float("nan")
+    try:
+        tr.train_step(bad)
+    except FloatingPointError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("debug_nans: a NaN intensity raised nothing")
+    if "lidar_encoder" not in msg or not np.isfinite(float(loss)):
+        raise AssertionError(f"debug_nans: {msg}; clean loss {float(loss)}")
+    return {"clean_loss": float(loss), "error": msg}
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -2653,11 +3120,53 @@ def main(argv=None) -> int:
         log(f"[train] augmentation on the card == on the CPU: "
             f"{json.dumps(tres['augment_check'])}")
         with tempfile.TemporaryDirectory() as d:
-            tres["recipe_cli"] = run_recipe_cli(dev, d)
-            log(f"[train] recipe CLI: {json.dumps(tres['recipe_cli'])}")
+            # Both recipes whole (--scan-steps 13), on the host loop and on
+            # the on-device epoch; the best recipe's epoch through each loop.
+            for name, args, extra in (
+                    ("recipe_cli", RECIPE_ARGS, ()),
+                    ("recipe_cli_onchip", RECIPE_ARGS, ["--onchip-epoch"]),
+                    ("crossarch_cli", CROSSARCH_ARGS, ()),
+                    ("crossarch_cli_onchip", CROSSARCH_ARGS, ["--onchip-epoch"])):
+                save = "student" if name == "recipe_cli" else name
+                tres[name] = run_recipe_cli(dev, d, save, args, extra)
+                log(f"[train] {name}: {json.dumps(tres[name])}")
+            tres["recipe_loops"] = recipe_loops(dev, d)
+            log(f"[train] recipe epoch through each loop: {json.dumps(tres['recipe_loops'])}")
             tres["recipe_spill"] = check_recipe_spill(dev, d)
             log(f"[train] recipe with the default cache limit (spilled): "
                 f"{json.dumps(tres['recipe_spill'])}")
+            tres["sigterm"] = check_sigterm_resume(dev, d)
+            log(f"[train] SIGTERM, then --resume: {json.dumps(tres['sigterm'])}")
+            tres["async_checkpoint"] = check_async_checkpoint(dev, d)
+            log(f"[train] async checkpoint == sync: {json.dumps(tres['async_checkpoint'])}")
+        tres["debug_nans"] = check_debug_nans(dev)
+        log(f"[train] debug_nans: {json.dumps(tres['debug_nans'])}")
+        # The cross-architecture recipe's student at full width: weighted/128
+        # with PointPillars (528,324 parameters) and its spatial 2x teacher.
+        tres["pillar_check"] = check_kernel_vs_plain_step(dev, model="weighted_pillars",
+                                                          perturb=1e-7)
+        log(f"[train] pillar student: kernel path == plain path: "
+            f"{json.dumps(tres['pillar_check'])}")
+        for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            run = tres[f"pillar_{dt}"] = phase_train(dev, dtype, variants=("in_loop",),
+                                                     model="weighted_pillars")
+            n = run["in_loop"]["launches"]
+            if any(n[k] <= 0 for k in TRAIN_KERNELS):
+                raise AssertionError(f"train pillar {dt}: launches {n}")
+        tres["pillar_serving"] = check_model_forward(dev, "weighted_pillars")
+        log(f"[serving weighted_pillars] B={B} forward: {json.dumps(tres['pillar_serving'])}")
+        # Stage remat: the step against the step without it, then the timed
+        # in-loop f32 step with and without remat, unfused and fused.
+        tres["remat_check"] = check_remat_step(dev)
+        log(f"[train] remat step == step without remat: {json.dumps(tres['remat_check'])}")
+        for fused in (False, True):
+            for remat in (False, True):
+                key = f"remat_{'fused' if fused else 'unfused'}_{'on' if remat else 'off'}"
+                tres[key] = phase_train(dev, torch.float32, warmup=2, steps=5,
+                                        variants=("in_loop",), fused_train=fused, remat=remat)
+            if fused and any(tres[key]["in_loop"]["launches"][k] <= 0
+                             for k in IR_TRAIN_KERNELS):
+                raise AssertionError(f"train {key}: launches {tres[key]['in_loop']['launches']}")
         for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             run = tres[f"recipe_{dt}"] = phase_train(
                 dev, dtype, variants=("dataset_cache",), scatter="pallas", model="minimal",
@@ -2734,9 +3243,19 @@ def main(argv=None) -> int:
         if path == "serving" and "concat_f32" in sres:
             entry["concat256_serving_launches"] = sres["concat_f32"]["launches"][name]
         if name in ("voxelize_scatter_max", "kd_feature_mse") and "recipe_cli" in tres:
-            entry["recipe_cli_launches"] = tres["recipe_cli"]["launches"][name]
+            for run in ("recipe_cli", "recipe_cli_onchip", "crossarch_cli",
+                        "crossarch_cli_onchip"):
+                entry[f"{run}_launches"] = tres[run]["launches"][name]
             entry["recipe_train_launches"] = \
                 tres["recipe_f32"]["dataset_cache"]["launches"][name]
+        if "pillar_f32" in tres:
+            if path in ("serving", "train"):
+                entry["pillar_train_launches"] = tres["pillar_f32"]["in_loop"]["launches"][name]
+            if path == "serving":
+                entry["pillar_serving_launches"] = tres["pillar_serving"]["launches"].get(name, 0)
+            if path == "fused_train":
+                entry["remat_fused_train_launches"] = \
+                    tres["remat_fused_on"]["in_loop"]["launches"][name]
         if path in ("serving", "train"):
             for model in ("concat", "minimal"):
                 if f"{model}_f32" in tres:
@@ -2800,6 +3319,22 @@ def main(argv=None) -> int:
             k: tres["ensemble_f32"]["in_loop"][k] for k in ("step_ms", "frames_per_s")}}
         summary["recipe_spill"] = {k: tres["recipe_spill"][k]
                                    for k in ("gather_ms_per_step", "spill_ms_per_step")}
+        summary["recipe_loops"] = {
+            k: {f: v.get(f) for f in ("seconds", "idle_share", "input_stall")}
+            for k, v in tres["recipe_loops"]["epochs"].items()}
+        summary["recipe_cli_epochs"] = {
+            k: tres[k]["epochs_teacher_then_student"]
+            for k in ("recipe_cli", "recipe_cli_onchip", "crossarch_cli", "crossarch_cli_onchip")}
+        for dt in ("f32", "bf16"):
+            run = tres[f"pillar_{dt}"]["in_loop"]
+            summary[f"pillar_{dt}"] = {"in_loop": {
+                **{k: run[k] for k in ("step_ms", "frames_per_s")},
+                "idle_share": run["profile"]["idle_share"],
+                "peak_mem_gb": tres[f"pillar_{dt}"]["peak_mem_gb"]}}
+        summary["remat_f32"] = {
+            k[len("remat_"):]: {"step_ms": tres[k]["in_loop"]["step_ms"],
+                                "peak_mem_gb": tres[k]["peak_mem_gb"]}
+            for k in tres if k.startswith("remat_") and k != "remat_check"}
         print(json.dumps({"train": summary, "batch": TRAIN_B, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

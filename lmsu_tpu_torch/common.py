@@ -3,10 +3,8 @@ scripts/common.py): the common flags, their overrides of a preset
 ExperimentConfig, the loaders and resuming.
 
 Only flags whose options the port has are here. Those of refused options
-(PandaSet and packed data, the pillar encoder, scan steps and on-device
-epochs, model parallelism, snapshot and async checkpoints, SIGTERM
-handling, progress bars) are absent, so argparse rejects them rather than
-dropping them. The port adds --device (CUDA unless 'cpu' is asked for) and
+(PandaSet and packed data, the decoded cache, model parallelism) are
+absent, so argparse rejects them rather than dropping them. The port adds --device (CUDA unless 'cpu' is asked for) and
 --bf16. The data is the synthetic dataset: --dataset sets
 DataConfig.dataset whatever the preset says. --augment and --aug-* set
 TrainConfig.augment (ops/augment.py).
@@ -43,8 +41,21 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    "checks); 'hard' is the discriminative benchmark")
     p.add_argument("--resume", action="store_true",
                    help="resume from <save-dir>/latest.pth if present")
+    p.add_argument("--scan-steps", type=int, default=None,
+                   help="chain K train (and val) steps per chunk: K batches stacked and "
+                   "copied to the device in one transfer (TrainConfig.scan_steps)")
+    p.add_argument("--onchip-epoch", action="store_true",
+                   help="run each train epoch over a copy of the train set on the device "
+                   "(TrainConfig.onchip_epoch)")
+    p.add_argument("--onchip-eval", action="store_true",
+                   help="require on-device validation too (default: follows "
+                   "--onchip-epoch where the val loader allows it; TrainConfig.onchip_eval)")
+    p.add_argument("--progress", action="store_true",
+                   help="per-step progress bars on stderr")
     p.add_argument("--num-workers", type=int, default=None,
                    help="per-sample decode threads in the input pipeline")
+    p.add_argument("--lidar-encoder", default=None, choices=["spatial", "pointpillars"],
+                   help="LiDAR encoder (LidarEncoderConfig.encoder_type)")
     p.add_argument("--fusion-type", default=None, choices=FUSION_TYPES,
                    help="override the script's fusion variant (single-run scripts; "
                    "the ablation sweep sets its own)")
@@ -64,6 +75,15 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ema-decay", type=float, default=None,
                    help="keep an EMA of the parameters; validation, the best "
                    "checkpoint and evaluation use it")
+    p.add_argument("--snapshot-every", type=int, default=None,
+                   help="every N epochs also write an immutable epoch_###.pth "
+                   "(TrainConfig.snapshot_every); each loads as a --teacher-checkpoint")
+    p.add_argument("--handle-sigterm", action="store_true",
+                   help="on SIGTERM finish the current epoch, write and flush latest.pth "
+                   "and exit cleanly (TrainConfig.handle_sigterm)")
+    p.add_argument("--async-checkpoint", action="store_true",
+                   help="write checkpoints from a background thread "
+                   "(TrainConfig.async_checkpoint)")
     p.add_argument("--augment", action="store_true",
                    help="the standard augmentation on the device: hflip 0.5, "
                    "brightness / contrast 0.1, image noise 0.02, point dropout 0.05 "
@@ -113,7 +133,12 @@ def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
                      ("difficulty", "synthetic_difficulty"), ("num_workers", "num_workers")))
     train_kw = given((("epochs", "num_epochs"), ("lr", "lr"), ("save_dir", "save_dir"),
                       ("seed", "seed"), ("grad_clip_norm", "grad_clip_norm"),
-                      ("ema_decay", "ema_decay")))
+                      ("ema_decay", "ema_decay"), ("scan_steps", "scan_steps"),
+                      ("snapshot_every", "snapshot_every")))
+    for flag in ("onchip_epoch", "onchip_eval", "progress", "handle_sigterm",
+                 "async_checkpoint"):
+        if getattr(args, flag):
+            train_kw[flag] = True
     aug = _augment_from_args(args)
     if aug is not None:
         train_kw["augment"] = aug
@@ -122,6 +147,9 @@ def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
     if args.scatter_impl is not None:
         model = model.replace(lidar=dataclasses.replace(model.lidar,
                                                         scatter_impl=args.scatter_impl))
+    if args.lidar_encoder is not None:
+        model = model.replace(lidar=dataclasses.replace(model.lidar,
+                                                        encoder_type=args.lidar_encoder))
     if args.bf16:
         model = model.replace(compute_dtype=torch.bfloat16)
     return cfg.replace(model=model, data=dataclasses.replace(cfg.data, **data_kw),

@@ -7,12 +7,14 @@ Defaults of record (reference file:line):
   max_points 5000                       pandaset_dataset.py:58
   lidar pc range [-50,-50,-5,50,50,3]   lidar_encoder.py:12
 
-The port serves and trains (CE and KD) the four fusions with either head,
-with augmentation on the device, teacher ensembles and the dataset-wide
-teacher cache. Fields that select paths the port does not have yet (the
-pillar encoder, remat, parallelism, on-device epochs) are kept so
-configurations stay interchangeable; `models.factory` and the trainers
-reject them by name.
+The port serves and trains (CE and KD) the four fusions with either head
+and either LiDAR encoder (spatial, PointPillars), with stage remat,
+augmentation on the device, teacher ensembles, the dataset-wide teacher
+cache, chained steps, on-device epochs and run control (async and
+snapshot checkpoints, SIGTERM preemption, debug_nans, progress bars).
+Fields that select paths the port does not have yet (parallelism,
+teacher partitioning) are kept so configurations stay interchangeable;
+the trainers reject them by name.
 
 Training defaults of record (reference file:line):
   lr 1e-3, weight_decay 1e-3            trainer.py:42
@@ -38,7 +40,8 @@ class CameraEncoderConfig:
     return_multiscale: bool = True
     # Width multiplier lets the same definition serve as a larger KD teacher.
     width_mult: float = 1.0
-    # Training-only (stage rematerialisation); not ported yet.
+    # Training-only: rematerialise each InvertedResidual stage's activations
+    # in the backward pass (models/layers.py::remat).
     remat: bool = False
     # Eval-mode forwards run each InvertedResidual stage as ONE hand-written
     # CUDA kernel (ops/ir_fused.py): BN running stats fold to scale/bias and
@@ -224,10 +227,8 @@ class KDConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimization + loop (reference: trainer.py:40-74). Options the port
-    does not have yet (scan_steps > 1, onchip_epoch, onchip_eval=True,
-    SIGTERM handling, async and snapshot checkpoints, debug_nans, progress
-    bars) are refused by `training.Trainer`."""
+    """Optimization + loop (reference: trainer.py:40-74), with the JAX
+    package's loop and run-control options (training/trainer.py)."""
 
     lr: float = 1e-3
     weight_decay: float = 1e-3

@@ -1,7 +1,8 @@
 """Host-side data of the PyTorch port (numpy only): the synthetic dataset,
 the batching pipeline and the BEV cell sort."""
 
-from lmsu_tpu_torch.data.pipeline import Batcher, PrefetchLoader, make_loader
+from lmsu_tpu_torch.data.pipeline import (Batcher, PrefetchLoader, make_loader,
+                                          materialize_dataset)
 from lmsu_tpu_torch.data.synthetic import (SyntheticMultiModalDataset,
                                            create_synthetic_datasets)
 
@@ -16,5 +17,5 @@ def create_datasets(config, verbose: bool = False):
     raise ValueError(f"Unknown dataset: {config.dataset}")
 
 
-__all__ = ["Batcher", "PrefetchLoader", "make_loader", "SyntheticMultiModalDataset",
-           "create_synthetic_datasets", "create_datasets"]
+__all__ = ["Batcher", "PrefetchLoader", "make_loader", "materialize_dataset",
+           "SyntheticMultiModalDataset", "create_synthetic_datasets", "create_datasets"]

@@ -12,6 +12,8 @@ epoch (tests/test_torch_data.py pins it).
   * A daemon thread prefetches batches while the device computes.
   * One process feeds one device: the JAX package's multi-host striping
     (num_shards, shard_index) is not ported.
+  * `materialize_dataset` stacks the whole set for the on-device epoch
+    (TrainConfig.onchip_epoch), padded as the Batcher pads.
 """
 
 from __future__ import annotations
@@ -143,6 +145,35 @@ class PrefetchLoader:
         finally:
             # Early break: release the producer thread.
             stop.set()
+
+
+def materialize_dataset(dataset, batch_size: int,
+                        sample_transform=None) -> Dict[str, np.ndarray]:
+    """The whole dataset stacked into fixed-shape arrays, padded to a
+    multiple of batch_size, for the on-device epoch (the JAX package's
+    materialize_dataset, pipeline.py:179-206): `sample_transform` is applied
+    to every sample (the cell sorter under sorted_pallas: dropping it would
+    give wrong answers silently); pad rows repeat sample 0 with
+    segmentation -1 (all ignored), sample_index 0 and sample_mask 0, the
+    masking contract the Batcher keeps."""
+    n = len(dataset)
+    n_pad = (n + batch_size - 1) // batch_size * batch_size
+    samples = [dataset[i] for i in range(n)]
+    if sample_transform is not None:
+        samples = [sample_transform(s) for s in samples]
+    out: Dict[str, np.ndarray] = {}
+    for key in samples[0]:
+        if key == "sample_token":
+            continue
+        arr = np.stack([s[key] for s in samples])
+        if n_pad > n:
+            arr = np.concatenate([arr, np.repeat(arr[:1], n_pad - n, axis=0)])
+        out[key] = arr
+    out["sample_index"] = np.concatenate([np.arange(n, dtype=np.int32),
+                                          np.zeros(n_pad - n, np.int32)])
+    out["sample_mask"] = np.arange(n_pad) < n
+    out["segmentation"] = np.where(out["sample_mask"][:, None, None], out["segmentation"], -1)
+    return out
 
 
 def make_loader(dataset, batch_size: int, shuffle: bool, seed: int = 0,

@@ -4,6 +4,12 @@ Counterpart of lmsu_tpu/models/camera_encoder.py (reference:
 camera_encoder.py:56-123): stem stride-2 conv + 5 InvertedResidual stages;
 returns the final map or a multi-scale dict {stage2..stage5}.
 
+CameraEncoderConfig.remat rematerialises each of the five
+InvertedResidual stages in training (flax's nn.remat around the stage;
+models/layers.py::remat): the stage's activations are recomputed in the
+backward pass instead of kept, with fused_train too. Eval-mode calls and
+calls without autograd run the stages as they are.
+
 Shapes for a 256x256 input, base_channels=32:
   stem    [B,  32, 128, 128]
   stage1  [B,  32, 128, 128]   (expansion 1, stride 1)
@@ -21,7 +27,8 @@ import torch
 import torch.nn as nn
 
 from lmsu_tpu_torch.config import CameraEncoderConfig
-from lmsu_tpu_torch.models.layers import InvertedResidual, ReLU6, apply_seq, conv_bn_act
+from lmsu_tpu_torch.models.layers import (InvertedResidual, ReLU6, apply_seq, conv_bn_act,
+                                          remat)
 
 
 class TwinLiteEncoder(nn.Module):
@@ -51,12 +58,18 @@ class TwinLiteEncoder(nn.Module):
 
     def forward(self, images: torch.Tensor
                 ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
+        if self.config.remat and self.training and torch.is_grad_enabled():
+            def run(stage, x):
+                return remat(stage, x)
+        else:
+            def run(stage, x):
+                return stage(x)
         x = apply_seq(self.stem, images)
-        x1 = self.stage1(x)
-        x2 = self.stage2(x1)
-        x3 = self.stage3(x2)
-        x4 = self.stage4(x3)
-        x5 = self.stage5(x4)
+        x1 = run(self.stage1, x)
+        x2 = run(self.stage2, x1)
+        x3 = run(self.stage3, x2)
+        x4 = run(self.stage4, x3)
+        x5 = run(self.stage5, x4)
         if self.config.return_multiscale:
             return {"stage2": x2, "stage3": x3, "stage4": x4, "stage5": x5}
         return x5

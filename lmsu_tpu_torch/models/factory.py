@@ -21,8 +21,6 @@ from lmsu_tpu_torch.ops.ir_fused import check_fused_infer, check_fused_train
 
 
 def _check_supported(config: ModelConfig) -> None:
-    if config.camera.remat:
-        raise NotImplementedError("remat is a training option that is not ported yet")
     if config.compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                          f"{config.compute_dtype}")

@@ -18,13 +18,46 @@ with flax's running-variance rule (see `_FlaxRunningStats`).
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import contextlib
+import threading
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from lmsu_tpu_torch.ops.ir_fused import IRParams, fold_bn, fused_ir_infer, fused_ir_train
+
+
+_REMAT = threading.local()
+
+
+def recomputing() -> bool:
+    """True while `remat` re-runs a forward for the backward pass."""
+    return getattr(_REMAT, "on", False)
+
+
+@contextlib.contextmanager
+def _recomputing():
+    prev, _REMAT.on = recomputing(), True
+    try:
+        yield
+    finally:
+        _REMAT.on = prev
+
+
+def remat(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """fn(x) with its activations rematerialised (flax's nn.remat): the
+    forward keeps only its input, and the backward pass runs fn again to
+    rebuild what it needs (torch.utils.checkpoint, non-reentrant). The
+    re-run happens inside `recomputing()`, under which the train-mode
+    BatchNorms of this module and the fused blocks leave their running
+    statistics alone, so they move once a step, as flax's do. No stage draws
+    random numbers, so the RNG state is not saved."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, x, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
 
 
 class _FlaxRunningStats:
@@ -46,13 +79,19 @@ class _FlaxRunningStats:
     var_b * n / (n - 1); the running variance is then taken back to the
     biased rule by scaling its new share by (n - 1) / n. The call updates a
     copy of the running variance: autograd saves the buffers it was given,
-    so they must not change again before the backward.
+    so they must not change again before the backward. Under `remat`'s
+    re-run the same call takes copies of both running buffers, so the
+    output and what autograd saves are the first run's and the buffers
+    move once.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
+        if recomputing():
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, self.momentum, self.eps)
         n = x.numel() // x.shape[1]
         var = self.running_var.clone()
         y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
@@ -203,6 +242,8 @@ class InvertedResidual(nn.Module):
             x.permute(0, 2, 3, 1), w1, g1, be1, dwc.weight[:, 0].permute(1, 2, 0),
             bn2.weight, bn2.bias, pw2.weight[:, :, 0, 0].t(), bn3.weight, bn3.bias,
             self.stride, self.has_expand, bn3.eps)
+        if recomputing():  # remat's re-run: the statistics moved in the first run
+            return out.permute(0, 3, 1, 2)
         with torch.no_grad():
             stats = ((bn1, m1, v1),) if self.has_expand else ()
             for bn, m, v in stats + ((bn2, m2, v2), (bn3, m3, v3)):

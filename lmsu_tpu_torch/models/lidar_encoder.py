@@ -1,9 +1,12 @@
-"""Spatial LiDAR BEV encoder.
+"""LiDAR BEV encoders: the spatial (PointNet-style) one and PointPillars.
 
 Counterpart of lmsu_tpu/models/lidar_encoder.py (reference:
 lidar_encoder.py:9-154): a shared per-point MLP (Conv1d k=1 + BN + ReLU,
 under the reference's `point_mlp.{0..8}` names) followed by max-pooling of
-point features into a BEV grid.
+point features into a BEV grid. The pillar-feature net (the JAX package's
+PointPillarsLiDAREncoder, :93-150) decorates each point with its offsets
+to its cell's centre and its planar distance first, and names its layers
+`pfn.{0..8}` in the same layout.
 
 Reference parity quirk kept on purpose: the MLP runs over *all* points
 (padded ones included) and validity only gates the scatter. Zero-padded
@@ -46,19 +49,23 @@ def _scatter(cfg: LidarEncoderConfig, feats, flat_idx, valid):
     raise ValueError(f"Unknown scatter_impl: {cfg.scatter_impl}")
 
 
+def _mlp(cin: int, config: LidarEncoderConfig) -> nn.Sequential:
+    """Conv1d(k=1) + BatchNorm1d + ReLU per width of mlp_dims + feature_dim."""
+    layers: List[nn.Module] = []
+    for d in tuple(config.mlp_dims) + (config.feature_dim,):
+        layers += [nn.Conv1d(cin, d, 1, bias=True),
+                   BatchNorm1d(d, eps=1e-5, momentum=0.1), nn.ReLU()]
+        cin = d
+    return nn.Sequential(*layers)
+
+
 class SpatialLiDAREncoder(nn.Module):
     """Per-point MLP + BEV scatter-max. Reference: lidar_encoder.py:9."""
 
     def __init__(self, config: LidarEncoderConfig = LidarEncoderConfig()):
         super().__init__()
         self.config = config
-        layers: List[nn.Module] = []
-        cin = config.input_dim
-        for d in tuple(config.mlp_dims) + (config.feature_dim,):
-            layers += [nn.Conv1d(cin, d, 1, bias=True),
-                       BatchNorm1d(d, eps=1e-5, momentum=0.1), nn.ReLU()]
-            cin = d
-        self.point_mlp = nn.Sequential(*layers)
+        self.point_mlp = _mlp(config.input_dim, config)
 
     def forward(self, points: torch.Tensor, point_valid: Optional[torch.Tensor] = None,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -73,17 +80,65 @@ class SpatialLiDAREncoder(nn.Module):
         return _scatter(cfg, feats, flat_idx, valid)
 
 
-class LiDAREncoder(nn.Module):
-    """Facade selecting the encoder (reference: lidar_encoder.py:193-221).
-    The port has the "spatial" encoder; "pointpillars" is not ported yet."""
+class PointPillarsLiDAREncoder(nn.Module):
+    """Pillar-feature net + BEV scatter-max (the JAX package's
+    PointPillarsLiDAREncoder, lidar_encoder.py:93-150).
+
+    Each point is decorated with (x - cx, y - cy) to the centre of its BEV
+    cell and its planar distance, so the first PFN layer takes input_dim + 3
+    channels. The centre uses points_to_bev_indices's own mapping, col =
+    trunc(x_norm (W - 1)), so it is x_min + (col + 0.5) (x_max - x_min) /
+    (W - 1). The decoration is computed in the compute dtype op by op as the
+    JAX package computes it (every operand, the range's scalars included,
+    in that dtype: in bf16 each op rounds to bf16), except the distance,
+    which is taken in the points' float32 and cast after. As in the spatial
+    encoder the MLP runs over every point, padded ones included, and
+    validity only gates the scatter."""
 
     def __init__(self, config: LidarEncoderConfig = LidarEncoderConfig()):
         super().__init__()
-        if config.encoder_type != "spatial":
-            raise NotImplementedError(
-                f"encoder_type {config.encoder_type!r} is not ported yet")
         self.config = config
-        self.encoder = SpatialLiDAREncoder(config)
+        self.pfn = _mlp(config.input_dim + 3, config)
+
+    def forward(self, points: torch.Tensor, point_valid: Optional[torch.Tensor] = None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        cfg = self.config
+        H, W = cfg.grid_size
+        x_min, y_min, _, x_max, y_max, _ = cfg.point_cloud_range
+        flat_idx, valid = points_to_bev_indices(points[..., :2], cfg.grid_size,
+                                                cfg.point_cloud_range)
+        if point_valid is not None:
+            valid = valid & point_valid
+
+        def s(v):  # a scalar operand in the compute dtype, as JAX's weak types
+            return torch.tensor(v, dtype=dtype, device=points.device)
+        col = (flat_idx % W).to(dtype)
+        row = (flat_idx // W).to(dtype)
+        cx = s(x_min) + (col + s(0.5)) * s(x_max - x_min) / s(W - 1)
+        cy = s(y_min) + (row + s(0.5)) * s(y_max - y_min) / s(H - 1)
+        dx = points[..., 0].to(dtype) - cx
+        dy = points[..., 1].to(dtype) - cy
+        dist = torch.sqrt(points[..., 0] ** 2 + points[..., 1] ** 2 + 1e-8)
+        feats = torch.cat([points.to(dtype), dx[..., None], dy[..., None],
+                           dist[..., None].to(dtype)], dim=-1)
+        x = apply_seq(self.pfn, feats.transpose(1, 2))
+        return _scatter(cfg, x.transpose(1, 2).contiguous(), flat_idx, valid)
+
+
+ENCODERS = {"spatial": SpatialLiDAREncoder, "pointpillars": PointPillarsLiDAREncoder}
+
+
+class LiDAREncoder(nn.Module):
+    """Facade selecting the encoder by LidarEncoderConfig.encoder_type
+    (reference: lidar_encoder.py:193-221): "spatial" or "pointpillars"; any
+    other type is a ValueError, as in the JAX package."""
+
+    def __init__(self, config: LidarEncoderConfig = LidarEncoderConfig()):
+        super().__init__()
+        if config.encoder_type not in ENCODERS:
+            raise ValueError(f"Unknown encoder type: {config.encoder_type}")
+        self.config = config
+        self.encoder = ENCODERS[config.encoder_type](config)
 
     def forward(self, points: torch.Tensor, point_valid: Optional[torch.Tensor] = None,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:

@@ -18,14 +18,21 @@ Usage:
       [--teacher-checkpoint teacher.pth [--teacher-checkpoint t1.pth ...] \\
        | --train-teacher [--num-teachers N]] \\
       [--cache-teacher [--cache-dtype {auto,bfloat16}] [--cache-hbm-gb 4]] \\
+      [--lidar-encoder {spatial,pointpillars}] [--teacher-lidar-encoder ...] \\
       [--augment] [--aug-hflip P] [--aug-*] \\
+      [--scan-steps K] [--onchip-epoch] [--onchip-eval] [--progress] \\
+      [--snapshot-every N] [--handle-sigterm] [--async-checkpoint] \\
       [--save-dir checkpoints/distill_student] [--resume]
 
-The best KD recipe (best_overall_results.json; scripts/experiment_best_overall.py
-without its --scan-steps):
+The best KD recipe (best_overall_results.json; scripts/experiment_best_overall.py):
   python -m lmsu_tpu_torch.train_distill --difficulty hard --fusion-type minimal \\
       --fusion-channels 128 --train-teacher --cache-teacher --cache-hbm-gb 6 \\
-      --temperature 4 --augment --aug-hflip 0 --scatter-impl pallas --use-pallas-kd
+      --temperature 4 --augment --aug-hflip 0 --scan-steps 13 \\
+      --scatter-impl pallas --use-pallas-kd
+The cross-architecture recipe (kd_crossarch_best.json;
+scripts/experiment_crossarch_best.py): a PointPillars student from a spatial
+teacher, --lidar-encoder pointpillars --teacher-lidar-encoder spatial with
+the flags above less the fusion ones.
 
 The common flags are lmsu_tpu_torch/common.py's. The data is the synthetic
 dataset. --scatter-impl takes the JAX package's five scatter-max
@@ -72,6 +79,9 @@ def build_configs(args):
                           save_dir="checkpoints/distill_student", kd=kd))
     cfg = apply_overrides(cfg, args)
     tcfg_model = teacher_config(cfg.model, args.teacher_width)
+    if args.teacher_lidar_encoder is not None:
+        tcfg_model = tcfg_model.replace(lidar=dataclasses.replace(
+            tcfg_model.lidar, encoder_type=args.teacher_lidar_encoder))
     if args.width != 1.0:
         cfg = cfg.replace(model=teacher_config(cfg.model, args.width))
     return cfg, tcfg_model
@@ -101,6 +111,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--beta-feature", type=float, default=0.5)
     p.add_argument("--teacher-width", type=float, default=2.0)
     p.add_argument("--width", type=float, default=1.0, help="student width multiplier")
+    p.add_argument("--teacher-lidar-encoder", default=None, choices=["spatial", "pointpillars"],
+                   help="the teacher's LiDAR encoder where it differs from the student's "
+                   "(cross-architecture KD: both emit [B, C, H, W] BEV maps, so the "
+                   "feature projections do not depend on the encoder)")
     p.add_argument("--cache-teacher", action="store_true",
                    help="compute the frozen teacher's outputs once over the training "
                    "set and gather them per step")

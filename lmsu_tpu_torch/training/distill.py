@@ -33,8 +33,16 @@ Counterpart of lmsu_tpu/training/distill.py (DistillationTrainer):
 
 `train_step(batch, teacher_out=...)` also takes the teacher's outputs
 computed beforehand (`teacher_forward`): the bench-style cached step, where
-they are computed once for a fixed batch (bench.py:233-244). Refused by
-name: teacher partitioning over devices ("sp", "fsdp").
+they are computed once for a fixed batch (bench.py:233-244).
+
+The trainer's loops (training/trainer.py) run all three KD variants, as the
+JAX package's (distill.py:411-454, 557-686): with scan_steps the
+host-spilled cache gathers a chunk's rows on the host before its copy;
+the on-device epoch takes the in-loop teacher or the device cache (with
+onchip_contiguous the cache is permuted with the set, once an epoch, and
+each step gets its rows pre-gathered); the spilled cache cannot ride it
+(NotImplementedError). Refused by name: teacher partitioning over devices
+("sp", "fsdp").
 """
 
 from __future__ import annotations
@@ -264,26 +272,69 @@ class DistillationTrainer(Trainer):
         else:
             self.teacher_cache_host = cache
 
+    def _gather_host(self, idx) -> Dict[str, torch.Tensor]:
+        """Rows `idx` (host sample indices) of the spilled cache on the
+        device: a host gather into a pinned staging buffer and a
+        non_blocking copy, per cached tensor."""
+        idx = (idx.cpu() if isinstance(idx, torch.Tensor)
+               else torch.from_numpy(np.asarray(idx))).long().reshape(-1)
+        pin = self.device.type == "cuda"
+        rows = {}
+        for k, v in self.teacher_cache_host.items():
+            staged = torch.empty((len(idx),) + tuple(v.shape[1:]), dtype=v.dtype,
+                                 pin_memory=pin)
+            torch.index_select(v, 0, idx, out=staged)
+            rows[k] = staged.to(self.device, non_blocking=pin)
+        return rows
+
+    def _teacher_out(self, rows) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return rows["logits"], {tap: rows[tap] for tap in self.kd.feature_taps}
+
     def gather_teacher(self, batch, b) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """This batch's (logits, taps) from the cache, on the device: an
         index_select on the device cache; from the host spill, a host gather
         into a pinned staging buffer and a non_blocking copy. `batch` is the
         host batch, `b` its `_to_device` copy."""
         if self.teacher_cache is not None:
-            rows = {k: v.index_select(0, b["sample_index"])
-                    for k, v in self.teacher_cache.items()}
-        else:
-            idx = batch["sample_index"]
-            idx = (idx.cpu() if isinstance(idx, torch.Tensor)
-                   else torch.from_numpy(np.asarray(idx))).long()
-            pin = self.device.type == "cuda"
-            rows = {}
-            for k, v in self.teacher_cache_host.items():
-                staged = torch.empty((len(idx),) + tuple(v.shape[1:]), dtype=v.dtype,
-                                     pin_memory=pin)
-                torch.index_select(v, 0, idx, out=staged)
-                rows[k] = staged.to(self.device, non_blocking=pin)
-        return rows["logits"], {tap: rows[tap] for tap in self.kd.feature_taps}
+            return self._teacher_out({k: v.index_select(0, b["sample_index"])
+                                      for k, v in self.teacher_cache.items()})
+        return self._teacher_out(self._gather_host(batch["sample_index"]))
+
+    # -- the loops' hooks (training/trainer.py) --------------------------------
+
+    def _guarded_modules(self) -> Dict[str, torch.nn.Module]:
+        return {"model": self.model, "teacher": self.teacher}
+
+    def _chunk_extras(self, stacked, K: int, train: bool) -> List[Dict]:
+        """With the spilled cache, the chunk's teacher rows: gathered on the
+        host for all K x B samples before the copy, one copy per cached
+        tensor, each step given its slice."""
+        extras = super()._chunk_extras(stacked, K, train)
+        if not train or self.teacher_cache_host is None:
+            return extras
+        B = stacked["sample_index"].shape[1]
+        rows = {k: v.view(K, B, *v.shape[1:])
+                for k, v in self._gather_host(stacked["sample_index"]).items()}
+        return [{"teacher_out": self._teacher_out({k: v[i] for k, v in rows.items()})}
+                for i in range(K)]
+
+    def _run_epoch_onchip(self) -> Tuple[float, Dict]:
+        if self.teacher_cache_host is not None:
+            raise NotImplementedError(
+                "onchip_epoch with cache_teacher needs the cache HBM-resident (raise "
+                "KDConfig.cache_hbm_limit_bytes); the host-spilled cache is gathered per "
+                "batch and can only ride the host loader path.")
+        return super()._run_epoch_onchip()
+
+    def _onchip_rows(self, data):
+        """The device cache permuted with the set: one whole-cache gather by
+        the permuted sample_index."""
+        if self.teacher_cache is None:
+            return None
+        return {k: v.index_select(0, data["sample_index"]) for k, v in self.teacher_cache.items()}
+
+    def _onchip_step_kwargs(self, rows) -> Dict:
+        return {"teacher_out": self._teacher_out(rows)}
 
     def train_epoch(self) -> Tuple[float, Dict]:
         # The cache is built at the first training epoch (after a resume

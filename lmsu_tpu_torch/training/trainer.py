@@ -18,23 +18,44 @@ once at its end, so the loop does not wait on the device per step.
 
 TrainConfig.augment runs inside the train step, on the batch on the
 device, before the forward (ops/augment.py); its stream is keyed by the
-step, so a resume reproduces it. Validation is never augmented.
+step, so a resume and every loop below reproduce it. Validation is never
+augmented.
 
-Not ported yet, and refused by name: scan_steps > 1, onchip_epoch,
-onchip_eval=True, data/model parallelism, SIGTERM handling, async and
-snapshot checkpoints, debug_nans, progress bars.
+The loops (the JAX package's trainer.py:348-620):
+  * scan_steps = K > 1 (training and validation): K host batches are
+    stacked into [K, B, ...] and copied to the device in one transfer
+    (one pinned buffer), and K steps run on views of the chunk; fewer than
+    K leftover batches at the epoch's end run one by one. The port runs
+    eagerly, so a chunk runs the ops of K single steps in their order: on
+    the CPU it is bit-identical to scan_steps = 1.
+  * onchip_epoch: the training set (materialize_dataset, with the
+    Batcher's sample_transform) is copied to the device once; each epoch
+    draws a permutation of the padded count from SeedSequence([seed, epoch,
+    104729]) and gathers each batch with index_select. onchip_contiguous
+    permutes the set once an epoch with one gather and reads contiguous
+    slices. onchip_eval (None: follow onchip_epoch where the val loader has
+    a Batcher) does the same for validation, in order.
+Run control (trainer.py:625-748): async_checkpoint (checkpoint.py::
+AsyncCheckpointer), snapshot_every (epoch_###.pth), handle_sigterm and
+request_preempt (stop after the current epoch, its checkpoint written and
+flushed), debug_nans and progress (training/monitor.py). Refused by name:
+data/model parallelism (MeshConfig).
 """
 
 from __future__ import annotations
 
+import signal
+import threading
 import time
+import warnings
 from collections import OrderedDict
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from lmsu_tpu_torch.config import ExperimentConfig
+from lmsu_tpu_torch.data.pipeline import materialize_dataset
 from lmsu_tpu_torch.inference import resolve_device
 from lmsu_tpu_torch.models import create_model
 from lmsu_tpu_torch.models.factory import check_kernel_shapes
@@ -42,29 +63,66 @@ from lmsu_tpu_torch.ops import augment
 from lmsu_tpu_torch.ops.losses import weighted_cross_entropy
 from lmsu_tpu_torch.ops.metrics import confusion_matrix, iou_from_confusion
 from lmsu_tpu_torch.training import checkpoint as ckpt
+from lmsu_tpu_torch.training.monitor import NanGuard, ProgressBar
 from lmsu_tpu_torch.training.schedule import cosine_epoch_schedule, lr_at_epoch
+
+# The device dtype of each batch key (other keys stay on the host).
+_BATCH_DTYPES = {"points": np.float32, "segmentation": np.int64, "point_valid": np.bool_,
+                 "sample_mask": np.bool_, "sample_index": np.int64}
 
 
 def check_train_config(config: ExperimentConfig) -> None:
     """Raise NotImplementedError naming each training option the port does
-    not have yet."""
-    tc = config.train
-    refused = {
-        "TrainConfig.scan_steps > 1": tc.scan_steps != 1,
-        "TrainConfig.onchip_epoch": tc.onchip_epoch,
-        "TrainConfig.onchip_eval=True": tc.onchip_eval is True,
-        "TrainConfig.onchip_contiguous": tc.onchip_contiguous,
-        "TrainConfig.handle_sigterm": tc.handle_sigterm,
-        "TrainConfig.async_checkpoint": tc.async_checkpoint,
-        "TrainConfig.snapshot_every": tc.snapshot_every is not None,
-        "TrainConfig.debug_nans": tc.debug_nans,
-        "TrainConfig.progress": tc.progress,
-        "MeshConfig (data/model parallelism)": (config.mesh.model_parallel != 1
-                                                or config.mesh.num_devices not in (None, 1)),
-    }
-    bad = [name for name, on in refused.items() if on]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    not have yet: data/model parallelism."""
+    if config.mesh.model_parallel != 1 or config.mesh.num_devices not in (None, 1):
+        raise NotImplementedError("not ported yet: MeshConfig (data/model parallelism)")
+
+
+def to_device_packed(arrays: Dict[str, np.ndarray], device: torch.device
+                     ) -> Dict[str, torch.Tensor]:
+    """Host batch arrays (stacked or not) -> device tensors in the trainer's
+    dtypes (_BATCH_DTYPES; images uint8, else float32) through ONE copy: the
+    arrays are packed into one buffer (pinned for a CUDA device, 16-byte
+    aligned slots) and each tensor is a view of the copy on the device."""
+    host = {}
+    for k, a in arrays.items():
+        if k == "image":
+            a = np.asarray(a)
+            host[k] = a if a.dtype == np.uint8 else a.astype(np.float32, copy=False)
+        elif k in _BATCH_DTYPES:
+            host[k] = np.asarray(a).astype(_BATCH_DTYPES[k], copy=False)
+    offsets, total = {}, 0
+    for k, a in host.items():
+        offsets[k] = total
+        total += (a.nbytes + 15) // 16 * 16
+    buf = torch.empty(total, dtype=torch.uint8, pin_memory=device.type == "cuda")
+    flat = buf.numpy()
+    for k, a in host.items():
+        flat[offsets[k]:offsets[k] + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    dev = buf.to(device, non_blocking=True)
+    return {k: dev[offsets[k]:offsets[k] + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+            .view(a.shape) for k, a in host.items()}
+
+
+class _EpochSums:
+    """Loss and confusion-matrix sums of an epoch, on the device, in step
+    order; read once."""
+
+    def __init__(self):
+        self.total, self.cm, self.n = None, None, 0
+
+    def add(self, loss: torch.Tensor, cm: torch.Tensor) -> None:
+        self.total = loss.float() if self.total is None else self.total + loss.float()
+        self.cm = cm if self.cm is None else self.cm + cm
+        self.n += 1
+
+    def mean_loss(self) -> float:
+        return float(self.total) / self.n if self.n else 0.0
+
+    def finish(self, num_classes: int) -> Tuple[float, Dict]:
+        cm = (self.cm.cpu().numpy() if self.cm is not None
+              else np.zeros((num_classes, num_classes), np.int64))
+        return self.mean_loss(), iou_from_confusion(cm)
 
 
 def make_optimizer(config, params: Iterable[torch.Tensor], steps_per_epoch: int
@@ -139,6 +197,16 @@ class Trainer:
         self.last_loss_parts_raw: Dict[str, torch.Tensor] = {}
         self.save_dir = tc.save_dir
         self.history = ckpt.HistoryWriter(self.save_dir)
+        self._epoch_index = 0
+        self._preempt_requested = False
+        self._async_ckpt: Optional[ckpt.AsyncCheckpointer] = None
+        self._onchip_data: Optional[Dict[str, torch.Tensor]] = None
+        self._onchip_val_data: Optional[Dict[str, torch.Tensor]] = None
+        self._nan_guard = NanGuard(self._guarded_modules()) if tc.debug_nans else None
+
+    def _guarded_modules(self) -> Dict[str, torch.nn.Module]:
+        """The modules debug_nans watches (the KD trainer adds its teacher)."""
+        return {"model": self.model}
 
     def _init_extra_params(self) -> Dict[str, torch.nn.Parameter]:
         """Trainable parameters beside the model's (the KD projections)."""
@@ -147,6 +215,8 @@ class Trainer:
     # -- steps ---------------------------------------------------------------
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        """A batch (numpy arrays, or tensors on any device) on the device in
+        the trainer's dtypes; tensors already there are not copied."""
         def t(a, dtype=None):
             a = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
             return a.to(self.device, dtype=dtype)
@@ -176,7 +246,10 @@ class Trainer:
     def _apply_update(self, loss: torch.Tensor) -> None:
         """Backward, optional clipping, AdamW at schedule(step), EMA."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if self._nan_guard is not None:
+            self._nan_guard.backward(loss, self.params.items())
+        else:
+            loss.backward()
         for p in self.params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -230,31 +303,147 @@ class Trainer:
         """Loss components of the most recent KD train step, as floats."""
         return {k: float(v) for k, v in self.last_loss_parts_raw.items()}
 
+    def _step(self, batch, train: bool, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.train_step(batch, **kw) if train else self.eval_step(batch)
+
+    def _chunk_extras(self, stacked: Dict[str, np.ndarray], K: int, train: bool) -> List[Dict]:
+        """Per-step keyword arguments of a chunk's K steps, made from the
+        stacked host chunk before its copy (the KD trainer's host-spilled
+        teacher rows)."""
+        return [{} for _ in range(K)]
+
+    def _run_chunk(self, batches: List[Dict], train: bool, sums: _EpochSums) -> None:
+        """len(batches) steps on views of one chunk on the device: the host
+        batches stacked into [K, B, ...] and copied in one transfer."""
+        stacked = {k: np.stack([np.asarray(b[k]) for b in batches]) for k in batches[0]}
+        extras = self._chunk_extras(stacked, len(batches), train)
+        dev = to_device_packed(stacked, self.device)
+        for i, kw in enumerate(extras):
+            sums.add(*self._step({k: v[i] for k, v in dev.items()}, train, **kw))
+
     def _run_epoch(self, loader, train: bool) -> Tuple[float, Dict]:
-        total, cm, n = None, None, 0
+        tc = self.config.train
+        K = tc.scan_steps
+        bar = ProgressBar(len(loader) if hasattr(loader, "__len__") else None,
+                          "Training" if train else "Validation", tc.progress)
+        sums, pending = _EpochSums(), []
         waited, t0 = 0.0, time.perf_counter()
         it = iter(loader)
-        while True:
-            tw = time.perf_counter()
-            batch = next(it, None)
-            waited += time.perf_counter() - tw
-            if batch is None:
-                break
-            loss, c = self.train_step(batch) if train else self.eval_step(batch)
-            total = loss.float() if total is None else total + loss.float()
-            cm = c if cm is None else cm + c
-            n += 1
+        try:
+            while True:
+                tw = time.perf_counter()
+                batch = next(it, None)
+                waited += time.perf_counter() - tw
+                if batch is None:
+                    break
+                if K == 1:
+                    sums.add(*self._step(batch, train))
+                    bar.update(1)
+                    continue
+                pending.append(batch)
+                if len(pending) == K:
+                    self._run_chunk(pending, train, sums)
+                    pending = []
+                    # The running loss: one read a chunk, and none unasked.
+                    bar.update(K, loss=sums.mean_loss() if bar.enabled else None)
+            for batch in pending:  # the epoch's tail, one step at a time
+                sums.add(*self._step(batch, train))
+                bar.update(1)
+        finally:
+            bar.close()
         if train:
             self.last_host_stall_frac = waited / max(time.perf_counter() - t0, 1e-9)
-        k = self.config.train.metrics_num_classes
-        mean_loss = float(total) / max(n, 1) if n else 0.0
-        cm_host = cm.cpu().numpy() if cm is not None else np.zeros((k, k), np.int64)
-        return mean_loss, iou_from_confusion(cm_host)
+        return sums.finish(tc.metrics_num_classes)
+
+    # -- the on-device epoch (TrainConfig.onchip_epoch / onchip_eval) ---------
+
+    def _materialized(self, loader) -> Dict[str, torch.Tensor]:
+        """The loader's whole dataset on the device (materialize_dataset with
+        the Batcher's sample_transform, one copy)."""
+        b = loader.batcher
+        return to_device_packed(materialize_dataset(b.dataset, b.batch_size,
+                                                    sample_transform=b.sample_transform),
+                                self.device)
+
+    def _onchip_rows(self, data: Dict[str, torch.Tensor]) -> Optional[Dict[str, torch.Tensor]]:
+        """Row-aligned extras of the contiguous on-device epoch, gathered
+        once for the permuted set `data` (the KD trainer's device teacher
+        cache); None when there are none."""
+        return None
+
+    def _onchip_step_kwargs(self, rows: Dict[str, torch.Tensor]) -> Dict:
+        raise NotImplementedError
+
+    def _run_epoch_onchip(self) -> Tuple[float, Dict]:
+        """One training epoch over the training set resident on the device:
+        each step gathers its batch (index_select by a slice of the epoch's
+        permutation) or, with onchip_contiguous, reads a slice of the set
+        permuted once. No host batch, no per-step copy."""
+        if not hasattr(self.train_loader, "batcher"):
+            raise ValueError("onchip_epoch needs a Batcher-based loader")
+        tc = self.config.train
+        batcher = self.train_loader.batcher
+        B = batcher.batch_size  # the loader's, as len(train_loader) sets the schedule
+        if self._onchip_data is None:
+            self._onchip_data = self._materialized(self.train_loader)
+        data = self._onchip_data
+        n = data["sample_mask"].shape[0]
+        epoch = max(getattr(batcher, "_epoch", 0), self._epoch_index)
+        if getattr(batcher, "shuffle", True):
+            perm = np.random.default_rng(np.random.SeedSequence(
+                [tc.seed, epoch, 104729])).permutation(n)
+        else:
+            perm = np.arange(n)
+        perm = torch.from_numpy(perm.astype(np.int64)).to(self.device)
+        rows = None
+        if tc.onchip_contiguous:
+            data = {k: v.index_select(0, perm) for k, v in data.items()}
+            rows = self._onchip_rows(data)
+        bar = ProgressBar(n // B, "Training", tc.progress)
+        sums = _EpochSums()
+        try:
+            for i in range(n // B):
+                if tc.onchip_contiguous:
+                    batch = {k: v[i * B:(i + 1) * B] for k, v in data.items()}
+                    kw = ({} if rows is None else self._onchip_step_kwargs(
+                        {k: v[i * B:(i + 1) * B] for k, v in rows.items()}))
+                else:
+                    idx = perm[i * B:(i + 1) * B]
+                    batch, kw = {k: v.index_select(0, idx) for k, v in data.items()}, {}
+                sums.add(*self.train_step(batch, **kw))
+                bar.update(1)
+        finally:
+            bar.close()
+        self.last_host_stall_frac = 0.0
+        return sums.finish(tc.metrics_num_classes)
+
+    def _run_val_onchip(self) -> Tuple[float, Dict]:
+        """Validation over the val set resident on the device, in order."""
+        tc = self.config.train
+        B = self.val_loader.batcher.batch_size
+        if self._onchip_val_data is None:
+            self._onchip_val_data = self._materialized(self.val_loader)
+        data = self._onchip_val_data
+        sums = _EpochSums()
+        for i in range(data["sample_mask"].shape[0] // B):
+            sums.add(*self.eval_step({k: v[i * B:(i + 1) * B] for k, v in data.items()}))
+        return sums.finish(tc.metrics_num_classes)
 
     def train_epoch(self) -> Tuple[float, Dict]:
+        if self.config.train.onchip_epoch:
+            return self._run_epoch_onchip()
         return self._run_epoch(self.train_loader, train=True)
 
     def validate(self) -> Tuple[float, Dict]:
+        want = self.config.train.onchip_eval
+        supported = hasattr(self.val_loader, "batcher")
+        if want is None:  # follow onchip_epoch where the loader allows it
+            want = self.config.train.onchip_epoch and supported
+        elif want and not supported:
+            raise ValueError("onchip_eval=True needs a Batcher-based val loader; set "
+                             "onchip_eval=None for automatic fallback to the host path.")
+        if want:
+            return self._run_val_onchip()
         return self._run_epoch(self.val_loader, train=False)
 
     # -- checkpointing (reference: trainer.py:116-142) -------------------------
@@ -263,7 +452,7 @@ class Trainer:
         p = {"model_state": self.model.state_dict(),
              "optimizer": self.optimizer.state_dict(), "step": self.step}
         if self.ema_params is not None:
-            p["ema"] = {k: v.detach().cpu() for k, v in self.ema_params.items()}
+            p["ema"] = {k: v.detach() for k, v in self.ema_params.items()}
         return p
 
     def _restore(self, payload: Dict) -> None:
@@ -275,13 +464,29 @@ class Trainer:
             for k, e in self.ema_params.items():
                 e.copy_(src[k])
 
-    def save_checkpoint(self, epoch: int, val_miou: float, is_best: bool = False) -> None:
-        ckpt.save_checkpoint(self.save_dir, self._payload(), epoch, val_miou, is_best)
+    def save_checkpoint(self, epoch: int, val_miou: float, is_best: bool = False,
+                        snapshot: Optional[str] = None) -> None:
+        if self.config.train.async_checkpoint:
+            if self._async_ckpt is None:
+                self._async_ckpt = ckpt.AsyncCheckpointer()
+            self._async_ckpt.save(self.save_dir, self._payload(), epoch, val_miou, is_best,
+                                  snapshot=snapshot)
+        else:
+            ckpt.save_checkpoint(self.save_dir, self._payload(), epoch, val_miou, is_best,
+                                 snapshot=snapshot)
+
+    def flush_checkpoints(self) -> None:
+        """Wait until the async writes (if any) are on disk and stop the
+        writer thread (a later save starts a new one)."""
+        if self._async_ckpt is not None:
+            ac, self._async_ckpt = self._async_ckpt, None
+            ac.close()
 
     def load_checkpoint(self, path: str) -> int:
         """Restore a checkpoint of this trainer; returns the epoch to start
         from. best_miou is the historical maximum, not latest's own value, so
         a worse model cannot overwrite best after a resume."""
+        self.flush_checkpoints()
         payload = ckpt.load_checkpoint(path)
         self._restore(payload)
         start_epoch = int(payload["epoch"]) + 1
@@ -292,31 +497,64 @@ class Trainer:
               f"best mIoU {self.best_miou:.4f}")
         return start_epoch
 
+    # -- preemption (the JAX package's trainer.py:670-678) ----------------------
+
+    def request_preempt(self) -> None:
+        """Ask the training loop to stop after the current epoch, with that
+        epoch recorded and its checkpoint written and flushed; resume from
+        latest.pth. Safe from any thread or a signal handler."""
+        self._preempt_requested = True
+
     # -- main loop (reference: trainer.py:154-194) -------------------------------
 
     def train(self, start_epoch: int = 0, log=print) -> float:
         tc = self.config.train
+        self._preempt_requested = False
+        old_sigterm = None
+        if tc.handle_sigterm:
+            # signal.signal raises off the main thread: request_preempt() there.
+            if threading.current_thread() is threading.main_thread():
+                old_sigterm = signal.signal(signal.SIGTERM,
+                                            lambda *_: self.request_preempt())
+            else:
+                warnings.warn("handle_sigterm: not on the main thread, cannot install a "
+                              "SIGTERM handler; call request_preempt() instead.")
         log(f"\nStarting training from epoch {start_epoch + 1}/{tc.num_epochs}")
-        for epoch in range(start_epoch, tc.num_epochs):
-            if hasattr(self.train_loader, "set_epoch"):
-                self.train_loader.set_epoch(epoch)
-            t0 = time.perf_counter()
-            train_loss, train_metrics = self.train_epoch()
-            val_loss, val_metrics = self.validate()
-            dt = time.perf_counter() - t0
-            # The LR the next epoch uses (torch's post-step read, trainer.py:166-167).
-            current_lr = lr_at_epoch(tc.lr, tc.eta_min, tc.num_epochs, epoch + 1)
-            train_miou, val_miou = train_metrics["miou"], val_metrics["miou"]
-            log(f"Epoch {epoch + 1}/{tc.num_epochs} [{dt:.1f}s, input stall "
-                f"{self.last_host_stall_frac * 100:.0f}%] "
-                f"train loss {train_loss:.4f} mIoU {train_miou:.4f} | "
-                f"val loss {val_loss:.4f} mIoU {val_miou:.4f} | "
-                f"class IoU {['%.4f' % v for v in val_metrics['class_iou']]}")
-            self.history.append(train_loss, train_miou, val_loss, val_miou, current_lr)
-            is_best = val_miou > self.best_miou
-            if is_best:
-                self.best_miou = val_miou
-                log(f"  New best mIoU: {val_miou:.4f}")
-            self.save_checkpoint(epoch, val_miou, is_best=is_best)
-        log(f"Training completed! Best validation mIoU: {self.best_miou:.4f}")
+        try:
+            for epoch in range(start_epoch, tc.num_epochs):
+                self._epoch_index = epoch
+                if hasattr(self.train_loader, "set_epoch"):
+                    self.train_loader.set_epoch(epoch)
+                t0 = time.perf_counter()
+                train_loss, train_metrics = self.train_epoch()
+                val_loss, val_metrics = self.validate()
+                dt = time.perf_counter() - t0
+                # The LR the next epoch uses (torch's post-step read, trainer.py:166-167).
+                current_lr = lr_at_epoch(tc.lr, tc.eta_min, tc.num_epochs, epoch + 1)
+                train_miou, val_miou = train_metrics["miou"], val_metrics["miou"]
+                log(f"Epoch {epoch + 1}/{tc.num_epochs} [{dt:.1f}s, input stall "
+                    f"{self.last_host_stall_frac * 100:.0f}%] "
+                    f"train loss {train_loss:.4f} mIoU {train_miou:.4f} | "
+                    f"val loss {val_loss:.4f} mIoU {val_miou:.4f} | "
+                    f"class IoU {['%.4f' % v for v in val_metrics['class_iou']]}")
+                self.history.append(train_loss, train_miou, val_loss, val_miou, current_lr)
+                is_best = val_miou > self.best_miou
+                if is_best:
+                    self.best_miou = val_miou
+                    log(f"  New best mIoU: {val_miou:.4f}")
+                snap = (ckpt.snapshot_name(epoch) if tc.snapshot_every
+                        and (epoch + 1) % tc.snapshot_every == 0 else None)
+                self.save_checkpoint(epoch, val_miou, is_best=is_best, snapshot=snap)
+                if self._preempt_requested:
+                    break
+        finally:
+            # Restore the handler and drain pending writes, also on an error.
+            if old_sigterm is not None:
+                signal.signal(signal.SIGTERM, old_sigterm)
+            self.flush_checkpoints()
+        if self._preempt_requested:
+            log(f"Preempted — stopped after epoch {self._epoch_index + 1}; "
+                f"resume from {self.save_dir}/{ckpt.LATEST}")
+        else:
+            log(f"Training completed! Best validation mIoU: {self.best_miou:.4f}")
         return self.best_miou

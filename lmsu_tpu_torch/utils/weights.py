@@ -9,6 +9,13 @@ variables, and a trained JAX checkpoint serves from the port.
 (what `jax.device_get` or the JAX package's `load_checkpoint_raw` return).
 The KD projections ([Ct, Cs] per tap, under the JAX state's
 `params["proj"]`) carry across in the same layout both ways.
+
+The pillar encoder (encoder_type "pointpillars") maps JAX's
+`lidar_encoder/encoder/pfn{i}` and `bn{i}` to the port's
+`lidar_encoder.encoder.pfn.{3i}` and `.{3i + 1}`. The reference has no
+pillar net, so the JAX converter (convert_torch_state_dict, which knows
+only `point_mlp`) does not cover it: pillar weights carry from the JAX
+package to the port only.
 Layouts (flax -> torch):
   Conv  [kh, kw, I, O]          -> [O, I, kh, kw]
   Depthwise [k, k, 1, C]        -> [C, 1, k, k]
@@ -90,9 +97,13 @@ def from_jax_variables(variables: Mapping[str, Any], config: ModelConfig
         b.conv_bn("camera_fpn.post.net.0", "camera_fpn.post.net.1", ("camera_fpn", "post", "dw"))
         b.conv_bn("camera_fpn.post.net.3", "camera_fpn.post.net.4", ("camera_fpn", "post", "pw"))
 
-    for i, idx in enumerate((0, 3, 6)):
-        b.dense(f"lidar_encoder.encoder.point_mlp.{idx}", ("lidar_encoder", "encoder", f"mlp{i}"))
-        b.bn(f"lidar_encoder.encoder.point_mlp.{idx + 1}", ("lidar_encoder", "encoder", f"bn{i}"))
+    # The spatial encoder's point_mlp (JAX mlp{i}), or the pillar net's
+    # pfn (JAX pfn{i}), in the same layout; bn{i} in both.
+    seq, dense = (("pfn", "pfn") if config.lidar.encoder_type == "pointpillars"
+                  else ("point_mlp", "mlp"))
+    for i in range(len(config.lidar.mlp_dims) + 1):
+        b.dense(f"lidar_encoder.encoder.{seq}.{3 * i}", ("lidar_encoder", "encoder", f"{dense}{i}"))
+        b.bn(f"lidar_encoder.encoder.{seq}.{3 * i + 1}", ("lidar_encoder", "encoder", f"bn{i}"))
 
     if config.fusion_type == "concat":
         for name in ("camera_proj", "lidar_proj"):

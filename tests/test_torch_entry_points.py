@@ -153,13 +153,25 @@ def test_entry_point_raises_without_cuda(monkeypatch, cli, argv):
 
 
 def test_common_flags_are_the_ported_options_only():
-    """Flags of options the port refuses are absent (argparse rejects them);
-    --fusion-type takes the four fusions."""
+    """Flags of options the port refuses are absent (argparse rejects them:
+    PandaSet data and its decoded cache, model parallelism); --fusion-type
+    takes the four fusions; the loop and run-control flags and
+    --lidar-encoder set their fields."""
     p = train_synthetic.make_parser()
-    for flag in ("--onchip-epoch", "--model-parallel", "--data-root",
-                 "--scan-steps", "--lidar-encoder", "--async-checkpoint"):
+    for flag in ("--model-parallel", "--data-root", "--decoded-cache"):
         with pytest.raises(SystemExit):
             p.parse_args([flag])
+    cfg = train_synthetic.build_config(p.parse_args(
+        ["--scan-steps", "13", "--onchip-epoch", "--onchip-eval", "--progress",
+         "--snapshot-every", "2", "--handle-sigterm", "--async-checkpoint",
+         "--lidar-encoder", "pointpillars"]))
+    tc = cfg.train
+    assert (tc.scan_steps, tc.onchip_epoch, tc.onchip_eval, tc.progress, tc.snapshot_every,
+            tc.handle_sigterm, tc.async_checkpoint) == (13, True, True, True, 2, True, True)
+    assert cfg.model.lidar.encoder_type == "pointpillars"
+    tc = train_synthetic.build_config(p.parse_args([])).train
+    assert (tc.scan_steps, tc.onchip_epoch, tc.onchip_eval, tc.snapshot_every) == \
+        (1, False, None, None)
     # Augmentation is ported: --augment is the standard recipe, an --aug-*
     # flag sets its term (alone, without --augment).
     assert not train_synthetic.build_config(p.parse_args([])).train.augment.enabled
@@ -246,11 +258,52 @@ def test_train_distill_trains_an_ensemble_of_teachers(tmp_path, monkeypatch, cap
 
 
 def test_train_distill_rejects_unported_flags():
-    """PointPillars (--teacher-lidar-encoder), teacher partitioning
-    (--teacher-partition) and scan steps are not ported: argparse rejects
-    their flags."""
+    """Teacher partitioning (--teacher-partition, Queue A 8) is not ported:
+    argparse rejects its flag. --teacher-lidar-encoder and --scan-steps are
+    ported: the teacher's encoder is set on top of teacher_config, the
+    student's stays its own."""
     p = train_distill.make_parser()
-    for argv in (["--teacher-lidar-encoder", "pointpillars"], ["--teacher-partition", "fsdp"],
-                 ["--scan-steps", "13"]):
-        with pytest.raises(SystemExit):
-            p.parse_args(argv)
+    with pytest.raises(SystemExit):
+        p.parse_args(["--teacher-partition", "fsdp"])
+    cfg, tcfg = train_distill.build_configs(p.parse_args(
+        ["--lidar-encoder", "pointpillars", "--teacher-lidar-encoder", "spatial",
+         "--scan-steps", "13"]))
+    assert (cfg.model.lidar.encoder_type, tcfg.lidar.encoder_type) == ("pointpillars", "spatial")
+    assert cfg.train.scan_steps == 13 and tcfg.camera.channels[0] == 2 * cfg.model.camera.channels[0]
+    cfg, tcfg = train_distill.build_configs(p.parse_args(["--lidar-encoder", "pointpillars"]))
+    assert tcfg.lidar.encoder_type == "pointpillars"
+
+
+def test_train_distill_runs_the_crossarch_recipe_on_device_epochs(tmp_path, monkeypatch,
+                                                                    capsys):
+    """scripts/experiment_crossarch_best.py's flags with --scan-steps 2 and
+    --onchip-epoch at a small size: a PointPillars student, a spatial
+    teacher trained first, the cache on the device riding the on-device
+    epoch, on-device validation; then a second run with the chunked host
+    loop and snapshots."""
+    real = train_distill.build_configs
+
+    def build(args):
+        cfg, tcfg = real(args)
+        cfg = small(cfg)
+        t = teacher_config(cfg.model, args.teacher_width)
+        return cfg, t.replace(lidar=dataclasses.replace(t.lidar, encoder_type=tcfg.lidar.encoder_type))
+    monkeypatch.setattr(train_distill, "build_configs", build)
+    flags = ["--lidar-encoder", "pointpillars", "--teacher-lidar-encoder", "spatial",
+             "--train-teacher", "--cache-teacher", "--cache-hbm-gb", "6", "--temperature", "4",
+             "--augment", "--aug-hflip", "0", "--scan-steps", "2", "--difficulty", "hard",
+             "--device", "cpu", "--epochs", "1", "--num-train", "6", "--num-val", "4",
+             "--batch-size", "2", "--num-workers", "0"]
+    for name, extra in (("onchip", ["--onchip-epoch"]), ("chunked", ["--snapshot-every", "1"])):
+        run = tmp_path / name
+        best = train_distill.main(flags + extra + ["--save-dir", str(run)])
+        assert np.isfinite(best)
+        hist = json.loads((run / "training_history.json").read_text())
+        assert len(hist["train_loss"]) == 1 and np.isfinite(hist["train_loss"]).all()
+        ckpt = torch.load(run / "latest.pth", weights_only=False)
+        assert any(k.startswith("lidar_encoder.encoder.pfn.") for k in ckpt["model_state"])
+        teacher = torch.load(tmp_path / f"{name}_teacher" / "latest.pth", weights_only=False)
+        assert any(k.startswith("lidar_encoder.encoder.point_mlp.")
+                   for k in teacher["model_state"])
+    assert (tmp_path / "chunked" / "epoch_001.pth").exists()
+    assert "on the device (6 samples" in capsys.readouterr().out

@@ -169,8 +169,9 @@ def test_training_block_wrappers_refuse_non_cpu_tensors_without_fallback():
 
 
 def test_create_model_takes_fused_train_and_refuses_the_rest():
-    """fused_train and the deprecated LidarEncoderConfig.use_pallas (the
-    "pallas" scatter, as in the JAX package) build; remat is refused."""
+    """fused_train, remat (with fused_train too) and the deprecated
+    LidarEncoderConfig.use_pallas (the "pallas" scatter, as in the JAX
+    package) build."""
     from lmsu_tpu_torch.config import CameraEncoderConfig, LidarEncoderConfig, ModelConfig
     from lmsu_tpu_torch.models import create_model
     cfg = _tiny_config()
@@ -180,8 +181,9 @@ def test_create_model_takes_fused_train_and_refuses_the_rest():
     lidar = LidarEncoderConfig(feature_dim=16, mlp_dims=(8, 16), grid_size=(8, 8),
                                use_pallas=True)
     assert create_model(cfg.replace(lidar=lidar)).lidar_encoder.encoder.config.use_pallas
-    with pytest.raises(NotImplementedError, match="remat"):
-        create_model(cfg.replace(camera=CameraEncoderConfig(base_channels=4, remat=True)))
+    model = create_model(cfg.replace(camera=CameraEncoderConfig(base_channels=4, remat=True,
+                                                                fused_train=True)))
+    assert model.camera_encoder.config.remat and model.camera_encoder.stage3.fused_train
     assert isinstance(ModelConfig().camera.fused_train, bool)
 
 

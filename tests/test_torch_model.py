@@ -161,13 +161,17 @@ def test_full_width_weighted_student_parameter_count():
 
 
 def test_unported_variants_are_refused():
-    """What the port does not build: remat and the pillar encoder by name
-    (not ported yet); an unknown fusion_type or output_mode is a ValueError,
-    as in the JAX package (models/fusion.py:332, :342)."""
-    with pytest.raises(NotImplementedError, match="remat"):
-        create_model(ModelConfig(camera=CameraEncoderConfig(remat=True)))
-    with pytest.raises(NotImplementedError, match="pointpillars"):
-        create_model(ModelConfig(lidar=LidarEncoderConfig(encoder_type="pointpillars")))
+    """What the port does not build: an unknown fusion_type, output_mode or
+    LiDAR encoder_type is a ValueError, as in the JAX package
+    (models/fusion.py:332, :342; lidar_encoder.py:178). Remat and the
+    pillar encoder are ported: they build (tests/test_torch_remat.py,
+    tests/test_torch_pointpillars.py)."""
+    model = create_model(ModelConfig(camera=CameraEncoderConfig(remat=True),
+                                     lidar=LidarEncoderConfig(encoder_type="pointpillars")))
+    assert model.camera_encoder.config.remat
+    assert type(model.lidar_encoder.encoder).__name__ == "PointPillarsLiDAREncoder"
+    with pytest.raises(ValueError, match="Unknown encoder type"):
+        create_model(ModelConfig(lidar=LidarEncoderConfig(encoder_type="voxelnet")))
     with pytest.raises(ValueError, match="fusion_type"):
         create_model(ModelConfig(fusion_type="attention"))
     with pytest.raises(ValueError, match="output_mode"):

@@ -105,12 +105,10 @@ def test_resumed_run_ends_where_the_full_run_ends(full_run, tmp_path):
 
 
 @pytest.mark.parametrize("option,field", [
-    ("scan_steps", dict(scan_steps=4)),
     ("onchip_epoch", dict(onchip_epoch=True)),
+    ("onchip_eval", dict(onchip_eval=True)),
+    ("onchip_spill", dict(onchip_epoch=True)),
     ("augment", "augment"),
-    ("handle_sigterm", dict(handle_sigterm=True)),
-    ("async_checkpoint", dict(async_checkpoint=True)),
-    ("snapshot_every", dict(snapshot_every=10)),
     ("cache_teacher", dict(cache_teacher=True)),
     ("ensemble", dict(ensemble_size=2)),
     ("teacher_partition", dict(teacher_partition="fsdp")),
@@ -118,10 +116,15 @@ def test_resumed_run_ends_where_the_full_run_ends(full_run, tmp_path):
 ])
 def test_unported_options_are_refused_by_name(tmp_path, option, field):
     """Options the port does not have raise NotImplementedError naming
-    them. Augmentation, the teacher cache and ensembles are ported: they
-    are refused, by name, where the JAX package refuses them (ValueError):
-    a point-moving term with the sorted scatter, the flip with the cache,
-    one state dict for a two-member ensemble."""
+    them: parallelism and teacher partitioning. The rest are ported and are
+    refused, by name, where the JAX package refuses them: a point-moving
+    augmentation term with the sorted scatter, the flip with the cache, one
+    state dict for a two-member ensemble (ValueError); the on-device epoch
+    or validation over a loader without a Batcher (ValueError), and the
+    on-device epoch with the host-spilled teacher cache
+    (NotImplementedError). scan_steps, SIGTERM handling, async and snapshot
+    checkpoints are ported and refuse nothing (tests/test_torch_epoch_loops.py,
+    tests/test_torch_run_control.py)."""
     import dataclasses
 
     from lmsu_tpu_torch.config import AugmentConfig, MeshConfig
@@ -148,7 +151,19 @@ def test_unported_options_are_refused_by_name(tmp_path, option, field):
             teacher_sd = create_model(teacher_config(cfg.model, 2.0)).state_dict()
             error = ValueError
     else:
+        # The on-device loops: refused when the loop starts, as in JAX.
         cfg = cfg.replace(train=dataclasses.replace(tc, **field))
+        if option == "onchip_spill":
+            cfg = cfg.replace(train=dataclasses.replace(cfg.train, kd=dataclasses.replace(
+                tc.kd, cache_teacher=True, cache_hbm_limit_bytes=0)))
+            tr = DistillationTrainer(cfg, *build_loaders(cfg, verbose=False), device="cpu")
+            with pytest.raises(NotImplementedError, match="host-spilled cache"):
+                tr.train_epoch()
+            return
+        tr = DistillationTrainer(cfg, [], [], device="cpu")
+        with pytest.raises(ValueError, match=f"{option}.*Batcher"):
+            tr.train_epoch() if option == "onchip_epoch" else tr.validate()
+        return
     match = {"ensemble": "ensemble", "MeshConfig": "parallelism"}.get(option, option)
     with pytest.raises(error, match=match):
         DistillationTrainer(cfg, [], [], device="cpu", teacher_state_dict=teacher_sd)
