@@ -4,6 +4,7 @@ check them.
 
     python3 chip_smoke.py                 # everything (needs one GPU)
     python3 chip_smoke.py --phases kernels,train
+    python3 chip_smoke.py --phases pandaset
 
 Phases:
   1. build   every hand-written kernel (one nvcc per source, in parallel),
@@ -152,6 +153,22 @@ Phases:
              the step without it, unfused and fused_train, deterministic
              cuDNN, hold_step's fixed limits; then both timed (5 steps each)
              with their peak memory.
+  5. pandaset PandaSet-scale data (run_pandaset_cli): 224 frames of ~100,000
+             points a sweep (4 under 5,000, so the pad path runs) and 256^2
+             images made in numpy, decoded by data/pandaset.py::decode_frame
+             (host ms a frame by the native route and by numpy); two frames
+             with NaN coordinates whose labels must not change and whose NaN
+             points must sort last; train/ and val/ packs; one epoch of
+             `python -m lmsu_tpu_torch.train_pandaset` at full width
+             (concat/256, 3 classes, batch 4) from the packs with the sorted
+             scatter (K1 and K5 must launch; history, latest.pth, finite
+             loss), then `python -m lmsu_tpu_torch.evaluate --num-classes 3
+             --dataset packed` on its latest.pth (finite loss, the recorded
+             val mIoU within 1e-3); K1, K5 (and K4 beside them) against their
+             plain versions on a decoded batch with pad_points_are_valid=True (thousands of
+             tied rows in each short cloud's centre cell; one cloud with NaN
+             points), f32 and bf16. Where PIL and pandas are installed,
+             `prepare_dataset --dataset pandaset` on a raw tree too.
 
 Output: the card's name and power limit (nvidia-smi), then per-phase lines,
 the whole run's seconds, then one `{"kernels": [...]}` JSON line, the serving and train summaries,
@@ -344,6 +361,18 @@ def scatter_bound(feats, keys, hw):
     es = feats.element_size()
     return bound_ms(n_valid * C * es + keys.numel() * 4 + Bn * hw * C * es, n_valid * C,
                     feats.dtype)
+
+
+def scatter_bwd_bound(feats, keys, hw):
+    """K5's bound: the valid rows of feats, the keys, out and g of the
+    non-empty cells, all of d; two compares per valid element."""
+    Bn, n, C = feats.shape
+    k_np = keys.cpu().numpy()
+    n_valid = int((k_np < hw).sum())
+    n_cells = sum(len(np.unique(r[r < hw])) for r in k_np)
+    es = feats.element_size()
+    nbytes = n_valid * C * es + keys.numel() * 4 + 2 * n_cells * C * es + Bn * n * C * es
+    return bound_ms(nbytes, 2 * n_valid * C, feats.dtype)
 
 
 def kernel_scatter(rng, dev, dtype, C, B=B):
@@ -555,13 +584,8 @@ def kernel_scatter_bwd(rng, dev, dtype, C=128, B=B, skew=False):
         return torch.autograd.grad(lib_out, src, g_lib, retain_graph=True)[0]
 
     lib_err = (library().reshape(got.shape).float() - got.float()).abs().max().item()
-    k_np = keys.cpu().numpy()
-    n_valid = int((k_np < hw).sum())
-    n_cells = sum(len(np.unique(r[r < hw])) for r in k_np)
-    es = feats.element_size()
-    # Valid rows of feats, the keys, out and g of non-empty cells, all of d.
-    nbytes = n_valid * C * es + keys.numel() * 4 + 2 * n_cells * C * es + B * NPTS * C * es
-    bound, by = bound_ms(nbytes, 2 * n_valid * C, dtype)
+    n_cells = sum(len(np.unique(r[r < hw])) for r in keys.cpu().numpy())
+    bound, by = scatter_bwd_bound(feats, keys, hw)
     run = lambda: ss.segment_max_bwd(feats, keys, out, g, hw)  # noqa: E731
     plan = ss.segment_max_bwd_plan(B, NPTS, C, hw, dtype) if dev.type == "cuda" else None
     return {"plan": plan, "ms": time_ms(run), "eager_ms": eager_ms(run),
@@ -2365,7 +2389,8 @@ def run_ablation_cli(dev):
         out = os.path.join(d, "fusion_ablation_results.json")
         reset_launch_counts()
         t0 = time.perf_counter()
-        train_fusion_ablation.main(["--device", str(dev), "--epochs", "1", "--num-train", "16",
+        train_fusion_ablation.main(["--device", str(dev), "--epochs", "1", "--dataset",
+                                    "synthetic", "--num-train", "16",
                                     "--num-val", "8", "--batch-size", "8",
                                     "--scatter-impl", "sorted_pallas", "--num-workers", "4",
                                     "--run-prefix", os.path.join(d, "ablation"),
@@ -2413,6 +2438,245 @@ def run_synthetic_cli(dev):
         raise AssertionError(f"train_synthetic: launches {launches}")
     return {"seconds": secs, "best_val_miou": best, "files": files, "launches": launches,
             "evaluate": ev, "recorded_val_miou": val_miou}
+
+
+# -- PandaSet-scale frames, packs and train_pandaset ----------------------------
+
+PANDA_POINTS = 100_000  # points a sweep (native/bev_ops.cc:72)
+# Frames; short clouds among the train frames. 48 steps at the preset's B=4
+# let train-mode BatchNorm's running statistics settle for validation.
+PANDA_TRAIN, PANDA_VAL, PANDA_SHORT = 192, 32, 4
+PANDA_CLASSES = 42  # PandaSet's raw semseg class ids 0-41
+
+
+def pandaset_frame(rng, n, nan=0):
+    """One frame's arrays as PandaSet's files give them: a 256^2 uint8
+    image, a sweep of n points [n, 4] over +-80 m (denser near the sensor;
+    about half outside +-50 m), raw class ids in PandaSet's range with the
+    drivable set on a road band along x. `nan` points get a NaN x or y."""
+    r = 80.0 * rng.uniform(0, 1, n) ** 0.7
+    th = rng.uniform(-np.pi, np.pi, n)
+    pts = np.stack([r * np.cos(th), r * np.sin(th), rng.uniform(-3, 3, n),
+                    rng.uniform(0, 1, n)], axis=1).astype(np.float32)
+    road = np.abs(pts[:, 1]) < 8.0
+    ids = rng.integers(0, PANDA_CLASSES, n)
+    ids[road] = rng.choice([6, 7, 8, 9, 10, 12], int(road.sum()))
+    ids[~road & np.isin(ids, [6, 7, 8, 9, 10, 12])] = 1
+    if nan:
+        at = rng.choice(n, nan, replace=False)
+        pts[at[: nan // 2], 0] = np.nan
+        pts[at[nan // 2:], 1] = np.nan
+    img = rng.integers(0, 200, (IMG, IMG, 3)).astype(np.uint8)
+    img[IMG // 2 - 16:IMG // 2 + 16] += 55  # the road, brighter
+    return img, pts, ids.astype(np.int64)
+
+
+def decode_frames(frames, route, **kw):
+    """decode_frame over `frames` by `route` ("native" or "numpy"); returns
+    (samples, host ms a frame)."""
+    from lmsu_tpu_torch.data import native
+    from lmsu_tpu_torch.data.pandaset import decode_frame
+    real = native._load
+    if route == "numpy":
+        native._load = lambda: None
+    try:
+        t0 = time.perf_counter()
+        out = [decode_frame(img, pts, ids, grid_size=(GRID, GRID), max_points=NPTS,
+                            pc_range=(-50.0, 50.0, -50.0, 50.0), seed=0, index=i, **kw)
+               for i, (img, pts, ids) in enumerate(frames)]
+        return out, (time.perf_counter() - t0) * 1e3 / len(frames)
+    finally:
+        native._load = real
+
+
+def check_nan_frames(frames):
+    """Frames with NaN coordinates (sensor dropout): the labels equal those
+    of the cloud without its NaN rows (rasterize_bev drops them, both
+    routes), and the cell sort puts every NaN point last, in the sentinel
+    cell, so no cell takes its features."""
+    from lmsu_tpu_torch.data.pandaset import decode_frame
+    from lmsu_tpu_torch.data.rasterize import bev_cell_key, make_point_sorter
+    pc4, pc6 = (-50.0, 50.0, -50.0, 50.0), (-50.0, -50.0, -5.0, 50.0, 50.0, 3.0)
+    sorter = make_point_sorter((GRID, GRID), pc6)
+    out = {"nan_rows_kept": 0}
+    for i, (img, pts, ids) in enumerate(frames):
+        ok = ~np.isnan(pts[:, :2]).any(axis=1)
+        s = decode_frame(img, pts, ids, grid_size=(GRID, GRID), max_points=NPTS, pc_range=pc4,
+                         seed=0, index=i)
+        clean = decode_frame(img, pts[ok], ids[ok], grid_size=(GRID, GRID), max_points=NPTS,
+                             pc_range=pc4, seed=0, index=i)
+        if not np.array_equal(s["segmentation"], clean["segmentation"]):
+            raise AssertionError(f"NaN frame {i}: its labels change with the NaN rows")
+        sorted_s = sorter(s)
+        nan_at = np.isnan(sorted_s["points"][:, :2]).any(axis=1)
+        key = bev_cell_key(sorted_s["points"], (GRID, GRID), pc6, sorted_s["point_valid"])
+        if not (key[nan_at] == GRID * GRID).all() or (np.diff(key) < 0).any():
+            raise AssertionError(f"NaN frame {i}: a NaN point is not in the sentinel cell")
+        out["nan_rows_kept"] += int(nan_at.sum())
+    return out
+
+
+def check_padded_scatter(rng, dev, samples):
+    """K1 and K5 against their plain versions on one decoded batch with
+    pad_points_are_valid=True (the reference's quirk): each short cloud's
+    zero padding lands in the centre cell as thousands of valid, tied rows;
+    one cloud also has NaN points (their rows are NaN and invalid: no cell
+    may take them). Features relu(points . W + b) at the lidar encoder's
+    C=128, so the pad rows tie exactly. K1 bit for bit, K5 exactly, in f32
+    and bf16; their times beside the plain versions' and their bounds, and
+    K4's (off this path: it spreads a long span over blocks, K1 walks it in
+    one), also bit for bit."""
+    from lmsu_tpu_torch.data.rasterize import bev_cell_key, make_point_sorter
+    from lmsu_tpu_torch.ops import scatter_sorted as ss
+    from lmsu_tpu_torch.ops.scatter import points_to_bev_indices
+    hw, C = GRID * GRID, 128
+    pc6 = (-50.0, -50.0, -5.0, 50.0, 50.0, 3.0)
+    sorter = make_point_sorter((GRID, GRID), pc6)
+    batch = [sorter(s) for s in samples]
+    pts = np.stack([s["points"] for s in batch])
+    pv = np.stack([s["point_valid"] for s in batch])
+    host_key = bev_cell_key(pts, (GRID, GRID), pc6, pv)
+    pts_d = torch.from_numpy(pts).to(dev)
+    flat_idx, valid = points_to_bev_indices(pts_d[..., :2], (GRID, GRID), pc6)
+    keys = ss.cell_keys(flat_idx, valid & torch.from_numpy(pv).to(dev), hw)
+    if not np.array_equal(keys.cpu().numpy(), host_key):
+        raise AssertionError("padded batch: device cell index != host sort key")
+    centre = (GRID - 1) // 2 * GRID + (GRID - 1) // 2
+    out = {"centre_cell_rows": [int((k == centre).sum()) for k in host_key],
+           "nan_points": int(np.isnan(pts).any(-1).sum())}
+    w = torch.from_numpy(rng.normal(0, 1, (4, C)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.uniform(0.1, 1, C).astype(np.float32)).to(dev)
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        feats = torch.relu(pts_d @ w + b).to(dtype).contiguous()
+        got = ss.segment_max(feats, keys, hw)
+        want = ss.segment_max_plain(feats, keys, hw)
+        if not torch.equal(got, want) or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"scatter_sorted_fwd on the padded batch {dt}: not bit-exact "
+                                 f"or not finite")
+        if not torch.equal(ss.segment_max_flat(feats, keys, hw), want):
+            raise AssertionError(f"scatter_sorted_fwd_flat on the padded batch {dt}: "
+                                 f"not bit-exact")
+        g = torch.from_numpy(rng.normal(0, 1, (len(batch), hw, C)).astype(np.float32)).to(dev,
+                                                                                         dtype)
+        d = ss.segment_max_bwd(feats, keys, got, g, hw)
+        if not torch.equal(d, ss.segment_max_bwd_plain(feats, keys, got, g, hw)):
+            raise AssertionError(f"scatter_sorted_bwd on the padded batch {dt}: not exact")
+        out[dt] = {"k1_bound_ms": scatter_bound(feats, keys, hw)[0],
+                   "k5_bound_ms": scatter_bwd_bound(feats, keys, hw)[0],
+                   "k1_ms": time_ms(lambda: ss.segment_max(feats, keys, hw)),  # noqa: B023
+                   "k4_ms": time_ms(lambda: ss.segment_max_flat(feats, keys, hw)),  # noqa: B023
+                   "k1_plain_ms": time_ms(lambda: ss.segment_max_plain(feats, keys, hw),  # noqa: B023
+                                          reps=10, inner=2),
+                   "k5_ms": time_ms(lambda: ss.segment_max_bwd(feats, keys, got, g, hw)),  # noqa: B023
+                   "k5_plain_ms": time_ms(
+                       lambda: ss.segment_max_bwd_plain(feats, keys, got, g, hw),  # noqa: B023
+                       reps=10, inner=2)}
+    return out
+
+
+def run_prepare_on_raw_tree(d, rng):
+    """Where PIL and pandas are installed: a raw tree of 2 scenes x 2
+    frames at PandaSet's scale, then `python -m lmsu_tpu_torch.prepare_dataset
+    --dataset pandaset` on it. Else one line naming what is missing."""
+    import importlib.util
+    missing = [m for m in ("PIL", "pandas") if importlib.util.find_spec(m) is None]
+    if missing:
+        return {"skipped": f"{', '.join(missing)} not installed: the raw-tree decode "
+                           f"(JPEG, pickles) does not run here"}
+    import pandas as pd
+    from PIL import Image
+
+    from lmsu_tpu_torch import prepare_dataset
+    root = os.path.join(d, "raw")
+    for sid in ("001", "002"):
+        dirs = [os.path.join(root, sid, *p) for p in (("camera", "front_camera"), ("lidar",),
+                                                      ("annotations", "semseg"))]
+        for x in dirs:
+            os.makedirs(x)
+        for f in range(2):
+            img, pts, ids = pandaset_frame(rng, PANDA_POINTS)
+            Image.fromarray(img).save(os.path.join(dirs[0], f"{f:02d}.jpg"))
+            pd.DataFrame({c: pts[:, k] for k, c in enumerate("xyzi")}).to_pickle(
+                os.path.join(dirs[1], f"{f:02d}.pkl"))
+            pd.DataFrame({"class": ids}).to_pickle(os.path.join(dirs[2], f"{f:02d}.pkl"))
+    t0 = time.perf_counter()
+    done = prepare_dataset.main(["--dataset", "pandaset", "--root", root, "--train-fraction",
+                                 "0.5", "--out", os.path.join(d, "raw_packs"), "--workers", "2"])
+    return {"seconds": time.perf_counter() - t0, "packed": {k: v[0] for k, v in done.items()}}
+
+
+def run_pandaset_cli(dev):
+    """PandaSet-scale data through the port on the card. Frames of
+    PANDA_POINTS points (PANDA_SHORT training clouds under 5,000 points,
+    so the pad path runs) are decoded with data/pandaset.py::decode_frame
+    by the native route (where native/libbev_ops.so loads) and by numpy,
+    host ms a frame printed for each; two more frames with NaN coordinates
+    are checked (check_nan_frames) and kept out of the packs, since a NaN
+    point makes train-mode BatchNorm's statistics NaN, in the JAX package as
+    in the port. Packs of the train and val frames (write_pack), then one
+    epoch of `python -m lmsu_tpu_torch.train_pandaset` at the preset's full
+    width (concat/256, 3 classes, batch 4) from them with the sorted
+    scatter: its history and latest.pth written, the train loss and mIoU
+    finite, K1 and K5 launched. `python -m lmsu_tpu_torch.evaluate
+    --num-classes 3 --dataset packed` on latest.pth: a finite loss, and the
+    val mIoU the trainer recorded within 1e-3 (both count the 2-class
+    matrix). K1 and K5 held to their plain versions on a decoded batch with
+    pad_points_are_valid=True (check_padded_scatter). Where PIL and pandas
+    are installed, prepare_dataset also decodes a raw tree."""
+    import tempfile
+
+    from lmsu_tpu_torch import evaluate, train_pandaset
+    from lmsu_tpu_torch.data import native, write_pack
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    rng = np.random.default_rng(15)
+    t_start = time.perf_counter()
+    frames = [pandaset_frame(rng, int(rng.integers(NPTS // 5, NPTS * 9 // 10)) if i < PANDA_SHORT
+                             else int(rng.integers(PANDA_POINTS * 9 // 10, PANDA_POINTS * 11 // 10)))
+              for i in range(PANDA_TRAIN + PANDA_VAL)]
+    res = {"route": native.route(), "points_a_sweep": int(np.mean([f[1].shape[0]
+                                                                   for f in frames]))}
+    decoded, res["decode_ms_a_frame"] = decode_frames(frames, native.route())
+    if native.route() == "native":
+        _, res["decode_ms_a_frame_numpy"] = decode_frames(frames, "numpy")
+    log(f"[pandaset] host decode {res['decode_ms_a_frame']:.3f} ms a frame by the "
+        f"{res['route']} route ({res['points_a_sweep']} points a sweep; numpy route "
+        f"{res.get('decode_ms_a_frame_numpy', res['decode_ms_a_frame']):.3f} ms); {smi_line()}")
+    nan_frames = [pandaset_frame(rng, NPTS * 2 // 5, nan=20),
+                  pandaset_frame(rng, PANDA_POINTS, nan=200)]
+    res["nan_frames"] = check_nan_frames(nan_frames)
+    with tempfile.TemporaryDirectory() as d:
+        packs, run = os.path.join(d, "packs"), os.path.join(d, "run")
+        t0 = time.perf_counter()
+        for split, part in (("train", decoded[:PANDA_TRAIN]), ("val", decoded[PANDA_TRAIN:])):
+            write_pack([{**x, "sample_token": f"{split}_{i:03d}"} for i, x in enumerate(part)],
+                       os.path.join(packs, split))
+        res["pack_seconds"] = time.perf_counter() - t0
+        common = ["--device", str(dev), "--dataset", "packed", "--data-root", packs,
+                  "--scatter-impl", "sorted_pallas", "--num-workers", "4"]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        best = train_pandaset.main(common + ["--epochs", "1", "--save-dir", run])
+        res["epoch_seconds"] = time.perf_counter() - t0
+        res["launches"] = {k: v.launches for k, v in kernels().items()}
+        files = sorted(os.listdir(run))
+        with open(os.path.join(run, "training_history.json")) as f:
+            hist = json.load(f)
+        ev = evaluate.main(common + ["--checkpoint", os.path.join(run, "latest.pth"),
+                                     "--num-classes", "3", "--save-dir", os.path.join(d, "ev")])
+        res["raw_tree"] = run_prepare_on_raw_tree(d, rng)
+    if ("latest.pth" not in files or not np.isfinite(best)
+            or not np.isfinite(hist["train_loss"] + hist["val_miou"]).all()):
+        raise AssertionError(f"train_pandaset wrote {files}, history {hist}, best {best}")
+    if any(res["launches"][k] <= 0 for k in ("scatter_sorted_fwd", "scatter_sorted_bwd")):
+        raise AssertionError(f"train_pandaset: launches {res['launches']}")
+    if not np.isfinite(ev["loss"]) or abs(ev["miou"] - hist["val_miou"][-1]) > 1e-3:
+        raise AssertionError(f"evaluate read {ev}, the trainer recorded {hist['val_miou']}")
+    res.update({"best_val_miou": best, "history": hist, "evaluate": ev, "files": files})
+    pad_samples, _ = decode_frames([frames[0], nan_frames[0], frames[PANDA_SHORT],
+                                    frames[1]], native.route(), pad_points_are_valid=True)
+    res["padded_scatter"] = check_padded_scatter(rng, dev, pad_samples)
+    res["seconds"] = time.perf_counter() - t_start
+    return res
 
 
 # -- the best KD recipe (best_overall_results.json) -----------------------------
@@ -3024,8 +3288,8 @@ def check_debug_nans(dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="kernels,serving,train",
-                    help="comma list of kernels,serving,train (build always runs)")
+    ap.add_argument("--phases", default="kernels,serving,train,pandaset",
+                    help="comma list of kernels,serving,train,pandaset (build always runs)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3189,6 +3453,10 @@ def main(argv=None) -> int:
         tres["synthetic_cli"] = run_synthetic_cli(dev)
         log(f"[train] train_synthetic + evaluate CLIs: {json.dumps(tres['synthetic_cli'])}")
         log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    if "pandaset" in phases:
+        tres["pandaset_cli"] = run_pandaset_cli(dev)
+        log(f"[pandaset] frames, packs, train_pandaset + evaluate CLIs: "
+            f"{json.dumps(tres['pandaset_cli'])}")
 
     # Each kernel's launches are counted on its slice's main path, f32: the
     # serving run for K1-K3, the 10 timed in-loop KD steps for K5, K7, the 10
@@ -3248,6 +3516,8 @@ def main(argv=None) -> int:
                 entry[f"{run}_launches"] = tres[run]["launches"][name]
             entry["recipe_train_launches"] = \
                 tres["recipe_f32"]["dataset_cache"]["launches"][name]
+        if "pandaset_cli" in tres:
+            entry["pandaset_train_launches"] = tres["pandaset_cli"]["launches"][name]
         if "pillar_f32" in tres:
             if path in ("serving", "train"):
                 entry["pillar_train_launches"] = tres["pillar_f32"]["in_loop"]["launches"][name]
@@ -3300,7 +3570,17 @@ def main(argv=None) -> int:
     if sres:
         print(json.dumps({"serving": {k: v["stats"] for k, v in sres.items() if "stats" in v},
                           "card": smi}))
-    if tres:
+    if "pandaset_cli" in tres:
+        pc = tres["pandaset_cli"]
+        print(json.dumps({"pandaset": {
+            **{k: pc.get(k) for k in ("route", "points_a_sweep", "decode_ms_a_frame",
+                                      "decode_ms_a_frame_numpy", "pack_seconds",
+                                      "epoch_seconds", "best_val_miou", "seconds")},
+            "k1_k5_launches": [pc["launches"]["scatter_sorted_fwd"],
+                               pc["launches"]["scatter_sorted_bwd"]],
+            "padded_scatter": pc["padded_scatter"], "raw_tree": pc["raw_tree"]},
+            "card": smi}))
+    if tres.keys() - {"pandaset_cli"}:
         summary = {dt: {v: {k: tres[dt][v][k] for k in ("step_ms", "frames_per_s")}
                         for v in ("in_loop", "cached")} for dt in ("f32", "bf16")}
         for dt in ("f32", "bf16"):

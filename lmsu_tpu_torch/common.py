@@ -2,12 +2,14 @@
 scripts/common.py): the common flags, their overrides of a preset
 ExperimentConfig, the loaders and resuming.
 
-Only flags whose options the port has are here. Those of refused options
-(PandaSet and packed data, the decoded cache, model parallelism) are
-absent, so argparse rejects them rather than dropping them. The port adds --device (CUDA unless 'cpu' is asked for) and
---bf16. The data is the synthetic dataset: --dataset sets
-DataConfig.dataset whatever the preset says. --augment and --aug-* set
-TrainConfig.augment (ops/augment.py).
+--dataset takes pandaset, synthetic and packed; without it the preset's
+dataset holds (PandaSet for train_pandaset and train_fusion_ablation,
+synthetic for train_synthetic, train_distill and evaluate). --data-root is
+the PandaSet tree or the pack directory, --decoded-cache keeps decoded
+PandaSet samples in host memory. Flags of options the port does not have
+(model parallelism) are absent, so argparse rejects them rather than
+dropping them. The port adds --device (CUDA unless 'cpu' is asked for) and
+--bf16. --augment and --aug-* set TrainConfig.augment (ops/augment.py).
 """
 
 from __future__ import annotations
@@ -28,7 +30,12 @@ SCATTER_IMPLS = ("xla", "xla_fastbwd", "sorted", "pallas", "sorted_pallas")
 def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
-    p.add_argument("--dataset", default="synthetic", choices=["synthetic"])
+    p.add_argument("--data-root", default=None,
+                   help="the PandaSet tree (scene directories), or with --dataset packed "
+                   "the pack directory (train/ and val/); default DataConfig.root")
+    p.add_argument("--dataset", default=None, choices=["pandaset", "synthetic", "packed"],
+                   help="default: the preset's; 'packed' trains from packs written by "
+                   "python -m lmsu_tpu_torch.prepare_dataset")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
@@ -52,6 +59,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    "--onchip-epoch where the val loader allows it; TrainConfig.onchip_eval)")
     p.add_argument("--progress", action="store_true",
                    help="per-step progress bars on stderr")
+    p.add_argument("--decoded-cache", action="store_true",
+                   help="keep decoded PandaSet samples in host memory (~0.3 MB a sample): "
+                   "later epochs decode nothing (DataConfig.decoded_cache)")
     p.add_argument("--num-workers", type=int, default=None,
                    help="per-sample decode threads in the input pipeline")
     p.add_argument("--lidar-encoder", default=None, choices=["spatial", "pointpillars"],
@@ -128,9 +138,11 @@ def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
         return {field: getattr(args, flag) for flag, field in pairs
                 if getattr(args, flag) is not None}
 
-    data_kw = given((("dataset", "dataset"), ("batch_size", "batch_size"),
+    data_kw = given((("data_root", "root"), ("dataset", "dataset"), ("batch_size", "batch_size"),
                      ("num_train", "synthetic_num_train"), ("num_val", "synthetic_num_val"),
                      ("difficulty", "synthetic_difficulty"), ("num_workers", "num_workers")))
+    if args.decoded_cache:
+        data_kw["decoded_cache"] = True
     train_kw = given((("epochs", "num_epochs"), ("lr", "lr"), ("save_dir", "save_dir"),
                       ("seed", "seed"), ("grad_clip_norm", "grad_clip_norm"),
                       ("ema_decay", "ema_decay"), ("scan_steps", "scan_steps"),

@@ -130,10 +130,18 @@ def teacher_config(student: ModelConfig, width_mult: float = 2.0) -> ModelConfig
 
 @dataclass(frozen=True)
 class DataConfig:
-    """Dataset + host input pipeline (reference: pandaset_dataset.py:48-157).
-    The port has the synthetic dataset; "pandaset" and "packed" are refused
-    by `data.create_datasets`."""
+    """Dataset + host input pipeline (reference: pandaset_dataset.py:48-157;
+    the JAX package's DataConfig, same fields and defaults).
 
+    `dataset` is "pandaset" (a scene tree under `root`, data/pandaset.py),
+    "synthetic" (data/synthetic.py) or "packed" (pre-decoded arrays written
+    once by `python -m lmsu_tpu_torch.prepare_dataset`, data/packed.py;
+    `root` is the pack directory with train/ and val/ packs, and decode at
+    train time costs a few copies). Sizes are (H, W) everywhere; the
+    reference hands its image_size to PIL as (W, H), which is the same at
+    the default 256x256."""
+
+    root: str = "data/pandaset"
     dataset: str = "synthetic"
     image_size: Tuple[int, int] = (256, 256)
     grid_size: Tuple[int, int] = (64, 64)
@@ -142,9 +150,19 @@ class DataConfig:
     batch_size: int = 4
     shuffle_train: bool = True
     num_workers: int = 2
+    train_fraction: float = 0.8    # PandaSet: the first 80% of sorted scenes train
     synthetic_num_train: int = 800
     synthetic_num_val: int = 200
     synthetic_difficulty: str = "easy"
+    # Reference quirk (pandaset_dataset.py:124-126): zero-padded points pass
+    # the validity mask and land at the grid centre. Off by default: padded
+    # points are marked invalid in point_valid.
+    pad_points_are_valid: bool = False
+    # PandaSet decoded-sample RAM cache (~0.3 MB a sample): epoch 1 decodes,
+    # later epochs read host memory. Sound because a sample's decode is
+    # deterministic per (seed, index) (data/pandaset.py). For no decode from
+    # epoch 1 on, write packs and use dataset="packed".
+    decoded_cache: bool = False
 
 
 @dataclass(frozen=True)
@@ -276,11 +294,24 @@ class ExperimentConfig:
 
 # Reference experiment presets -------------------------------------------------
 
+def preset_pandaset_weighted() -> ExperimentConfig:
+    """train_pandaset.py:79-163: 3-class weighted run, 30 epochs, concat-256
+    (the JAX package's config.py::preset_pandaset_weighted). Three classes
+    over 2-class labels is the reference's own quirk, and the metrics stay
+    2-class (TrainConfig.metrics_num_classes)."""
+    return ExperimentConfig(
+        model=ModelConfig(num_classes=3, fusion_type="concat",
+                          fusion_out_channels=256),
+        data=DataConfig(dataset="pandaset"),
+        train=TrainConfig(num_epochs=30, class_weights=(0.39, 2.61, 33.09),
+                          save_dir="checkpoints/pandaset_weighted"),
+    )
+
+
 def preset_fusion_ablation(fusion_type: str) -> ExperimentConfig:
     """train_with_fusion_ablation.py:10-66: 2-class, 20 epochs per variant
-    (the JAX package's config.py::preset_fusion_ablation). Its dataset is
-    PandaSet, which the port does not read yet: the port's entry points set
-    DataConfig.dataset to "synthetic"."""
+    (the JAX package's config.py::preset_fusion_ablation), on PandaSet unless
+    --dataset says otherwise."""
     out_ch = {"concat": 256, "minimal": 128, "weighted": 128,
               "gated_sum": 128}[fusion_type]
     return ExperimentConfig(

@@ -11,9 +11,11 @@ Usage:
   python -m lmsu_tpu_torch.evaluate --checkpoint checkpoints/run/best.pth \\
       [--device cuda] [--split val] [--fusion-type concat] [--output-json m.json]
 
-The other flags are lmsu_tpu_torch/common.py's; the model is concat (256
-channels; 128 for the other fusions) unless --fusion-type and
---fusion-channels say otherwise. It raises without a GPU unless given
+The other flags are lmsu_tpu_torch/common.py's; the data is synthetic
+unless --dataset (pandaset, packed) and --data-root say otherwise; the
+model is concat (256 channels; 128 for the other fusions) unless
+--fusion-type and --fusion-channels say otherwise, with --num-classes 3 for
+train_pandaset's checkpoints. It raises without a GPU unless given
 --device cpu.
 """
 

@@ -11,11 +11,14 @@ strings. --kd distills each variant from its 2x-wide teacher instead.
 Usage:
   python -m lmsu_tpu_torch.train_fusion_ablation [--device cuda] \\
       [--variants concat minimal weighted] [--kd [--teacher-checkpoint t.pth]] \\
-      [--epochs 20] [--num-train 800 --num-val 200] [--scatter-impl sorted_pallas] \\
+      [--epochs 20] [--dataset synthetic --num-train 800 --num-val 200] \\
+      [--scatter-impl sorted_pallas] \\
       [--output fusion_ablation_results.json] [--run-prefix checkpoints/fusion_ablation]
 
-The other flags are lmsu_tpu_torch/common.py's; the data is the synthetic
-dataset. It raises without a GPU unless given --device cpu.
+The other flags are lmsu_tpu_torch/common.py's; the data is the preset's,
+the PandaSet tree under data/pandaset, unless --dataset (synthetic,
+packed) and --data-root say otherwise. It raises without a GPU unless
+given --device cpu.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ from lmsu_tpu.data.pipeline import make_loader as jax_make_loader
 from lmsu_tpu.data.rasterize import make_point_sorter as jax_point_sorter
 from lmsu_tpu.data.synthetic import SyntheticMultiModalDataset as JSynthetic
 from lmsu_tpu_torch.config import DataConfig
-from lmsu_tpu_torch.data import Batcher, create_datasets, make_loader
+from lmsu_tpu_torch.data import Batcher, create_datasets, make_loader, write_pack
 from lmsu_tpu_torch.data.rasterize import make_point_sorter
 from lmsu_tpu_torch.data.synthetic import SyntheticMultiModalDataset
 
@@ -49,7 +49,10 @@ def test_synthetic_samples_byte_identical(difficulty, size):
         _assert_same(j[i], p[i])
 
 
-def test_create_datasets_split_and_refusals():
+def test_create_datasets_split_and_refusals(tmp_path):
+    """Synthetic splits as the JAX package's; packs of them (written by the
+    port) and a PandaSet root read as the JAX package reads them (a root
+    without scenes gives empty splits); an unknown kind is a ValueError."""
     jd = JData(dataset="synthetic", synthetic_num_train=5, synthetic_num_val=3,
                synthetic_difficulty="hard", **SMALL)
     pd = DataConfig(dataset="synthetic", synthetic_num_train=5, synthetic_num_val=3,
@@ -58,9 +61,18 @@ def test_create_datasets_split_and_refusals():
     assert (len(pt), len(pv)) == (len(jt), len(jv)) == (5, 3)
     _assert_same(jt[4], pt[4])
     _assert_same(jv[2], pv[2])
-    for name in ("pandaset", "packed"):
-        with pytest.raises(NotImplementedError, match=name):
-            create_datasets(dataclasses.replace(pd, dataset=name))
+    for split, ds in (("train", pt), ("val", pv)):
+        write_pack(ds, str(tmp_path / "packs" / split))
+    for name, root in (("packed", tmp_path / "packs"), ("pandaset", tmp_path / "empty")):
+        root.mkdir(exist_ok=True)
+        kw = dict(dataset=name, root=str(root))
+        (jt2, jv2) = jax_create_datasets(dataclasses.replace(jd, **kw))
+        (pt2, pv2) = create_datasets(dataclasses.replace(pd, **kw))
+        assert (len(pt2), len(pv2)) == (len(jt2), len(jv2))
+        assert type(pt2).__name__ == type(jt2).__name__
+        if name == "packed":
+            _assert_same(jt2[4], pt2[4])
+            _assert_same(pt2[4], pt[4])
     with pytest.raises(ValueError):
         create_datasets(dataclasses.replace(pd, dataset="nope"))
 

@@ -1,14 +1,18 @@
-"""The port's fusion-ablation, quickstart and evaluation entry points
-(`python -m lmsu_tpu_torch.train_fusion_ablation`, `.train_synthetic`,
-`.evaluate`) on the CPU, against the JAX package's scripts of the same
-names: their configurations, the ablation's results file in the JAX schema
-with the JAX package's parameter counts, one epoch each at a small size
-(narrow encoders and 64^2 images; the fusion, its channels and the head as
-the entry point sets them), and the evaluation reading back what the
-trainer recorded. Each raises without a GPU unless given --device cpu."""
+"""The port's entry points (`python -m lmsu_tpu_torch.train_fusion_ablation`,
+`.train_synthetic`, `.train_pandaset`, `.evaluate`, `.train_distill`,
+`.prepare_dataset`, `.analyze_distribution`) on the CPU, against the JAX
+package's scripts of the same names: their configurations, the ablation's
+results file in the JAX schema with the JAX package's parameter counts, one
+epoch each at a small size (narrow encoders and 64^2 images; the fusion,
+its channels and the head as the entry point sets them), the evaluation
+reading back what the trainer recorded, packs written from a fabricated
+PandaSet tree byte-identical to the JAX script's, and the distribution
+audit's output equal to the JAX script's. The trainers raise without a GPU
+unless given --device cpu."""
 
 import dataclasses
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -21,17 +25,19 @@ from lmsu_tpu.config import LidarEncoderConfig as JLidar
 from lmsu_tpu.config import preset_fusion_ablation as jax_preset
 from lmsu_tpu.models import create_model as jax_create_model
 from lmsu_tpu.models import get_architecture_summary as jax_summary
-from lmsu_tpu_torch import evaluate, train_distill, train_fusion_ablation, train_synthetic
+from lmsu_tpu_torch import (analyze_distribution, evaluate, prepare_dataset, train_distill,
+                            train_fusion_ablation, train_pandaset, train_synthetic)
 from lmsu_tpu_torch.common import STANDARD_AUGMENT
 from lmsu_tpu_torch.config import (AugmentConfig, CameraEncoderConfig, preset_fusion_ablation,
-                                   teacher_config)
+                                   preset_pandaset_weighted, teacher_config)
 
 torch.set_num_threads(2)
 
 IMG, GRID, NPTS = 64, (16, 16), 256
 NARROW = dict(camera_fpn_channels=16)
 NARROW_LIDAR = dict(feature_dim=16, mlp_dims=(8, 16), grid_size=GRID)
-DATA = ["--num-train", "4", "--num-val", "4", "--batch-size", "2", "--num-workers", "0"]
+DATA = ["--dataset", "synthetic", "--num-train", "4", "--num-val", "4", "--batch-size", "2",
+        "--num-workers", "0"]
 
 
 def small(cfg):
@@ -47,17 +53,21 @@ def small(cfg):
 
 def test_fusion_ablation_configs_match_jax():
     """The preset is the JAX package's (models, class weights, epochs, run
-    dirs); the entry point sets the synthetic dataset and <prefix>_<type>."""
+    dirs, PandaSet data); the entry point keeps the preset's dataset unless
+    --dataset is given, and sets <prefix>_<type>."""
     for fusion in ("concat", "minimal", "weighted", "gated_sum"):
         j, p = jax_preset(fusion), preset_fusion_ablation(fusion)
         for a, b in ((j.model, p.model), (j.train, p.train)):
             for f in ("fusion_type", "fusion_out_channels", "num_classes", "output_mode",
                       "num_epochs", "class_weights", "save_dir"):
                 assert getattr(a, f, None) == getattr(b, f, None), f
-        args = train_fusion_ablation.make_parser().parse_args(["--run-prefix", "runs/ab"])
-        cfg = train_fusion_ablation.variant_config(fusion, args)
-        assert (cfg.data.dataset, cfg.train.save_dir) == ("synthetic", f"runs/ab_{fusion}")
-        assert not cfg.train.kd.enabled
+        assert j.data.dataset == p.data.dataset == "pandaset"
+        for extra, dataset in (([], "pandaset"), (["--dataset", "synthetic"], "synthetic")):
+            args = train_fusion_ablation.make_parser().parse_args(["--run-prefix", "runs/ab"]
+                                                                  + extra)
+            cfg = train_fusion_ablation.variant_config(fusion, args)
+            assert (cfg.data.dataset, cfg.train.save_dir) == (dataset, f"runs/ab_{fusion}")
+            assert not cfg.train.kd.enabled
     args = train_fusion_ablation.make_parser().parse_args(["--kd"])
     assert train_fusion_ablation.variant_config("concat", args).train.kd.enabled
     assert train_fusion_ablation.VARIANTS == ("concat", "minimal", "weighted")
@@ -140,9 +150,9 @@ def test_train_synthetic_then_evaluate_reads_back_its_val_miou(tmp_path, monkeyp
 
 
 @pytest.mark.parametrize("cli, argv", [
-    (train_synthetic, []), (train_fusion_ablation, []),
+    (train_synthetic, []), (train_fusion_ablation, []), (train_pandaset, []),
     (evaluate, ["--checkpoint", "latest.pth"])],
-    ids=["train_synthetic", "train_fusion_ablation", "evaluate"])
+    ids=["train_synthetic", "train_fusion_ablation", "train_pandaset", "evaluate"])
 def test_entry_point_raises_without_cuda(monkeypatch, cli, argv):
     """CUDA is the default device; without a GPU the entry point raises
     before it builds anything, unless given --device cpu."""
@@ -153,14 +163,24 @@ def test_entry_point_raises_without_cuda(monkeypatch, cli, argv):
 
 
 def test_common_flags_are_the_ported_options_only():
-    """Flags of options the port refuses are absent (argparse rejects them:
-    PandaSet data and its decoded cache, model parallelism); --fusion-type
-    takes the four fusions; the loop and run-control flags and
-    --lidar-encoder set their fields."""
+    """Flags of options the port refuses are absent (argparse rejects
+    --model-parallel); --data-root, --decoded-cache and --dataset set their
+    fields, and without --dataset the preset's holds; --fusion-type takes
+    the four fusions; the loop and run-control flags and --lidar-encoder set
+    their fields."""
     p = train_synthetic.make_parser()
-    for flag in ("--model-parallel", "--data-root", "--decoded-cache"):
-        with pytest.raises(SystemExit):
-            p.parse_args([flag])
+    with pytest.raises(SystemExit):
+        p.parse_args(["--model-parallel", "2"])
+    with pytest.raises(SystemExit):
+        p.parse_args(["--dataset", "nuscenes"])
+    data = train_synthetic.build_config(p.parse_args(
+        ["--dataset", "packed", "--data-root", "packs/x", "--decoded-cache"])).data
+    assert (data.dataset, data.root, data.decoded_cache) == ("packed", "packs/x", True)
+    data = train_synthetic.build_config(p.parse_args([])).data
+    assert (data.dataset, data.root, data.decoded_cache) == ("synthetic", "data/pandaset", False)
+    for dataset in ("pandaset", "synthetic", "packed"):
+        assert train_synthetic.build_config(p.parse_args(["--dataset", dataset])).data.dataset \
+            == dataset
     cfg = train_synthetic.build_config(p.parse_args(
         ["--scan-steps", "13", "--onchip-epoch", "--onchip-eval", "--progress",
          "--snapshot-every", "2", "--handle-sigterm", "--async-checkpoint",
@@ -307,3 +327,122 @@ def test_train_distill_runs_the_crossarch_recipe_on_device_epochs(tmp_path, monk
                    for k in teacher["model_state"])
     assert (tmp_path / "chunked" / "epoch_001.pth").exists()
     assert "on the device (6 samples" in capsys.readouterr().out
+
+
+# -- PandaSet and packs: train_pandaset, prepare_dataset, analyze_distribution --
+
+@pytest.fixture(scope="module")
+def pandaset_tree(tmp_path_factory):
+    """tests/test_torch_pandaset.py's fabricated tree, without NaN
+    coordinates (a NaN point makes the train-mode BatchNorm statistics of
+    the point MLP NaN, in the JAX package as in the port)."""
+    pytest.importorskip("pandas")
+    pytest.importorskip("PIL")
+    from test_torch_pandaset import make_pandaset_tree
+    return make_pandaset_tree(tmp_path_factory.mktemp("tree"), np.random.default_rng(31),
+                              nan=False)
+
+
+PACK_ARGS = ["--image-size", str(IMG), str(IMG), "--grid-size", str(GRID[0]), str(GRID[1]),
+             "--max-points", str(NPTS)]
+
+
+def _files(d):
+    return {str(f.relative_to(d)): f.read_bytes() for f in sorted(d.rglob("*")) if f.is_file()}
+
+
+@pytest.mark.parametrize("dataset", ["pandaset", "synthetic"])
+def test_prepare_dataset_writes_the_jax_scripts_packs(pandaset_tree, tmp_path, monkeypatch,
+                                                      capsys, dataset):
+    """prepare_dataset with the read-ahead view (2 workers) writes train/
+    and val/ packs byte-identical, file for file, to scripts/
+    prepare_dataset.py's, without touching CUDA; its closing hint names
+    --data-root."""
+    import importlib
+    import sys
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    jax_prepare = importlib.import_module("scripts.prepare_dataset")
+    argv = ["--dataset", dataset, "--root", pandaset_tree, "--workers", "2",
+            "--num-train", "3", "--num-val", "2"] + PACK_ARGS
+
+    def no_card(*a, **k):
+        raise AssertionError("prepare_dataset touched CUDA")
+    with monkeypatch.context() as m:
+        for name in ("is_available", "init", "device_count", "synchronize"):
+            m.setattr(torch.cuda, name, no_card)
+        done = prepare_dataset.main(argv + ["--out", str(tmp_path / "port")])
+    assert f"--dataset packed --data-root {tmp_path / 'port'}" in capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["prepare_dataset.py"] + argv
+                        + ["--out", str(tmp_path / "jax")])
+    jax_prepare.main()
+    assert {s: n for s, (n, _) in done.items()} == \
+        ({"train": 4, "val": 3} if dataset == "pandaset" else {"train": 3, "val": 2})
+    port, jax_files = _files(tmp_path / "port"), _files(tmp_path / "jax")
+    assert len(port) == (12 if dataset == "pandaset" else 10) and port == jax_files
+
+
+@pytest.mark.parametrize("argv", [["--dataset", "pandaset", "--num-classes", "2"],
+                                  ["--dataset", "pandaset", "--num-classes", "3"],
+                                  ["--dataset", "synthetic", "--max-samples", "3"]],
+                         ids=["pandaset", "pandaset_3class", "synthetic"])
+def test_analyze_distribution_prints_the_jax_scripts_report(pandaset_tree, monkeypatch, capsys,
+                                                            argv):
+    """The histogram, recommended weights, imbalance warning and drift check
+    print exactly as scripts/analyze_distribution.py prints them."""
+    import importlib
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    jax_analyze = importlib.import_module("scripts.analyze_distribution")
+    argv = argv + ["--data-root", pandaset_tree]
+    assert analyze_distribution.main(argv) == 0
+    port = capsys.readouterr().out
+    assert jax_analyze.main(argv) == 0
+    assert port == capsys.readouterr().out
+    assert "recommended class weights" in port and "drift" in port
+
+
+def test_train_pandaset_refuses_a_class_count_off_its_weights():
+    """--num-classes must match the preset's three class weights, as in the
+    JAX script; the preset itself is concat/256, 3 classes, 30 epochs."""
+    p = train_pandaset.make_parser()
+    cfg = train_pandaset.build_config(p.parse_args([]), p)
+    assert (cfg.model.fusion_type, cfg.model.fusion_out_channels, cfg.model.num_classes,
+            cfg.train.class_weights, cfg.train.num_epochs, cfg.data.dataset,
+            cfg.train.metrics_num_classes) == \
+        ("concat", 256, 3, (0.39, 2.61, 33.09), 30, "pandaset", 2)
+    for n in ("2", "4"):
+        with pytest.raises(SystemExit):
+            train_pandaset.build_config(p.parse_args(["--num-classes", n]), p)
+
+
+def test_train_pandaset_from_packs_then_evaluate(pandaset_tree, tmp_path, monkeypatch, capsys):
+    """prepare_dataset packs the tree; train_pandaset trains the 3-class
+    preset one epoch from the packs (sorted scatter, padded point_valid),
+    prints the architecture summary and writes its history and checkpoints;
+    evaluate with --num-classes 3 --dataset packed reads back the val mIoU
+    the trainer recorded (the loss differs: evaluate weighs classes (0.4,
+    3.5), as the JAX script does). --resume continues from latest.pth."""
+    packs = tmp_path / "packs"
+    prepare_dataset.main(["--dataset", "pandaset", "--root", pandaset_tree, "--out", str(packs),
+                          "--workers", "0"] + PACK_ARGS)
+    monkeypatch.setattr(train_pandaset, "preset_pandaset_weighted",
+                        lambda: small(preset_pandaset_weighted()))
+    real_eval = evaluate.build_config
+    monkeypatch.setattr(evaluate, "build_config", lambda a: small(real_eval(a)))
+    run = tmp_path / "run"
+    flags = ["--device", "cpu", "--dataset", "packed", "--data-root", str(packs),
+             "--batch-size", "2", "--num-workers", "0", "--scatter-impl", "sorted_pallas"]
+    best = train_pandaset.main(flags + ["--epochs", "1", "--save-dir", str(run)])
+    out = capsys.readouterr().out
+    assert "Model architecture:" in out and "fusion_type: concat" in out
+    assert "Dataset: packed — 4 train / 3 val samples" in out
+    hist = json.loads((run / "training_history.json").read_text())
+    assert np.isfinite(hist["train_loss"]).all()
+    assert hist["val_miou"] == [best] or best == 0.0
+    payload = torch.load(run / "latest.pth", weights_only=False)
+    assert payload["model_state"]["head.cls.weight"].shape[0] == 3
+    res = evaluate.main(flags + ["--checkpoint", str(run / "latest.pth"), "--num-classes", "3",
+                                 "--save-dir", str(tmp_path / "eval")])
+    assert np.isfinite(res["loss"]) and res["miou"] == hist["val_miou"][0]
+    assert len(res["class_iou"]) == 2
+    train_pandaset.main(flags + ["--epochs", "2", "--save-dir", str(run), "--resume"])
+    assert len(json.loads((run / "training_history.json").read_text())["val_miou"]) == 2
