@@ -75,7 +75,22 @@ Phases:
              with the same checks, K1 and K3 launched, K2 not; and one B=8
              f32 forward each of minimal/128, gated_sum/128 and minimal/128
              with the x4 head (256^2 logits), kernel path against plain
-             path, K1 and K3 launched, K2 not.
+             path, K1 and K3 launched, K2 not. Then the rest of serving:
+             Predictor(freeze_weights=True) against the same weights
+             unfrozen (f32 within 1e-3, bf16 2e-2 of scale; K1-K3 launch;
+             B=1 and B=8 forward device times of each; the engine refuses a
+             swap); int8 (Predictor.quantize on 8 frames) of weighted/128
+             and concat/256: at each quantised layer's (M, K, N) at B=8 the
+             card's int8 product equals its exact plain version in int32,
+             timed beside the layer's f32 1x1, int8 against float logits
+             (tests/test_quant.py's bar), B=8 forward device time float,
+             int8 and int8 frozen; five artifacts (Predictor.export at B=8:
+             with and without point_valid, int8, K4, K6), each reloaded and
+             held within 1e-5 of scale of the in-process frozen forward
+             with equal argmax, its kernels counted by the wrappers and by
+             torch.profiler, its size printed, the first served by a
+             `python -m lmsu_tpu_torch.serve --artifact` child over HTTP;
+             and the host cost of calling K1-K3 through their operators.
   4. train   the KD step of bench.py (weighted/128 student, 2x teacher,
              seeded weights) through DistillationTrainer.train_step at
              B=128 on one fixed cell-sorted batch, f32 then bf16, with the
@@ -1653,35 +1668,51 @@ def make_frames(rng, n):
     return frames
 
 
-def profile_forward(pred, frames, prepped, reps: int = 5):
-    """Where one B=8 forward's time goes: host wall time to a synchronised
-    result, device time from torch.profiler (the sum over device-side
-    events: kernels and copies), and the kernels with the most of it."""
+# The forward kernels by their device function names, for torch.profiler.
+PROFILED = {"scatter_sorted_fwd": "scatter_sorted_fwd_kernel",
+            "scatter_sorted_fwd_flat": "flat_walk_kernel",
+            "voxelize_scatter_max": "voxelize_scatter_max_kernel",
+            "fusion_gate": "fusion_gate_kernel", "ir_fused_infer": "ir_infer_kernel"}
+
+
+def profile_call(fn, reps: int = 5) -> dict:
+    """Where one call of fn's time goes: host wall ms to a synchronised
+    result (median), device ms (the sum over its device-side events under
+    torch.profiler: kernels and copies, a mean over `reps` calls), the
+    kernels with the most of it, and the launches a call of each kernel in
+    PROFILED."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    imgs = np.stack([f[0] for f in frames])
-    pts = np.stack([p for p, _ in prepped])
-    pv = np.stack([v for _, v in prepped])
     walls = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pred.forward_batch(imgs, pts, pv)
+        fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            pred.forward_batch(imgs, pts, pv)
+            fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / reps / 1e3, e.count // reps)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = sorted(((e.key, e.self_device_time_total / reps / 1e3, e.count // reps)
+                   for e in dev), key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     if device_ms <= 0:
         raise AssertionError("the profiler saw no device time")
+    seen = {k: sum(e.count for e in dev if name in e.key) / reps for k, name in PROFILED.items()}
     return {"wall_ms_median": float(np.median(walls)), "device_ms": device_ms,
-            "top": [{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:12]]}
+            "top": [{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:12]],
+            "kernels_a_call": seen}
+
+
+def profile_forward(pred, frames, prepped, reps: int = 5):
+    """Where one B=8 forward's time goes (profile_call)."""
+    imgs = np.stack([f[0] for f in frames])
+    pts = np.stack([p for p, _ in prepped])
+    pv = np.stack([v for _, v in prepped])
+    return profile_call(lambda: pred.forward_batch(imgs, pts, pv), reps)
 
 
 def check_model_forward(dev, model):
@@ -1843,6 +1874,343 @@ def phase_serving(dev, dtype, state_dict=None, scatter="sorted_pallas", n_frames
             server.shutdown()
             server.server_close()
         engine.close()
+
+
+# -- the rest of serving: frozen weights, int8, artifacts ----------------------
+
+def serving_batch(seed: int):
+    """B=8 serving inputs: uint8 images, NPTS points with boundary cases, a
+    point_valid mask (1 in 10 invalid)."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(0, 256, (B, IMG, IMG, 3), dtype=np.uint8)
+    return imgs, make_points(rng, NPTS, B), rng.uniform(size=(B, NPTS)) > 0.1
+
+
+def rel_err(a, b) -> float:
+    a, b = (t.float().cpu().numpy() if hasattr(t, "cpu") else t for t in (a, b))
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def check_frozen(dev, dtype, sd) -> dict:
+    """Predictor(freeze_weights=True) of the weighted/128 serving model at
+    full width against the same weights unfrozen, on one B=8 batch: f32
+    within 1e-3 (the serving bar); bf16 within twice the unfrozen bf16
+    model's own gap to f32 on the same batch (folding BN into a bf16 weight
+    rounds at other places than BN after a bf16 conv); K1, K2 and K3 launch
+    in the frozen forward; B=1 and B=8 forward device times, frozen and not;
+    the engine refuses a swap."""
+    from lmsu_tpu_torch.inference import Predictor
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    from lmsu_tpu_torch.serving import ServingEngine
+    cfg = serving_config(dtype)
+    live = Predictor(cfg, sd, device=dev)
+    frozen = Predictor(cfg, sd, device=dev, freeze_weights=True)
+    imgs, pts, pv = serving_batch(21)
+    pts, pv = live._maybe_sort(pts, pv)
+    a = live.forward_batch(imgs, pts, pv)
+    reset_launch_counts()
+    b = frozen.forward_batch(imgs, pts, pv)
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels().items() if v.launches}
+    if any(launches.get(k, 0) <= 0 for k in SERVING_KERNELS):
+        raise AssertionError(f"frozen forward launches {launches}")
+    err = float((a.float() - b.float()).abs().max())
+    scale = float(a.float().abs().max())
+    gaps = {}
+    if dtype == torch.float32:
+        tol = 1e-3
+    else:
+        f32 = Predictor(serving_config(torch.float32), sd, device=dev).forward_batch(imgs, pts, pv)
+        gaps = {k: float((v.float() - f32).abs().max()) for k, v in (("unfrozen", a),
+                                                                      ("frozen", b))}
+        tol = 2 * gaps["unfrozen"]
+    if not (torch.isfinite(b.float()).all() and err <= tol):
+        raise AssertionError(f"frozen != unfrozen [{dtype}]: {err:g} > {tol:g} "
+                             f"(scale {scale:g})")
+    times = {}
+    for bsz in (1, B):
+        args = [torch.from_numpy(x[:bsz]).to(dev) for x in (imgs, pts, pv)]
+        for name, pred in (("unfrozen", live), ("frozen", frozen)):
+            times[f"{name}_b{bsz}"] = profile_call(lambda: pred.forward_batch(*args))
+    eng = ServingEngine.from_predictor(frozen, batch_size=B, image_size=(IMG, IMG),
+                                       num_points=NPTS)
+    try:
+        eng.swap_variables(live.model.state_dict())
+        raise AssertionError("a frozen engine took a weight swap")
+    except RuntimeError as e:
+        if "baked" not in str(e):
+            raise
+    finally:
+        eng.close()
+    return {"err_frozen_vs_unfrozen": err, "limit": tol, "scale": scale, "gap_to_f32": gaps,
+            "launches": launches,
+            "forward": times, "swap_refused": True}
+
+
+def check_int8(dev, model="weighted", sd=None) -> dict:
+    """Predictor.quantize of `model` at full width (f32) calibrated on 8
+    synthetic frames. At each quantised layer's (M, K, N) at B=8 (taken from
+    the int8 forward itself): the card's int8 product (torch._int_mm) equals
+    its exact plain version (float64 of the int8 operands) in int32 bit for
+    bit; its time beside the same layer's float 1x1 (an f32 matmul of the
+    layer's input). Quantised logits against float on other frames:
+    tests/test_quant.py's bar (within 0.15 of scale, > 97% argmax agreement
+    where the float margin exceeds 0.1 of scale); the frozen int8 forward
+    within 2e-2 of scale of it. B=8 forward device time, float, int8, and
+    int8 frozen."""
+    from lmsu_tpu_torch.inference import Predictor
+    from lmsu_tpu_torch.models.layers import quant_stats
+    from lmsu_tpu_torch.ops import quant
+    pred = Predictor(serving_config(torch.float32, model=model), sd, device=dev, seed=0)
+    if sd is None:
+        randomize_bn(pred.model, 1)
+    calib = serving_batch(31)
+    imgs, pts, pv = serving_batch(32)
+    pts, pv = pred._maybe_sort(pts, pv)
+    args = [torch.from_numpy(x).to(dev) for x in (imgs, pts, pv)]
+    flt = pred.forward_batch(*args)
+    t_float = profile_call(lambda: pred.forward_batch(*args))
+    pred.quantize([calib])
+    names = sorted(quant_stats(pred.model))
+    seen = []
+    real = quant.int8_pointwise_q
+
+    def tap(x, absmax, wq_t, w_scale, bias, out_dtype):
+        seen.append((x.reshape(-1, x.shape[-1]), absmax, wq_t))
+        return real(x, absmax, wq_t, w_scale, bias, out_dtype)
+    quant.int8_pointwise_q = tap
+    try:
+        q = pred.forward_batch(*args)
+    finally:
+        quant.int8_pointwise_q = real
+    if len(seen) != len(names):
+        raise AssertionError(f"{model}: {len(seen)} int8 layers ran, {len(names)} calibrated")
+    layers = []
+    for x, absmax, wq_t in seen:
+        xq, _ = quant.quantize_acts(x, absmax)
+        got = quant.int8_matmul(xq, wq_t)
+        want = quant.int8_matmul_plain(xq, wq_t.t())
+        diff = int((got != want).sum())
+        if got.dtype != torch.int32 or diff:
+            raise AssertionError(f"{model}: int8 product != exact product at {tuple(x.shape)}: "
+                                 f"{diff} differ")
+        M, K = xq.shape
+        N = wq_t.shape[0]
+        xf, wf = x.float().contiguous(), wq_t.t().float().contiguous()
+        layers.append({"M": M, "K": K, "N": N, "int8_ms": time_ms(lambda: quant.int8_matmul(
+            xq, wq_t)), "float_1x1_ms": time_ms(lambda: xf @ wf)})
+    t_int8 = profile_call(lambda: pred.forward_batch(*args))
+    frozen = Predictor(pred.config, pred.model.state_dict(), device=dev, freeze_weights=True)
+    frozen.quantize([calib])
+    qf = frozen.forward_batch(*args)
+    t_int8_frozen = profile_call(lambda: frozen.forward_batch(*args))
+    a, b = q.float().cpu().numpy(), flt.float().cpu().numpy()
+    scale = float(np.abs(b).max())
+    decisive = np.abs(b[..., 1] - b[..., 0]) > 0.1 * scale
+    agree = float((a.argmax(-1) == b.argmax(-1))[decisive].mean()) if decisive.any() else None
+    err = float(np.abs(a - b).max()) / scale
+    # The frozen copy folds BN into the float convs, so the int8 layers see
+    # inputs that differ by f32 rounding, and an input on a rounding edge
+    # moves its int8 value by one step: the serving bf16 bar, 2e-2 of scale.
+    if (not np.isfinite(a).all() or err >= 0.15 or agree is None or agree <= 0.97
+            or rel_err(qf, q) > 2e-2):
+        raise AssertionError(f"{model} int8: {err:g} of scale, agreement {agree}, "
+                             f"frozen int8 vs int8 {rel_err(qf, q):g}")
+    return {"model": model, "quantised_layers": len(names), "layers": layers,
+            "err_int8_vs_float_of_scale": err, "argmax_agreement_decisive": agree,
+            "decisive_share": float(decisive.mean()), "err_frozen_int8_vs_int8": rel_err(qf, q),
+            "forward_b8": {"float": t_float, "int8": t_int8, "int8_frozen": t_int8_frozen}}
+
+
+def start_artifact_child(path: str, dev):
+    """Starts `python -m lmsu_tpu_torch.serve --artifact path` in a child
+    process (B=8, port 0); finish_artifact_child talks to it. Returns (the
+    process, its start time)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-u", "-m", "lmsu_tpu_torch.serve", "--artifact", path,
+           "--device", torch.device(dev).type, "--batch-size", str(B), "--port", "0",
+           "--image-size", str(IMG), str(IMG), "--num-points", str(NPTS), "--max-delay-ms", "5"]
+    return (subprocess.Popen(cmd, cwd=root, env=dict(os.environ, PYTHONUNBUFFERED="1"),
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            time.perf_counter())
+
+
+def finish_artifact_child(proc, t0, frames, want) -> dict:
+    """Waits for the child's "Serving on" line, posts `frames` over HTTP
+    (npz), holds each response to `want` within 1e-4 of scale, reads GET
+    /v1/stats, then stops it with SIGINT (its final stats printed); kills
+    it on any failure."""
+    import re
+    import signal
+    out = []
+    try:
+        url = None
+        for line in proc.stdout:
+            out.append(line.rstrip())
+            m = re.search(r"Serving on (http://\S+)", line)
+            if m:
+                url = m.group(1)
+                break
+        if url is None:
+            raise AssertionError(f"serve --artifact did not start: {out[-10:]}")
+        ready = time.perf_counter() - t0
+        errs = []
+        for (img, pts), w in zip(frames, want):
+            buf = io.BytesIO()
+            np.savez(buf, image=img, points=pts)
+            req = urllib.request.Request(f"{url}/v1/predict", data=buf.getvalue(),
+                                         headers={"Content-Type": "application/x-npz"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                got = np.load(io.BytesIO(r.read()))["logits"]
+            errs.append(float(np.abs(got - w).max() / np.abs(w).max()))
+        with urllib.request.urlopen(f"{url}/v1/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        if max(errs) > 1e-4 or stats["requests"] != len(frames):
+            raise AssertionError(f"serve --artifact: errors {errs}, stats {stats}")
+        proc.send_signal(signal.SIGINT)
+        tail = proc.communicate(timeout=60)[0]
+        out.extend(tail.splitlines())
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"serve --artifact exited {proc.returncode}: {out[-10:]}")
+    return {"startup_s": ready, "max_err_of_scale": max(errs), "stats": stats,
+            "final": [ln for ln in out if ln.startswith("Final stats")]}
+
+
+def check_export(dev, sd, d) -> dict:
+    """Predictor.export of the weighted/128 serving model at B=8 (f32):
+    with and without point_valid, int8, and with K4 (_FWD_FLAT) or K6
+    (scatter_impl="pallas") in place of K1. Each artifact, reloaded by
+    load_exported, gives the in-process forward of the frozen Predictor
+    within 1e-5 of scale with equal argmax, launches its kernels (counted by
+    the wrappers and by torch.profiler in one call), and its size is
+    printed; its B=8 forward and the in-process one are profiled on the same
+    device tensors; the first is served by a `serve --artifact` child over
+    HTTP."""
+    out, child = {}, None
+    try:
+        for name, scatter, flat, pv_in, int8 in (
+                ("point_valid", "sorted_pallas", False, True, False),
+                ("no_point_valid", "sorted_pallas", False, False, False),
+                ("int8", "sorted_pallas", False, True, True),
+                ("flat_k4", "sorted_pallas", True, True, False),
+                ("pallas_k6", "pallas", False, True, False)):
+            child = export_one(dev, sd, d, out, name, scatter, flat, pv_in, int8) or child
+        out["served"] = finish_artifact_child(*child)
+    finally:
+        if child is not None and child[0].poll() is None:
+            child[0].kill()
+            child[0].wait()
+    return out
+
+
+def export_one(dev, sd, d, out, name, scatter, flat, pv_in, int8):
+    """One artifact of check_export, its results under out[name]. For the
+    first, starts the `serve --artifact` child (it starts up while the rest
+    run) and returns (process, start time, frames, expected logits)."""
+    from lmsu_tpu_torch.inference import Predictor, load_exported
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    child = None
+    with fwd_flat(flat):
+        cfg = serving_config(torch.float32, scatter=scatter)
+        pred = Predictor(cfg, sd, device=dev, freeze_weights=True)
+        if int8:
+            pred.quantize([serving_batch(31)])
+        path = os.path.join(d, f"{name}.pt2")
+        t0 = time.perf_counter()
+        pred.export(path, batch_size=B, image_size=(IMG, IMG), num_points=NPTS,
+                    with_point_valid=pv_in)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn = load_exported(path)
+        load_s = time.perf_counter() - t0
+        imgs, pts, pv = serving_batch(41)
+        pts, pv = pred._maybe_sort(pts, pv if pv_in else None)
+        fimgs = imgs.astype(np.float32) / 255.0
+        args = [None if x is None else torch.from_numpy(x).to(dev) for x in (fimgs, pts, pv)]
+        want = pred.forward_batch(*args)
+        fn(*args)  # first call: K3's fragments of the loaded weights
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in kernels().items() if v.launches}
+        prof = profile_call(lambda: fn(*args))
+        in_process = profile_call(lambda: pred.forward_batch(*args))
+    scatter_kernel = ("voxelize_scatter_max" if scatter == "pallas" else
+                      "scatter_sorted_fwd_flat" if flat else "scatter_sorted_fwd")
+    need = {scatter_kernel: 1, "fusion_gate": 1, "ir_fused_infer": 5}
+    err = rel_err(got, want)
+    same = bool((got.argmax(-1) == want.argmax(-1)).all())
+    if (err > 1e-5 or not same or launches != need
+            or any(prof["kernels_a_call"][k] < n for k, n in need.items())):
+        raise AssertionError(f"artifact {name}: err {err:g}, argmax equal {same}, "
+                             f"launches {launches}, profiled {prof['kernels_a_call']}")
+    out[name] = {"err_vs_in_process_of_scale": err, "launches": launches,
+                 "size_mb": os.path.getsize(path) / 1e6, "export_s": export_s,
+                 "load_s": load_s, "forward": prof, "in_process_forward": in_process,
+                 "err_vs_unfrozen_of_scale": rel_err(got, Predictor(
+                     cfg, sd, device=dev).forward_batch(*args))}
+    if name == "point_valid":
+        frames = [(imgs[i], make_points(np.random.default_rng(50 + i), NPTS, 1)[0])
+                  for i in range(4)]
+        expect = [pred(imgs[i:i + 1].astype(np.float32) / 255.0, p[None],
+                       np.ones((1, NPTS), bool)).float().cpu().numpy()[0]
+                  for i, (_, p) in enumerate(frames)]
+        child = (*start_artifact_child(path, dev), frames, expect)
+    log(f"[serving export {name}] {json.dumps(out[name])}")
+    return child
+
+
+def host_us(fn, calls: int = 200, rounds: int = 7) -> float:
+    """Host microseconds to enqueue one call of fn (no synchronisation
+    inside a round of `calls`; the device queue absorbs them), the median
+    over `rounds`."""
+    for _ in range(3):
+        fn()
+    samples = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        samples.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(samples))
+
+
+def op_wrapper_cost(dev) -> dict:
+    """Host cost of calling K1, K2 and K3 through their operators
+    (ops/_cuda.py::define_op) against calling their launch functions
+    directly, at the serving shapes (f32, B=8): host microseconds to enqueue
+    a call of each (host_us, in turns: operator, direct, direct, operator),
+    and the difference."""
+    from lmsu_tpu_torch.ops import fusion_gate as fg
+    from lmsu_tpu_torch.ops import ir_fused as irf
+    from lmsu_tpu_torch.ops import scatter_sorted as ss
+    rng = np.random.default_rng(61)
+    feats, keys = sorted_inputs(rng, 128, torch.float32, dev)[:2]
+    cam = torch.randn(B, GRID, GRID, 128, device=dev)
+    lid = torch.randn(B, GRID, GRID, 128, device=dev)
+    gate = (torch.randn(128, 256, 1, 1, device=dev) * 0.05, torch.zeros(128, device=dev),
+            torch.randn(2, 128, 1, 1, device=dev) * 0.05, torch.zeros(2, device=dev))
+    x = torch.randn(B, 32, 32, 128, device=dev)
+    p = random_ir_params(rng, dev, 128, 128, 6)
+    calls = {"scatter_sorted_fwd": (lambda: ss.segment_max(feats, keys, GRID * GRID),
+                                    lambda: ss._segment_max_cuda(feats, keys, GRID * GRID)),
+             "fusion_gate": (lambda: fg.fusion_gate_fwd(cam, lid, *gate),
+                             lambda: fg._fusion_gate_cuda(cam, lid, *gate)),
+             "ir_fused_infer": (lambda: irf.fused_ir_infer(x, p, 1),
+                                lambda: irf._fused_ir_infer_cuda(x, *p, 1))}
+    out = {}
+    for name, (op, direct) in calls.items():
+        a1, b1, b2, a2 = host_us(op), host_us(direct), host_us(direct), host_us(op)
+        a, b = (a1 + a2) / 2, (b1 + b2) / 2
+        out[name] = {"op_host_us": a, "direct_host_us": b, "op_cost_us": a - b}
+    return out
 
 
 # -- train phase -------------------------------------------------------------
@@ -3328,6 +3696,21 @@ def main(argv=None) -> int:
         for model in ("minimal", "gated_sum", "minimal_x4"):
             sres[f"forward_{model}"] = check_model_forward(dev, model)
             log(f"[serving {model}] B={B} forward: {json.dumps(sres[f'forward_{model}'])}")
+        # Frozen weights, int8 and exported artifacts (the rest of serving).
+        t0 = time.perf_counter()
+        for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            sres[f"frozen_{dt}"] = check_frozen(dev, dtype, sd)
+            log(f"[serving frozen {dt}] {json.dumps(sres[f'frozen_{dt}'])}")
+        sres["int8_weighted"] = check_int8(dev, "weighted", sd)
+        sres["int8_concat"] = check_int8(dev, "concat")
+        for model in ("weighted", "concat"):
+            log(f"[serving int8 {model}] {json.dumps(sres[f'int8_{model}'])}")
+        import tempfile
+        with tempfile.TemporaryDirectory() as d:
+            sres["export"] = check_export(dev, sd, d)
+        sres["op_wrapper_cost"] = op_wrapper_cost(dev)
+        log(f"[serving] operator wrapper cost: {json.dumps(sres['op_wrapper_cost'])}")
+        log(f"[serving] frozen, int8 and artifacts: {time.perf_counter() - t0:.1f} s")
     if "train" in phases:
         t0 = time.perf_counter()
         tres["check"] = check_kernel_vs_plain_step(dev)
@@ -3510,6 +3893,15 @@ def main(argv=None) -> int:
         # concat/256 and minimal/128 f32 KD runs.
         if path == "serving" and "concat_f32" in sres:
             entry["concat256_serving_launches"] = sres["concat_f32"]["launches"][name]
+        # The artifacts' runs (one B=8 call each): K1-K3 from the serving
+        # artifact, K4 and K6 from theirs; K1-K3 also from the frozen forward.
+        if "export" in sres and path.startswith("serving"):
+            run = {"serving": "point_valid", "serving_flat": "flat_k4",
+                   "serving_pallas": "pallas_k6"}[path]
+            entry["export_launches"] = sres["export"][run]["launches"].get(name, 0)
+            if path == "serving":
+                entry["frozen_launches"] = sres["frozen_f32"]["launches"].get(name, 0)
+                entry["op_wrapper_cost_us"] = sres["op_wrapper_cost"][name]["op_cost_us"]
         if name in ("voxelize_scatter_max", "kd_feature_mse") and "recipe_cli" in tres:
             for run in ("recipe_cli", "recipe_cli_onchip", "crossarch_cli",
                         "crossarch_cli_onchip"):
@@ -3570,6 +3962,32 @@ def main(argv=None) -> int:
     if sres:
         print(json.dumps({"serving": {k: v["stats"] for k, v in sres.items() if "stats" in v},
                           "card": smi}))
+    if "export" in sres:
+        fwd = {k: {f"{m}_device_ms": v["device_ms"] for m, v in sres[k]["forward"].items()}
+               for k in ("frozen_f32", "frozen_bf16")}
+        for model in ("weighted", "concat"):
+            run = sres[f"int8_{model}"]
+            fwd[f"int8_{model}"] = {k: v["device_ms"] for k, v in run["forward_b8"].items()}
+            fwd[f"int8_{model}"]["layers_mkn_int8_ms_f32_ms"] = [
+                (x["M"], x["K"], x["N"], x["int8_ms"], x["float_1x1_ms"]) for x in run["layers"]]
+            fwd[f"int8_{model}"]["err_of_scale"] = run["err_int8_vs_float_of_scale"]
+            fwd[f"int8_{model}"]["agreement"] = run["argmax_agreement_decisive"]
+            fwd[f"int8_{model}"]["frozen_vs_int8"] = run["err_frozen_int8_vs_int8"]
+        print(json.dumps({"serving_rest": {
+            **fwd, "artifacts": {k: {**{f: v[f] for f in ("size_mb", "export_s", "load_s",
+                                                         "err_vs_in_process_of_scale",
+                                                         "err_vs_unfrozen_of_scale", "launches")},
+                                     "device_ms": v["forward"]["device_ms"],
+                                     "in_process_device_ms": v["in_process_forward"]["device_ms"],
+                                     "wall_ms": v["forward"]["wall_ms_median"],
+                                     "in_process_wall_ms":
+                                         v["in_process_forward"]["wall_ms_median"]}
+                                 for k, v in sres["export"].items() if k != "served"},
+            "served_startup_s": sres["export"]["served"]["startup_s"],
+            "served_artifact": sres["export"]["served"]["stats"],
+            "op_wrapper_cost_us": {k: v["op_cost_us"]
+                                   for k, v in sres["op_wrapper_cost"].items()}},
+            "card": smi}))
     if "pandaset_cli" in tres:
         pc = tres["pandaset_cli"]
         print(json.dumps({"pandaset": {

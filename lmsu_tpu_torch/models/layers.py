@@ -9,6 +9,20 @@ The JAX package's ConvBNAct module is here `conv_bn_act`, which returns the
 [conv, bn, act] layers that the reference flattens into its Sequentials, so
 a reference state dict loads with strict=True.
 
+Int8 (w8a8) serving, as the JAX package's ConvBNAct (layers.py:38-98): an
+eligible layer is a 1x1, groups=1 Conv2d followed by its BatchNorm2d in
+eval mode (`quant_eligible`). `apply_seq` runs it
+
+  * inside `calibration()`: the normal path, plus a running max of |input|
+    kept on the conv as `act_absmax` (a plain attribute, outside the state
+    dict, so a reference state dict still loads strictly);
+  * with `act_absmax` set, outside calibration: BN folded into the kernel
+    and the int8 product of ops/quant.py, then the activation;
+  * otherwise, and in every training path: the normal path.
+
+The fused InvertedResidual blocks (fused_inference) run K3 and reach none
+of their convs, as in the JAX package.
+
 Parameters stay float32; `apply_seq` runs a Sequential in the dtype of its
 input (convolution weights are cast per call, BatchNorm takes low-precision
 input with float32 statistics), which is how the JAX package runs bf16
@@ -20,7 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -28,9 +42,79 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from lmsu_tpu_torch.ops.ir_fused import IRParams, fold_bn, fused_ir_infer, fused_ir_train
+from lmsu_tpu_torch.ops.quant import int8_pointwise
 
 
 _REMAT = threading.local()
+_CALIBRATING = threading.local()
+
+
+def calibrating() -> bool:
+    """True inside `calibration()`."""
+    return getattr(_CALIBRATING, "on", False)
+
+
+@contextlib.contextmanager
+def calibration():
+    """Within it, eval forwards record each int8-eligible conv's running
+    absmax of its input (`act_absmax`) and run the float path."""
+    prev, _CALIBRATING.on = calibrating(), True
+    try:
+        yield
+    finally:
+        _CALIBRATING.on = prev
+
+
+def quant_eligible(conv: nn.Module, nxt: Optional[nn.Module]) -> bool:
+    """The JAX package's int8 eligibility (ConvBNAct.__call__'s quant_ok): a
+    1x1, groups=1 conv (stride 1) whose BatchNorm follows it, in eval."""
+    return (isinstance(conv, nn.Conv2d) and conv.kernel_size == (1, 1) and conv.groups == 1
+            and conv.stride == (1, 1) and isinstance(nxt, nn.BatchNorm2d) and not nxt.training)
+
+
+def quant_stats(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The calibrated absmax of each int8 layer, by its conv's module name."""
+    return {n: m.act_absmax for n, m in model.named_modules()
+            if getattr(m, "act_absmax", None) is not None}
+
+
+def set_quant_stats(model: nn.Module, stats: Dict[str, torch.Tensor]) -> None:
+    """Clear every conv's calibrated absmax, then set `stats` (by module name,
+    as quant_stats gives them); an unknown name raises KeyError."""
+    mods = dict(model.named_modules())
+    unknown = sorted(set(stats) - {n for n, m in mods.items() if isinstance(m, nn.Conv2d)})
+    if unknown:
+        raise KeyError(f"no conv named {unknown}")
+    dev = next(model.parameters()).device
+    for m in mods.values():
+        if isinstance(m, nn.Conv2d):
+            m.act_absmax = None
+    for name, v in stats.items():
+        mods[name].act_absmax = torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(())
+
+
+def _int8_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """conv + BN on NCHW x through ops/quant.py::int8_pointwise, BN folded
+    into the kernel as the JAX package's ConvBNAct._int8_call does."""
+    w, bias = fold_conv_bn(conv, bn)
+    y = int8_pointwise(x.permute(0, 2, 3, 1), conv.act_absmax, w[:, :, 0, 0].t(), bias, x.dtype)
+    return y.permute(0, 3, 1, 2)
+
+
+def fold_conv_bn(conv: nn.Module, bn: nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The eval BN folded into the conv before it: (weight, bias) in f32,
+    the weight in the conv's own layout, scaled per output channel (dim 0,
+    or dim 1 of a transposed conv's [I, O, kh, kw]); the bias is the BN's
+    folded bias plus the conv's bias times the scale."""
+    with torch.no_grad():
+        scale, bias = fold_bn(bn.weight.float(), bn.bias.float(), bn.running_mean.float(),
+                              bn.running_var.float(), bn.eps)
+        if conv.bias is not None:
+            bias = bias + conv.bias.float() * scale
+        dim = 1 if isinstance(conv, nn.ConvTranspose2d) else 0
+        shape = [1] * conv.weight.dim()
+        shape[dim] = -1
+        return conv.weight.float() * scale.reshape(shape), bias
 
 
 def recomputing() -> bool:
@@ -152,8 +236,24 @@ def conv_bn_act(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
 
 
 def apply_seq(seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-    """Run `seq` in x's dtype: conv weights are cast to it per call."""
-    for m in seq:
+    """Run `seq` in x's dtype: conv weights are cast to it per call. An
+    int8-eligible conv + BN is calibrated or quantised as the module
+    docstring says."""
+    mods = list(seq)
+    skip = False
+    for i, m in enumerate(mods):
+        if skip:  # the BN of a quantised conv
+            skip = False
+            continue
+        if quant_eligible(m, mods[i + 1] if i + 1 < len(mods) else None):
+            if calibrating():
+                seen = x.abs().amax().float()
+                prev = getattr(m, "act_absmax", None)
+                m.act_absmax = seen if prev is None else torch.maximum(prev, seen)
+            elif getattr(m, "act_absmax", None) is not None:
+                x = _int8_conv_bn(m, mods[i + 1], x)
+                skip = True
+                continue
         if isinstance(m, (nn.Conv1d, nn.Conv2d)):
             conv = F.conv1d if isinstance(m, nn.Conv1d) else F.conv2d
             bias = None if m.bias is None else m.bias.to(x.dtype)
@@ -176,7 +276,8 @@ class InvertedResidual(nn.Module):
 
     fused_inference: eval-mode calls run the block as one CUDA kernel
     (ops/ir_fused.py) with BN folded; the folded parameters are cached and
-    refolded when any parameter or buffer changes in place.
+    refolded when any parameter or buffer changes in place. A frozen copy
+    (models/frozen.py) holds them in `frozen` instead, folded once.
 
     fused_train: train-mode calls run `fused_ir_train` (kernels K8-K13) on
     views of this module's own parameters, so gradients reach the conv and
@@ -202,6 +303,7 @@ class InvertedResidual(nn.Module):
         layers += conv_bn_act(hidden, out_ch, 1)
         self.conv = nn.Sequential(*layers)
         self._folded: Tuple = (None, None)
+        self.frozen: Optional[nn.Module] = None  # models/frozen.py::FrozenIRParams
 
     def folded_params(self, eps: float = 1e-5) -> IRParams:
         """BN-folded parameters in the JAX package's IRParams layout."""
@@ -255,8 +357,8 @@ class InvertedResidual(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused_inference and not self.training:
-            y = fused_ir_infer(x.permute(0, 2, 3, 1), self.folded_params(),
-                               stride=self.stride)
+            p = self.folded_params() if self.frozen is None else self.frozen.params()
+            y = fused_ir_infer(x.permute(0, 2, 3, 1), p, stride=self.stride)
             return y.permute(0, 3, 1, 2)
         if self.fused_train and self.training:
             return self._fused_train_forward(x)

@@ -12,6 +12,13 @@ Every C entry point takes device pointers, sizes and the CUDA stream, and
 returns the `cudaError_t` of `cudaGetLastError()` right after its launch;
 `CudaKernel.launch` raises if that is not 0. Nothing here runs at import
 time: the CPU-only test host has no nvcc and never builds.
+
+The forward kernels a served model can reach (K1, K2, K3, K4, K6) are also
+operators of the `lmsu_tpu_torch` namespace (`define_op`): the dispatcher
+runs the plain version for CPU tensors and the kernel launch for CUDA
+tensors, and a fake implementation gives the output's shape and dtype
+where torch.export traces. The eager forward calls the same operator that
+an exported graph records.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import torch
 
@@ -126,6 +133,31 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.name}.{symbol}: CUDA error {err}")
         self.launches += 1
+
+
+OPS_NAMESPACE = "lmsu_tpu_torch"
+_OPS = torch.library.Library(OPS_NAMESPACE, "DEF")
+
+
+def define_op(name: str, schema: str, cpu: Callable, cuda: Callable, fake: Callable):
+    """Define the operator lmsu_tpu_torch::`name` with `schema` (its
+    arguments and result, e.g. "(Tensor x, int n) -> Tensor"): `cpu` runs
+    for CPU tensors (the plain version), `cuda` for CUDA tensors (the kernel
+    launch), `fake` where torch.export traces with tensors that have no
+    storage. Returns the operator. The dispatcher also runs `fake` for meta
+    tensors, so each wrapper refuses other devices before it calls the
+    operator."""
+    _OPS.define(name + schema)
+    _OPS.impl(name, cpu, "CPU")
+    _OPS.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{OPS_NAMESPACE}::{name}", fake, lib=_OPS)
+    return getattr(getattr(torch.ops, OPS_NAMESPACE), name).default
+
+
+def check_device(name: str, t: torch.Tensor) -> None:
+    """Raises unless `t` is on the CPU or a CUDA device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CPU or CUDA, not {t.device}")
 
 
 def kernels() -> Dict[str, CudaKernel]:

@@ -39,8 +39,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from lmsu_tpu_torch.ops._cuda import (_I, _P, CudaKernel, check_cuda_args,
-                                      dtype_code, ptr, stream_ptr)
+from lmsu_tpu_torch.ops._cuda import (_I, _P, CudaKernel, check_cuda_args, check_device,
+                                      define_op, dtype_code, ptr, stream_ptr)
 from lmsu_tpu_torch.ops.kd_loss import split_bf16
 
 KERNEL = CudaKernel("fusion_gate.cu", {
@@ -123,16 +123,8 @@ def fusion_gate_emulated(cam, lid, w1, b1, w2, b2, terms: int = GATE_TERMS) -> t
     return out.to(cam.dtype).reshape(cam.shape)
 
 
-def fusion_gate_fwd(cam: torch.Tensor, lid: torch.Tensor, w1: torch.Tensor,
-                    b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
-                    ) -> torch.Tensor:
-    """Gate forward on channels-last features cam/lid [..., C] (f32 or
-    bf16): the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. Not differentiable; `fusion_gate` is."""
-    if cam.device.type == "cpu":
-        return fusion_gate_plain(cam, lid, w1, b1, w2, b2)
-    if cam.device.type != "cuda":
-        raise ValueError(f"fusion_gate runs on CPU or CUDA, not {cam.device}")
+def _fusion_gate_cuda(cam: torch.Tensor, lid: torch.Tensor, w1: torch.Tensor,
+                      b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     C = cam.shape[-1]
     if lid.shape != cam.shape or lid.dtype != cam.dtype:
         raise ValueError("cam and lid must match in shape and dtype")
@@ -150,6 +142,23 @@ def fusion_gate_fwd(cam: torch.Tensor, lid: torch.Tensor, w1: torch.Tensor,
     KERNEL.launch("fusion_gate_fwd", ptr(cam2), ptr(lid2), *(ptr(t) for t in params),
                   ptr(frag), ptr(out), cam2.shape[0], C, dtype_code(cam2), stream_ptr(dev))
     return out.reshape(cam.shape)
+
+
+# K2 as the operator lmsu_tpu_torch::fusion_gate (ops/_cuda.py::define_op).
+_FUSION_GATE = define_op(
+    "fusion_gate", "(Tensor cam, Tensor lid, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor",
+    lambda *a: fusion_gate_plain(*a), _fusion_gate_cuda,
+    lambda cam, *_: torch.empty_like(cam, memory_format=torch.contiguous_format))
+
+
+def fusion_gate_fwd(cam: torch.Tensor, lid: torch.Tensor, w1: torch.Tensor,
+                    b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
+                    ) -> torch.Tensor:
+    """Gate forward on channels-last features cam/lid [..., C] (f32 or
+    bf16): the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors. Not differentiable; `fusion_gate` is."""
+    check_device("fusion_gate", cam)
+    return _FUSION_GATE(cam, lid, w1, b1, w2, b2)
 
 
 def fusion_gate_bwd(cam, lid, w1, b1, w2, b2, g_out):

@@ -60,7 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from lmsu_tpu_torch.ops._cuda import (_I, _L, _P, CudaKernel, aligned16, check_cuda_args,
-                                      dtype_code, ptr, stream_ptr)
+                                      check_device, define_op, dtype_code, ptr, stream_ptr)
 from lmsu_tpu_torch.ops.kd_loss import split_bf16
 
 KERNEL = CudaKernel("ir_fused_infer.cu", {
@@ -190,13 +190,8 @@ def infer_plan(B: int, H: int, W: int, cin: int, ce: int, cout: int, stride: int
             "blocks": o[4]}
 
 
-def fused_ir_infer(x: torch.Tensor, p: IRParams, stride: int = 1) -> torch.Tensor:
-    """Fused eval InvertedResidual on NHWC x [B, H, W, Cin] (f32 or bf16):
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    if x.device.type == "cpu":
-        return fused_ir_infer_plain(x, p, stride)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_ir_infer runs on CPU or CUDA, not {x.device}")
+def _fused_ir_infer_cuda(x, w1, s1, b1, dw, s2, b2, w2, s3, b3, stride: int) -> torch.Tensor:
+    p = IRParams(w1, s1, b1, dw, s2, b2, w2, s3, b3)
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     B, H, W, Cin = x.shape
@@ -230,6 +225,28 @@ def fused_ir_infer(x: torch.Tensor, p: IRParams, stride: int = 1) -> torch.Tenso
                   B, H, W, Ho, Wo, Cin, Ce, Cout, ks1, ks2, stride, int(has_expand), residual,
                   dtype_code(x), stream_ptr(dev))
     return out
+
+
+def _fused_ir_infer_fake(x, w1, s1, b1, dw, s2, b2, w2, s3, b3, stride: int) -> torch.Tensor:
+    B, H, W, _ = x.shape
+    return x.new_empty(B, (H - 1) // stride + 1, (W - 1) // stride + 1, w2.shape[-1])
+
+
+# K3 as the operator lmsu_tpu_torch::fused_ir_infer (ops/_cuda.py::define_op),
+# over IRParams' fields (w1, s1 and b1 absent at expansion 1).
+_FUSED_IR_INFER = define_op(
+    "fused_ir_infer", "(Tensor x, Tensor? w1, Tensor? s1, Tensor? b1, Tensor dw, Tensor s2, "
+    "Tensor b2, Tensor w2, Tensor s3, Tensor b3, int stride) -> Tensor",
+    lambda x, w1, s1, b1, dw, s2, b2, w2, s3, b3, stride: fused_ir_infer_plain(
+        x, IRParams(w1, s1, b1, dw, s2, b2, w2, s3, b3), stride),
+    _fused_ir_infer_cuda, _fused_ir_infer_fake)
+
+
+def fused_ir_infer(x: torch.Tensor, p: IRParams, stride: int = 1) -> torch.Tensor:
+    """Fused eval InvertedResidual on NHWC x [B, H, W, Cin] (f32 or bf16):
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    check_device("fused_ir_infer", x)
+    return _FUSED_IR_INFER(x, *p, stride)
 
 
 # -- training: kernels K8-K13 and their plain versions ------------------------

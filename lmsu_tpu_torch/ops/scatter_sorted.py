@@ -42,7 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from lmsu_tpu_torch.ops._cuda import (_I, _P, CudaKernel, aligned16, check_cuda_args,
-                                      dtype_code, ptr, stream_ptr)
+                                      check_device, define_op, dtype_code, ptr, stream_ptr)
 from lmsu_tpu_torch.ops.scatter import points_to_bev_indices, segmented_prefix_max
 
 _PLAN = (_I, _I, _I, _I, _I, _I, _I, _P)
@@ -235,25 +235,41 @@ def segment_max_plain(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> torch
                                                                    device=feats.device))
 
 
-def segment_max(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> torch.Tensor:
-    """Sorted segment max: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. feats [B, N, C] f32/bf16, keys [B, N] int32.
-    With `_FWD_FLAT` set, the flat forward split by points (segment_max_flat)."""
-    if _FWD_FLAT:
-        return segment_max_flat(feats, keys, hw)
-    if feats.device.type == "cpu":
-        return segment_max_plain(feats, keys, hw)
-    if feats.device.type != "cuda":
-        raise ValueError(f"segment_max runs on CPU or CUDA, not {feats.device}")
-    B, N, C = feats.shape
+def _check_keys(feats: torch.Tensor, keys: torch.Tensor) -> None:
+    B, N, _ = feats.shape
     if keys.shape != (B, N) or keys.dtype != torch.int32:
         raise ValueError(f"keys must be int32 [{B}, {N}], got {keys.dtype} {tuple(keys.shape)}")
+
+
+def _segment_max_fake(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> torch.Tensor:
+    return feats.new_empty(feats.shape[0], hw, feats.shape[2])
+
+
+def _segment_max_cuda(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> torch.Tensor:
+    B, N, C = feats.shape
+    _check_keys(feats, keys)
     dev = check_cuda_args(feats, keys)
     feats = aligned16(feats)
     out = torch.empty(B, hw, C, dtype=feats.dtype, device=dev)
     KERNEL.launch("scatter_sorted_fwd", ptr(feats), ptr(keys), ptr(out), B, N, C, hw,
                   dtype_code(feats), WALK_SLOT_BYTES["fwd"], WALK_CELLS, stream_ptr(dev))
     return out
+
+
+# K1 as the operator lmsu_tpu_torch::segment_max (ops/_cuda.py::define_op).
+_SEGMENT_MAX = define_op("segment_max", "(Tensor feats, Tensor keys, int hw) -> Tensor",
+                         lambda feats, keys, hw: segment_max_plain(feats, keys, hw),
+                         _segment_max_cuda, _segment_max_fake)
+
+
+def segment_max(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> torch.Tensor:
+    """Sorted segment max: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. feats [B, N, C] f32/bf16, keys [B, N] int32.
+    With `_FWD_FLAT` set, the flat forward split by points (segment_max_flat)."""
+    if _FWD_FLAT:
+        return segment_max_flat(feats, keys, hw)
+    check_device("segment_max", feats)
+    return _SEGMENT_MAX(feats, keys, hw)
 
 
 def flat_prep(keys: torch.Tensor, hw: int):
@@ -334,19 +350,9 @@ def segment_max_flat_plain(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> 
                                                         device=out.device), out)
 
 
-def segment_max_flat(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> torch.Tensor:
-    """Sorted segment max split by points (K4): the CUDA kernel for CUDA
-    tensors, the plain version (the TPU kernel's chunk-table route) for
-    CPU tensors. feats [B, N, C] f32/bf16, keys [B, N] int32 sorted per
-    row. One call of the C entry point: the walk over the windows, then
-    the join of the runs that cross a block's edge."""
-    if feats.device.type == "cpu":
-        return segment_max_flat_plain(feats, keys, hw)
-    if feats.device.type != "cuda":
-        raise ValueError(f"segment_max_flat runs on CPU or CUDA, not {feats.device}")
+def _segment_max_flat_cuda(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> torch.Tensor:
     B, N, C = feats.shape
-    if keys.shape != (B, N) or keys.dtype != torch.int32:
-        raise ValueError(f"keys must be int32 [{B}, {N}], got {keys.dtype} {tuple(keys.shape)}")
+    _check_keys(feats, keys)
     dev = check_cuda_args(feats, keys)
     feats = aligned16(feats)
     plan = segment_max_flat_plan(B, N, C, hw, feats.dtype)
@@ -356,6 +362,22 @@ def segment_max_flat(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> torch.
                        B, N, C, hw, dtype_code(feats), plan["slot_bytes"], plan["blocks"],
                        stream_ptr(dev))
     return out
+
+
+# K4 as the operator lmsu_tpu_torch::segment_max_flat.
+_SEGMENT_MAX_FLAT = define_op("segment_max_flat", "(Tensor feats, Tensor keys, int hw) -> Tensor",
+                              lambda feats, keys, hw: segment_max_flat_plain(feats, keys, hw),
+                              _segment_max_flat_cuda, _segment_max_fake)
+
+
+def segment_max_flat(feats: torch.Tensor, keys: torch.Tensor, hw: int) -> torch.Tensor:
+    """Sorted segment max split by points (K4): the CUDA kernel for CUDA
+    tensors, the plain version (the TPU kernel's chunk-table route) for
+    CPU tensors. feats [B, N, C] f32/bf16, keys [B, N] int32 sorted per
+    row. One call of the C entry point: the walk over the windows, then
+    the join of the runs that cross a block's edge."""
+    check_device("segment_max_flat", feats)
+    return _SEGMENT_MAX_FLAT(feats, keys, hw)
 
 
 def segment_max_bwd_plain(feats: torch.Tensor, keys: torch.Tensor, out: torch.Tensor,

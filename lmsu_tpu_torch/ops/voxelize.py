@@ -24,8 +24,8 @@ from typing import Tuple
 
 import torch
 
-from lmsu_tpu_torch.ops._cuda import (_I, _P, CudaKernel, check_cuda_args, dtype_code, ptr,
-                                      stream_ptr)
+from lmsu_tpu_torch.ops._cuda import (_I, _P, CudaKernel, check_cuda_args, check_device,
+                                      define_op, dtype_code, ptr, stream_ptr)
 from lmsu_tpu_torch.ops.scatter import with_dense_vjp
 
 KERNEL = CudaKernel("voxelize_scatter_max.cu", {
@@ -58,13 +58,7 @@ def scatter_max_plan(B: int, N: int, C: int, hw: int, dtype: torch.dtype) -> dic
     return {"slice": o[0], "smem_bytes": o[1], "blocks_per_sm": o[2], "blocks": o[3]}
 
 
-def scatter_max(feats: torch.Tensor, idx: torch.Tensor, hw: int) -> torch.Tensor:
-    """Unsorted scatter-max: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. feats [B, N, C] f32/bf16, idx [B, N] int32."""
-    if feats.device.type == "cpu":
-        return scatter_max_plain(feats, idx, hw)
-    if feats.device.type != "cuda":
-        raise ValueError(f"scatter_max runs on CPU or CUDA, not {feats.device}")
+def _scatter_max_cuda(feats: torch.Tensor, idx: torch.Tensor, hw: int) -> torch.Tensor:
     B, N, C = feats.shape
     if idx.shape != (B, N) or idx.dtype != torch.int32:
         raise ValueError(f"idx must be int32 [{B}, {N}], got {idx.dtype} {tuple(idx.shape)}")
@@ -73,6 +67,20 @@ def scatter_max(feats: torch.Tensor, idx: torch.Tensor, hw: int) -> torch.Tensor
     KERNEL.launch("voxelize_scatter_max", ptr(feats), ptr(idx), ptr(out), B, N, C, hw,
                   dtype_code(feats), stream_ptr(dev))
     return out
+
+
+# K6 as the operator lmsu_tpu_torch::scatter_max (ops/_cuda.py::define_op).
+_SCATTER_MAX = define_op(
+    "scatter_max", "(Tensor feats, Tensor idx, int hw) -> Tensor",
+    lambda feats, idx, hw: scatter_max_plain(feats, idx, hw), _scatter_max_cuda,
+    lambda feats, idx, hw: feats.new_empty(feats.shape[0], hw, feats.shape[2]))
+
+
+def scatter_max(feats: torch.Tensor, idx: torch.Tensor, hw: int) -> torch.Tensor:
+    """Unsorted scatter-max: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. feats [B, N, C] f32/bf16, idx [B, N] int32."""
+    check_device("scatter_max", feats)
+    return _SCATTER_MAX(feats, idx, hw)
 
 
 def _forward(features, flat_idx, valid, grid_size):

@@ -7,13 +7,22 @@ scatter (points are cell-sorted on the request threads), the fused
 InvertedResidual blocks and, for the weighted fusion, the fused gate.
 
 Usage:
-  python -m lmsu_tpu_torch.serve [--checkpoint model.pth | --seed 0] \\
+  python -m lmsu_tpu_torch.serve [--checkpoint best.ckpt | --seed 0] \\
       [--device cuda] [--fusion-type {concat,minimal,weighted,gated_sum}] \\
-      [--fusion-channels 128] [--bf16] [--batch-size 8] [--max-delay-ms 2] [--port 8765]
+      [--fusion-channels 128] [--bf16] [--freeze-weights] [--batch-size 8] \\
+      [--max-delay-ms 2] [--port 8765]
 
---checkpoint takes a reference .pth (trainer checkpoint with 'model_state'
-or a bare state dict) or a saved state dict of the port's model; without it
-the weights are drawn from --seed (for smoke runs).
+  # from a Predictor.export() artifact (no model code needed)
+  python -m lmsu_tpu_torch.serve --artifact student.pt2 --batch-size 1
+
+--checkpoint takes the JAX package's trainer checkpoint (flax msgpack,
+.ckpt), a reference .pth (trainer checkpoint with 'model_state' or a bare
+state dict) or a saved state dict of the port's model, told apart by their
+contents (torch's files are zip archives); without it the weights are drawn
+from --seed (for smoke runs). --artifact serves an export_model.py artifact
+on the device it was exported for (--device must name it); its batch size,
+point count, image size and --no-point-valid must be the ones it was
+exported with.
 
 Client example (npz transport):
   import io, urllib.request, numpy as np
@@ -44,16 +53,35 @@ def build_config(args):
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32)
 
 
-def build_engine(args):
+def load_predictor(args, cfg):
+    """The Predictor of --checkpoint (a flax .ckpt or a torch file, by
+    content) or of --seed, frozen with --freeze-weights."""
     from lmsu_tpu_torch.inference import Predictor
+    from lmsu_tpu_torch.utils.flax_checkpoint import is_torch_file
+    freeze = args.freeze_weights
+    if not args.checkpoint:
+        return Predictor(cfg, device=args.device, seed=args.seed, freeze_weights=freeze)
+    if not os.path.exists(args.checkpoint):
+        sys.exit(f"ERROR: checkpoint {args.checkpoint!r} not found")
+    if is_torch_file(args.checkpoint):
+        return Predictor.from_torch_checkpoint(args.checkpoint, cfg, device=args.device,
+                                               freeze_weights=freeze)
+    return Predictor.from_checkpoint(args.checkpoint, cfg, device=args.device,
+                                     freeze_weights=freeze)
+
+
+def build_engine(args):
+    from lmsu_tpu_torch.inference import resolve_device
     from lmsu_tpu_torch.serving import ServingEngine
-    cfg = build_config(args)
-    if args.checkpoint:
-        if not os.path.exists(args.checkpoint):
-            sys.exit(f"ERROR: checkpoint {args.checkpoint!r} not found")
-        pred = Predictor.from_torch_checkpoint(args.checkpoint, cfg, device=args.device)
-    else:
-        pred = Predictor(cfg, device=args.device, seed=args.seed)
+    if args.artifact:
+        if not os.path.exists(args.artifact):
+            sys.exit(f"ERROR: artifact {args.artifact!r} not found")
+        return ServingEngine.from_exported(
+            args.artifact, batch_size=args.batch_size, num_points=args.num_points,
+            image_size=tuple(args.image_size), with_point_valid=not args.no_point_valid,
+            max_delay_ms=args.max_delay_ms, max_queue=args.max_queue,
+            batch_sizes=args.batch_sizes, device=resolve_device(args.device))
+    pred = load_predictor(args, build_config(args))
     return ServingEngine.from_predictor(
         pred, batch_size=args.batch_size, batch_sizes=args.batch_sizes,
         image_size=tuple(args.image_size), num_points=args.num_points,
@@ -64,7 +92,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     src = p.add_mutually_exclusive_group()
-    src.add_argument("--checkpoint", help="reference .pth or port state dict")
+    src.add_argument("--checkpoint",
+                     help="trainer checkpoint (.ckpt), reference .pth or port state dict")
+    src.add_argument("--artifact", help="Predictor.export() artifact (export_model.py)")
     src.add_argument("--seed", type=int, default=0,
                      help="random-init seed when no --checkpoint is given")
     p.add_argument("--device", default="cuda",
@@ -74,11 +104,15 @@ def parse_args(argv=None):
                    choices=["concat", "minimal", "weighted", "gated_sum"])
     p.add_argument("--fusion-channels", type=int, default=128)
     p.add_argument("--bf16", action="store_true")
+    p.add_argument("--freeze-weights", action="store_true",
+                   help="bake weights into the served model (eval BN folded "
+                   "into convs once; no hot swap)")
     p.add_argument("--batch-size", type=int, default=8,
                    help="batch size; requests are micro-batched up to this")
     p.add_argument("--batch-sizes", type=int, nargs="+", default=None, metavar="B",
                    help="batch-size ladder, e.g. 1 8 32: each window is padded "
-                   "to the smallest rung that fits. Overrides --batch-size")
+                   "to the smallest rung that fits (checkpoint backend only). "
+                   "Overrides --batch-size")
     p.add_argument("--max-delay-ms", type=float, default=2.0,
                    help="batching window (max extra latency per request)")
     p.add_argument("--max-queue", type=int, default=256,
@@ -86,6 +120,8 @@ def parse_args(argv=None):
                    "requests get 503 (load shedding). 0 = unbounded")
     p.add_argument("--image-size", type=int, nargs=2, default=(256, 256))
     p.add_argument("--num-points", type=int, default=5000)
+    p.add_argument("--no-point-valid", action="store_true",
+                   help="artifact was exported without the mask input")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8765)
     p.add_argument("--verbose", action="store_true", help="per-request access log")

@@ -22,8 +22,8 @@ Counterpart of lmsu_tpu/serving/engine.py, with the same design:
 
 Backends: any callable `(images, points, point_valid) -> logits` returning a
 torch tensor (on any device) or an array; `from_predictor` wraps the port's
-Predictor. Not ported yet: `from_exported` (artifact serving) and mesh
-(data-parallel) serving.
+Predictor (frozen or not, float or int8), `from_exported` a
+Predictor.export() artifact. Not ported yet: mesh (data-parallel) serving.
 """
 
 from __future__ import annotations
@@ -36,8 +36,6 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
-
-_LATENCY_WINDOW = 4096  # requests whose latencies stats() summarises
 
 
 class EngineOverloaded(RuntimeError):
@@ -99,14 +97,20 @@ class ServingEngine:
         normalizes on device — models/fusion.py) or np.float32.
         float inputs are assumed [0,1] and converted losslessly only
         to float32.
+    passes_point_valid: False for backends exported without the mask
+        input (Predictor.export(with_point_valid=False)): the forward then
+        gets None for it.
     sorter: optional per-sample dict transform (the sorted-scatter cell
         sort, data/rasterize.py::make_point_sorter) applied in submit().
+    latency_window: the last requests whose latencies stats() summarises.
     """
 
     def __init__(self, forward: Callable, *, batch_size: Optional[int] = None,
                  image_size=(256, 256), num_points: int = 5000,
                  max_delay_ms: float = 2.0, max_inflight: int = 2,
-                 image_dtype=np.uint8, sorter: Optional[Callable] = None,
+                 image_dtype=np.uint8, passes_point_valid: bool = True,
+                 sorter: Optional[Callable] = None,
+                 latency_window: int = 4096,
                  max_queue: int = 0,
                  batch_sizes: Optional[Sequence[int]] = None):
         self._forward = forward
@@ -123,7 +127,9 @@ class ServingEngine:
         self.num_points = int(num_points)
         self.max_delay_s = float(max_delay_ms) / 1e3
         self.image_dtype = np.dtype(image_dtype)
+        self.passes_point_valid = passes_point_valid
         self._sorter = sorter
+        self._latency_window = int(latency_window)
 
         # max_queue > 0 bounds admitted-but-undispatched requests; at the
         # bound submit() raises EngineOverloaded (load shedding) rather
@@ -139,11 +145,11 @@ class ServingEngine:
         self._n_padded_rows = 0
         self._n_slot_rows = 0  # sum of dispatched rung sizes
         self._batches_by_size = {}
-        self._latencies = []  # seconds, the last _LATENCY_WINDOW requests
+        self._latencies = []  # seconds, the last latency_window requests
         self._t_first = None
         self._t_last = None
 
-        self._swap = None  # set by from_predictor for hot-swappable weights
+        self._swap = None  # set by from_predictor unless the weights are frozen
 
         self._dispatcher = threading.Thread(
             target=self._dispatch_loop, name="serving-dispatch", daemon=True)
@@ -162,11 +168,12 @@ class ServingEngine:
         The engine bypasses Predictor.__call__'s per-call host sort and
         instead applies the same sorter per-sample on client threads.
 
-        The returned engine supports swap_variables(state_dict): the new
-        weights are copied into the live model under a lock that the
-        dispatcher also holds while it enqueues a forward, so every batch
-        sees one consistent set (the copy is queued on the same stream as
-        the forwards, so ordering holds on the device too).
+        Unless the Predictor is frozen (freeze_weights=True), the returned
+        engine supports swap_variables(state_dict): the new weights are
+        copied into the live model under a lock that the dispatcher also
+        holds while it enqueues a forward, so every batch sees one
+        consistent set (the copy is queued on the same stream as the
+        forwards, so ordering holds on the device too).
         """
         lock = threading.Lock()
 
@@ -180,8 +187,47 @@ class ServingEngine:
 
         eng = cls(forward, batch_size=batch_size, max_delay_ms=max_delay_ms,
                   sorter=predictor._sorter, **kw)
-        eng._swap = swap
+        if not predictor._freeze_weights:
+            eng._swap = swap
         return eng
+
+    @classmethod
+    def from_exported(cls, path: str, *, batch_size: int, num_points: int = 5000,
+                      image_size=(256, 256), with_point_valid: bool = True,
+                      max_delay_ms: float = 2.0, device=None, **kw) -> "ServingEngine":
+        """Serve a Predictor.export() artifact (no model code).
+
+        batch_size / num_points / image_size / with_point_valid must match
+        the exported specs (torch.export fixes them when it traces), and
+        the artifact takes float32 images. It runs on the device it was
+        exported on; `device`, when given, must be that one. Where the
+        artifact's scatter needs cell-sorted points (scatter_impl
+        "sorted_pallas", recorded in the artifact), the engine sorts them on
+        the request threads, as it does for a Predictor.
+        """
+        if kw.get("batch_sizes"):
+            raise ValueError(
+                "exported artifacts are single-shape; the batch-size "
+                "ladder needs a Predictor backend (or one artifact per "
+                "rung wired through a custom forward)")
+        from lmsu_tpu_torch.data.rasterize import make_point_sorter
+        from lmsu_tpu_torch.inference import load_exported
+        call = load_exported(path)
+        meta = call.meta
+        want = {"batch_size": batch_size, "num_points": num_points,
+                "image_size": list(image_size), "with_point_valid": with_point_valid}
+        got = {k: meta[k] for k in want}
+        if got != want:
+            raise ValueError(f"artifact {path} was exported for {got}, not {want}")
+        if device is not None and torch.device(device).type != call.device.type:
+            raise ValueError(f"artifact {path} runs on {call.device.type}, not {device}")
+        if meta["scatter_impl"] == "sorted_pallas":
+            kw.setdefault("sorter", make_point_sorter(tuple(meta["grid_size"]),
+                                                      tuple(meta["point_cloud_range"])))
+        kw.setdefault("image_dtype", np.float32)
+        return cls(call, batch_size=batch_size, num_points=num_points,
+                   image_size=image_size, max_delay_ms=max_delay_ms,
+                   passes_point_valid=with_point_valid, **kw)
 
     # -- client API --------------------------------------------------------
 
@@ -224,7 +270,9 @@ class ServingEngine:
         for b in self.batch_sizes:
             zi = np.zeros((b, *self.image_size, 3), self.image_dtype)
             zp = np.zeros((b, self.num_points, 4), np.float32)
-            _to_host(self._forward(zi, zp, np.zeros((b, self.num_points), bool)))
+            pv = (np.zeros((b, self.num_points), bool)
+                  if self.passes_point_valid else None)
+            _to_host(self._forward(zi, zp, pv))
         # one request through the full path (queue/dispatch/complete)
         self.predict(np.zeros((*self.image_size, 3), self.image_dtype),
                      np.zeros((self.num_points, 4), np.float32),
@@ -234,12 +282,14 @@ class ServingEngine:
     def swap_variables(self, state_dict) -> None:
         """Hot-swap the serving weights (a state dict of the served model),
         so a training loop can push each new checkpoint into a live engine.
-        The swap is atomic at batch granularity. Unavailable for engines
-        built on a bare forward callable."""
+        The swap is atomic at batch granularity. Unavailable for frozen or
+        exported backends (their weights are baked into the served copy or
+        the artifact) and for a bare forward callable."""
         if self._swap is None:
             raise RuntimeError(
-                "this engine serves a bare forward callable; rebuild the "
-                "engine to change its weights")
+                "this engine's backend has weights baked into the "
+                "served model (freeze_weights/exported) or is a bare forward "
+                "callable; rebuild the engine to change them")
         self._swap(state_dict)
 
     def reset_stats(self) -> None:
@@ -414,7 +464,8 @@ class ServingEngine:
                 points[i] = req.points
                 pvalid[i] = req.point_valid
             try:
-                logits = self._forward(images, points, pvalid)
+                pv_arg = pvalid if self.passes_point_valid else None
+                logits = self._forward(images, points, pv_arg)
             except Exception as e:  # resolve, don't kill the loop
                 for req in window:
                     req.future.set_exception(e)
@@ -450,5 +501,5 @@ class ServingEngine:
             with self._lock:
                 self._t_last = t
                 self._latencies.extend(lats)
-                if len(self._latencies) > _LATENCY_WINDOW:
-                    del self._latencies[:-_LATENCY_WINDOW]
+                if len(self._latencies) > self._latency_window:
+                    del self._latencies[:-self._latency_window]

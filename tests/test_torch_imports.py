@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: it imports neither jax/flax nor anything of
-the JAX package, its entry points run on CUDA unless asked for the CPU,
+"""The PyTorch port stands alone: it imports neither jax/flax nor msgpack nor
+anything of the JAX package, its entry points run on CUDA unless asked for the CPU,
 and its kernel wrappers never fall back to the plain version for a tensor
 that is not on the CPU."""
 
@@ -16,7 +16,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "lmsu_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "lmsu_tpu",
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "lmsu_tpu",
              "lightweight_multi_modal_scene_understanding_via_knowledge_distillation_tpu"}
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
