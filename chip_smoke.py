@@ -5,6 +5,7 @@ check them.
     python3 chip_smoke.py                 # everything (needs one GPU)
     python3 chip_smoke.py --phases kernels,train
     python3 chip_smoke.py --phases pandaset
+    python3 chip_smoke.py --phases parallel
 
 Phases:
   1. build   every hand-written kernel (one nvcc per source, in parallel),
@@ -184,9 +185,35 @@ Phases:
              tied rows in each short cloud's centre cell; one cloud with NaN
              points), f32 and bf16. Where PIL and pandas are installed,
              `prepare_dataset --dataset pandaset` on a raw tree too.
+  6. parallel data parallelism (phase_parallel): (a) the f32 in-loop KD
+             step of weighted/128 at B=128 with its kernels and fused_train
+             on a world-1 NCCL mesh (make_mesh) against the same step
+             without one: no collective, the first step's loss and BN
+             statistics bit for bit, its gradients within the plain step's
+             own repeat (hold_step), device ms of both; (b) two ranks over
+             gloo on the one card (parallel_rank, started by
+             parallel/mesh.py::run_ranks after the build), B=64 each: first
+             the fused blocks' glue, each of the student's five stages at
+             B=128 in f32 and bf16, a rank's rows against the one-process
+             block within fixed limits (GLUE_LIMITS), and each planted
+             glue fault (a reduction left out) past them; then three steps
+             of f32 and bf16 with fused_train on and off and of f32 with
+             the fsdp teacher, against the one-process B=128 steps (f32:
+             hold_step and the later losses within 10x a 1e-6
+             perturbation's spread; bf16: within twice the one-process bf16
+             step's distance from f32), and, recorded only, a run with K11's
+             r2 sums left local; the ranks' parameters equal bit for bit,
+             the collectives a step and their share of host time, the fsdp
+             teacher's bytes a rank;
+             (c) ServingEngine.from_predictor(devices=[the card]) against
+             the plain engine bit for bit, and a `serve --data-parallel 1`
+             child answering over HTTP; (d) `python -m
+             lmsu_tpu_torch.run_multiprocess --device cuda --num-processes
+             2`. The path's kernels must launch in each.
 
 Output: the card's name and power limit (nvidia-smi), then per-phase lines,
-the whole run's seconds, then one `{"kernels": [...]}` JSON line, the serving and train summaries,
+the whole run's seconds, then one `{"kernels": [...]}` JSON line, the serving, train and
+parallel summaries,
 the nvidia-smi line again, and as the last line `{"ok": true, "device":
 {...}}`. Any failed check raises and the script exits non-zero; without a
 GPU it exits non-zero at once.
@@ -2035,11 +2062,11 @@ def start_artifact_child(path: str, dev):
             time.perf_counter())
 
 
-def finish_artifact_child(proc, t0, frames, want) -> dict:
+def finish_artifact_child(proc, t0, frames, want, what="serve --artifact") -> dict:
     """Waits for the child's "Serving on" line, posts `frames` over HTTP
     (npz), holds each response to `want` within 1e-4 of scale, reads GET
     /v1/stats, then stops it with SIGINT (its final stats printed); kills
-    it on any failure."""
+    it on any failure. `what` names the child in errors."""
     import re
     import signal
     out = []
@@ -2052,7 +2079,7 @@ def finish_artifact_child(proc, t0, frames, want) -> dict:
                 url = m.group(1)
                 break
         if url is None:
-            raise AssertionError(f"serve --artifact did not start: {out[-10:]}")
+            raise AssertionError(f"{what} did not start: {out[-10:]}")
         ready = time.perf_counter() - t0
         errs = []
         for (img, pts), w in zip(frames, want):
@@ -2066,7 +2093,7 @@ def finish_artifact_child(proc, t0, frames, want) -> dict:
         with urllib.request.urlopen(f"{url}/v1/stats", timeout=60) as r:
             stats = json.loads(r.read())
         if max(errs) > 1e-4 or stats["requests"] != len(frames):
-            raise AssertionError(f"serve --artifact: errors {errs}, stats {stats}")
+            raise AssertionError(f"{what}: errors {errs}, stats {stats}")
         proc.send_signal(signal.SIGINT)
         tail = proc.communicate(timeout=60)[0]
         out.extend(tail.splitlines())
@@ -2075,7 +2102,7 @@ def finish_artifact_child(proc, t0, frames, want) -> dict:
             proc.kill()
             proc.wait()
     if proc.returncode != 0:
-        raise AssertionError(f"serve --artifact exited {proc.returncode}: {out[-10:]}")
+        raise AssertionError(f"{what} exited {proc.returncode}: {out[-10:]}")
     return {"startup_s": ready, "max_err_of_scale": max(errs), "stats": stats,
             "final": [ln for ln in out if ln.startswith("Final stats")]}
 
@@ -3653,11 +3680,575 @@ def check_debug_nans(dev):
 # -- main --------------------------------------------------------------------
 
 
+# -- data parallelism: process groups, synced BN, fsdp, DP serving -------------
+
+# The runs of the two-rank check (name, dtype, fused_train, teacher_partition);
+# the fsdp run is held to the replicated f32 fused run's reference, and so is
+# the run with K11's r2 sums left local (a planted fault, `planted_fault`):
+# its reading is recorded, to show what the step check sees of such a fault.
+PARALLEL_RUNS = (("f32_fused", torch.float32, True, "tp"), ("f32", torch.float32, False, "tp"),
+                 ("bf16_fused", torch.bfloat16, True, "tp"), ("bf16", torch.bfloat16, False, "tp"),
+                 ("f32_fused_fsdp", torch.float32, True, "fsdp"),
+                 ("f32_fused_fault_r2", torch.float32, True, "tp"))
+PARALLEL_STEPS = 3
+# The glue of the fused blocks (ops/ir_fused.py::_global) a fault can be
+# planted in: the source text of the call whose reduction is left out.
+GLUE_FAULTS = {"bn1": "_global(*stats1(x, w1), count=M1)",   # K8's sums (and M1)
+               "bn3": "_global(y32.sum((0, 1, 2))",           # BN3's sums
+               "r2": "_global(r2a, r2b)"}                      # K11's backward sums
+# The fixed limits of the glue check (`glue_check`), per dtype: relative L2
+# of out, dx and each parameter's gradient; largest difference of a batch
+# statistic over its largest magnitude. dx's is wider: where the statistics'
+# last bits differ, a ReLU6 mask entry of BN1 or BN2 can flip, which moves
+# the dx of that pixel by about its own size (one pixel of the 2^20 of a
+# stage's rank reads ~1e-3; an H100 read 4.1e-4 in f32 at 128x128 32->64),
+# while the sums over the batch (out's statistics, the gradients) barely see it.
+GLUE_LIMITS = {torch.float32: {"out": 1e-4, "dx": 5e-3, "grad": 1e-4, "stat": 1e-5},
+               torch.bfloat16: {"out": 2e-3, "dx": 1e-2, "grad": 2e-3, "stat": 1e-4}}
+
+
+def run_name(name: str) -> str:
+    """The one-process run a two-rank run is held to."""
+    return name.replace("_fsdp", "").split("_fault_")[0]
+
+
+@contextlib.contextmanager
+def planted_fault(site):
+    """Leave out one reduction of the fused blocks' glue: the call of
+    ops/ir_fused.py::_global at GLUE_FAULTS[site] returns this rank's sums
+    as they are (with them its row count, where it passes one). Yields a
+    dict whose "hits" counts the reductions left out; `site` None plants
+    nothing."""
+    if site is None:
+        yield {"hits": 0}
+        return
+    import linecache
+    from lmsu_tpu_torch.ops import ir_fused as irf
+    real, marker, hits = irf._global, GLUE_FAULTS[site], {"hits": 0}
+
+    def faulty(*vecs, count=None):
+        f = sys._getframe(1)
+        if marker in linecache.getline(f.f_code.co_filename, f.f_lineno):
+            hits["hits"] += 1
+            return (*vecs, count)
+        return real(*vecs, count=count)
+    irf._global = faulty
+    try:
+        yield hits
+    finally:
+        irf._global = real
+
+
+def glue_inputs(dev, dtype, H, Cin, Cout, stride, exp, B, seed):
+    """A fused block's inputs at batch B, made on the card from `seed` (the
+    same on every rank): x a ReLU6-like output whose samples each have their
+    own scale (so that a part of the batch has other statistics than the
+    whole), f32 parameters in the JAX package's layout."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    u = lambda *s: torch.rand(*s, generator=g, device=dev)   # noqa: E731
+    Ce = Cin * exp
+    x = (3 * u(B, H, H, Cin) * (0.25 + 1.5 * u(B, 1, 1, 1))).to(dtype)
+    w1 = r(Cin, Ce) * (2.0 / Cin) ** 0.5 if exp != 1 else torch.zeros(Cin, Ce, device=dev)
+    gb = [0.5 + u(c) if i % 2 == 0 else 0.2 * r(c)
+          for i, c in enumerate((Ce, Ce, Ce, Ce, Cout, Cout))]
+    if exp == 1:
+        gb[0], gb[1] = torch.zeros(Ce, device=dev), torch.zeros(Ce, device=dev)
+    dw, w2 = r(3, 3, Ce) * (2.0 / 9) ** 0.5, r(Ce, Cout) * (2.0 / Ce) ** 0.5
+    return x, [w1, gb[0], gb[1], dw, gb[2], gb[3], w2, gb[4], gb[5]]
+
+
+def glue_block(x, leaves, stride, has, mesh=None):
+    """fused_ir_train forward and backward of the loss sum(out^3) / 3 (its
+    gradient out^2 depends on out, as a real loss's does, so the backward
+    sums are not noise), on `mesh` (its parameters' gradients summed over
+    the ranks, as the trainer does). Returns out, dx, the gradients and the
+    six batch statistics."""
+    from lmsu_tpu_torch.ops import ir_fused as irf
+    from lmsu_tpu_torch.parallel.mesh import all_reduce_
+    xs = x.detach().clone().requires_grad_(True)
+    ps = [p.detach().clone().requires_grad_(True) for p in leaves]
+    out, stats = irf.fused_ir_train(xs, *ps, stride, has)
+    (out.float() ** 3).sum().div(3).backward()
+    grads = [all_reduce_(p.grad.contiguous(), mesh=mesh) if mesh is not None else p.grad
+             for p in ps]
+    return {"out": out.detach(), "dx": xs.grad, "grads": grads, "stats": stats}
+
+
+def glue_errors(got, want, rows) -> dict:
+    """got's distances from want (glue_block's results; got on `rows` of
+    want's batch): relative L2 of out, dx and the worst parameter gradient,
+    and the worst batch statistic's largest difference over its largest
+    magnitude."""
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm().clamp(min=1e-30)).item()
+    return {"out": rel(got["out"], want["out"][rows]), "dx": rel(got["dx"], want["dx"][rows]),
+            "grad": max(rel(a, b) for a, b in zip(got["grads"], want["grads"])
+                        if b.abs().max() > 0),
+            "stat": max(((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+                        for a, b in zip(got["stats"], want["stats"]) if b.abs().max() > 0)}
+
+
+def glue_check(dev, mesh, B=TRAIN_B, stages=IR_STAGES) -> dict:
+    """The fused blocks' glue on `mesh`, one block at a time: each of the
+    student's stages at the global batch B, f32 and bf16, this rank's rows
+    against the one-process block over the whole batch (run here with no
+    mesh active), then with each GLUE_FAULTS fault planted. Returns
+    {"<dtype> <stage>": {"clean": errors, <site>: errors, "hits": {site: n}}}
+    for the caller to hold to GLUE_LIMITS."""
+    from lmsu_tpu_torch.parallel import mesh as pm
+    L = B // mesh.world_size
+    rows = slice(mesh.rank * L, (mesh.rank + 1) * L)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (H, Cin, Cout, stride, exp) in enumerate(stages):
+            has = exp != 1
+            x, leaves = glue_inputs(dev, dtype, H, Cin, Cout, stride, exp, B, 41 + i)
+            with pm.using(None):
+                want = glue_block(x, leaves, stride, has)
+            r = {"clean": glue_errors(glue_block(x[rows], leaves, stride, has, mesh), want, rows),
+                 "hits": {}}
+            for site in GLUE_FAULTS:
+                if site == "bn1" and not has:
+                    continue
+                with planted_fault(site) as hits:
+                    r[site] = glue_errors(glue_block(x[rows], leaves, stride, has, mesh),
+                                          want, rows)
+                r["hits"][site] = hits["hits"]
+            res[f"{str(dtype)[6:]} {H}x{H} {Cin}->{Cout} s{stride} e{exp}"] = r
+            del x, leaves, want
+            torch.cuda.empty_cache()
+    return res
+
+
+def hold_glue(glue: list) -> dict:
+    """Hold every rank's glue_check: clean, each reading within
+    GLUE_LIMITS; each planted fault (which must have been planted) past
+    them in at least one reading, so the check would see it. Logs every
+    reading, then raises on all misses at once. Returns the worst clean
+    readings and, per fault, the smallest of its worst reading over its
+    limit."""
+    worst_clean, fault_least, misses = {}, {}, []
+    for rank, res in enumerate(glue):
+        for key, r in res.items():
+            log(f"[parallel b glue rank {rank}] {key}: {json.dumps(r)}")
+            lim = GLUE_LIMITS[torch.float32 if key.startswith("float32") else torch.bfloat16]
+            dt = key.split()[0]
+            for q, v in r["clean"].items():
+                if not v <= lim[q]:
+                    misses.append(f"{key}: clean {q} {v:g} > {lim[q]:g}")
+                worst_clean[f"{dt} {q}"] = max(worst_clean.get(f"{dt} {q}", 0.0), v)
+            for site, n in r["hits"].items():
+                over = max(v / lim[q] for q, v in r[site].items())
+                if n <= 0 or not over > 1:
+                    misses.append(f"{key}: the planted fault {site} ({n} reductions left "
+                                  f"out) passed: {r[site]}")
+                k = f"{dt} {site}"
+                fault_least[k] = min(fault_least.get(k, float("inf")), over)
+    if misses:
+        raise AssertionError("parallel (b) glue: " + "; ".join(misses))
+    return {"worst_clean": worst_clean, "fault_least_times_limit": fault_least}
+
+
+PARALLEL_PATH = ("scatter_sorted_fwd", "fusion_gate", "scatter_sorted_bwd", "kd_feature_mse")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_trainer(dev, dtype, fused: bool, part: str = "tp", mesh=None):
+    """The KD trainer of train_config at the global batch TRAIN_B (the
+    in-loop teacher), on `mesh` when given."""
+    from lmsu_tpu_torch.training import DistillationTrainer
+    cfg = train_config(dtype, True, TRAIN_B, fused_train=fused, kd={"teacher_partition": part})
+    return DistillationTrainer(cfg, [None], [None], device=dev, mesh=mesh,
+                               teacher_model_config=teacher_for(cfg))
+
+
+def parallel_steps(tr, batch, steps: int = PARALLEL_STEPS, perturb: float = 0.0, mesh=None):
+    """`steps` train steps on `batch` (this rank's rows under a mesh): the
+    global loss of each, synchronised wall ms of each, the first step's
+    (loss, gradients, BN running statistics) as kd_step returns them, the
+    collectives a step and their host seconds over the steps after the
+    first (whose time is cuDNN's algorithm search), and the parameters' and
+    buffers' fingerprints after the steps."""
+    from lmsu_tpu_torch.parallel.mesh import all_reduce_
+    if perturb:
+        gen = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for p in tr.params.values():
+                p.mul_(1 + perturb * torch.randn(p.shape, generator=gen).to(p.device))
+    if mesh is not None:
+        mesh.reset_counts()
+    out = {"losses": [], "step_ms": []}
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = tr.train_step(batch)
+        if mesh is not None:
+            loss = all_reduce_(loss.detach().clone(), mesh=mesh)
+        out["losses"].append(float(loss))
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out["step0"] = (out["losses"][0],
+                            {k: p.grad.detach().double().cpu() for k, p in tr.params.items()},
+                            {k: v.detach().double().cpu() for k, v in tr.model.state_dict().items()
+                             if k.endswith(("running_mean", "running_var"))})
+            if mesh is not None:
+                mesh.reset_counts()
+    if mesh is not None and steps > 1:
+        out["collectives_per_step"] = mesh.counts["calls"] / (steps - 1)
+        out["collective_host_s_per_step"] = mesh.counts["seconds"] / (steps - 1)
+        out["collective_bytes_per_step"] = mesh.counts["bytes"] / (steps - 1)
+    out["params"] = fingerprint(list(tr.params.values())).cpu().tolist()
+    out["buffers"] = fingerprint(list(tr.model.buffers())).cpu().tolist()
+    return out
+
+
+def parallel_world1(dev) -> dict:
+    """(a) The f32 in-loop KD step of weighted/128 with its 2x teacher at
+    B=128 (sorted_pallas, the fused gate, K7, fused_train) on a world-1 NCCL
+    mesh made by make_mesh against the same step without a mesh, three
+    steps each from the same seeds, deterministic cuDNN. No collective may
+    be issued and K1, K2, K5, K7, K8-K13 must launch. The step is not
+    repeatable bit for bit on the card (the FPN's bilinear resize has no
+    deterministic CUDA backward: atomicAdd), so a second run without a mesh
+    measures the repeat: the first step's loss and BN running statistics
+    (forward only) must equal the plain step's bit for bit when the repeat
+    does, and its gradients are held by hold_step with the repeat as the
+    spread; the three steps' parameters are compared bit for bit and
+    reported beside the repeat's."""
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    from lmsu_tpu_torch.parallel import mesh as pm
+    batch = train_batch(np.random.default_rng(21), TRAIN_B, dev)
+    with deterministic_cudnn():
+        base = parallel_steps(parallel_trainer(dev, torch.float32, True), batch)
+        mesh = pm.make_mesh(backend="nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1, device=dev)
+        try:
+            reset_launch_counts()
+            got = parallel_steps(parallel_trainer(dev, torch.float32, True, mesh=mesh), batch,
+                                 mesh=mesh)
+            launches = {k: v.launches for k, v in kernels().items() if v.launches}
+            calls = mesh.counts["calls"]
+        finally:
+            pm.destroy(mesh)
+        again = parallel_steps(parallel_trainer(dev, torch.float32, True), batch)
+
+    def forward_equal(a, b):
+        return a["step0"][0] == b["step0"][0] and all(
+            torch.equal(a["step0"][2][k], b["step0"][2][k]) for k in b["step0"][2])
+    out = {"backend": mesh.backend, "world_size": mesh.world_size, "collectives": calls,
+           "first_step_forward_bit_equal": forward_equal(got, base),
+           "plain_first_step_forward_repeats": forward_equal(again, base),
+           "three_steps_bit_equal": {k: got[k] == base[k] for k in ("losses", "params",
+                                                                    "buffers")},
+           "plain_three_steps_repeat": {k: again[k] == base[k] for k in ("losses", "params",
+                                                                        "buffers")},
+           "losses": got["losses"], "losses_no_mesh": base["losses"],
+           "step_ms_mesh": got["step_ms"], "step_ms_no_mesh": base["step_ms"],
+           "step_ms_no_mesh_again": again["step_ms"], "launches": launches}
+    need = PARALLEL_PATH + IR_TRAIN_KERNELS
+    if (calls or any(launches.get(k, 0) <= 0 for k in need)
+            or (out["plain_first_step_forward_repeats"]
+                and not out["first_step_forward_bit_equal"])):
+        raise AssertionError(f"parallel (a) world-1 NCCL step != the plain step: {out}")
+    out["held_first_step"] = hold_step("parallel (a) world-1 NCCL step vs the plain step",
+                                       got["step0"], base["step0"], noise=again["step0"])
+    return out
+
+
+def parallel_rank(rank: int, world: int, init: str, out_dir: str, device: str) -> None:
+    """One rank of (b): the fused blocks' glue check, then every
+    PARALLEL_RUNS run on this rank's rows of the global batch, over gloo on
+    the one card (`device`); writes rank<r>.json (and, rank 0, each run's
+    first step to <run>.pt)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lmsu_tpu_torch.inference import pin_f32_precision
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    from lmsu_tpu_torch.parallel import mesh as pm
+    pin_f32_precision()
+    dev = torch.device(device)
+    mesh = pm.make_mesh(backend="gloo", init_method=init, rank=rank, world_size=world,
+                        device=dev, timeout_s=120)
+    t0 = time.perf_counter()
+    res = {"glue": glue_check(dev, mesh), "runs": {}}
+    res["glue_seconds"] = time.perf_counter() - t0
+    L = TRAIN_B // world
+    batch = {k: v[rank * L:(rank + 1) * L]
+             for k, v in train_batch(np.random.default_rng(21), TRAIN_B, dev).items()}
+    for name, dtype, fused, part in PARALLEL_RUNS:
+        tr = parallel_trainer(dev, dtype, fused, part, mesh=mesh)
+        reset_launch_counts()
+        with planted_fault(name.split("_fault_")[1] if "_fault_" in name else None) as hits:
+            r = parallel_steps(tr, batch, mesh=mesh)
+        r["fault_hits"] = hits["hits"]
+        r["launches"] = {k: v.launches for k, v in kernels().items() if v.launches}
+        if tr.teacher_shards is not None:
+            r["teacher_bytes_per_rank"] = tr.teacher_shards.bytes_per_rank
+            r["teacher_bytes_full"] = tr.teacher_shards.bytes_full
+        if rank == 0:
+            torch.save(r["step0"], os.path.join(out_dir, f"{name}.pt"))
+        del r["step0"]
+        res["runs"][name] = r
+        del tr
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    pm.destroy(mesh)
+
+
+def parallel_gloo(dev, world: int = 2, timeout: float = 420.0) -> dict:
+    """(b) `world` ranks over gloo on the one card (NCCL refuses two ranks
+    on one GPU), B=TRAIN_B/world each, started after this process has built
+    every kernel: each PARALLEL_RUNS run three steps against the
+    one-process B=TRAIN_B steps, from the same seeds and batch. f32: the
+    first step held by hold_step with the one-process step's spread under a
+    1e-6 weight perturbation (loss, every gradient, every BN statistic), the
+    later steps' losses to 1e-5 |loss| + min(10 N, 1e-3 |loss|), N the
+    one-process loss's own spread under that perturbation at that step
+    (hold_step caps 10 N at 1e-4 |loss| for one step; after AdamW steps the
+    reference's own spread is past that: 5.6e-4 of the loss at the third
+    f32 step on an H100). bf16, whose own rounding moves a step far more
+    than that spread: the first step held to the f32 one-process step as
+    the one-process bf16 step is (`hold_gap`: each distance at most twice
+    the one-process bf16 step's, plus a fixed margin), the later steps'
+    losses to the one-process bf16 step's within 1e-5 |loss| + min(10 N,
+    1e-2 |loss|), N its own spread under the 1e-6 perturbation at that step
+    (1e-2: about two and a half of bf16's units of rounding, 2^-8). The
+    ranks' parameters and buffers equal bit for bit; the path's kernels
+    launched on each rank; the collectives a step and their share of the
+    step's host time, the step ms against the one-process step's. A rank
+    that fails, hangs or exits non-zero fails the run.
+
+    That step check is loose for the glue between the fused blocks'
+    kernels (its limits follow the one-process step's own spread), so each
+    rank first runs glue_check, held here by hold_glue to GLUE_LIMITS; and
+    the f32_fused_fault_r2 run, with K11's r2 sums left local on each
+    rank, records what the step check reads of such a fault."""
+    import tempfile
+
+    from lmsu_tpu_torch.parallel.mesh import run_ranks
+    refs = {}
+    batch = train_batch(np.random.default_rng(21), TRAIN_B, dev)
+    for name, dtype, fused, part in PARALLEL_RUNS:
+        if run_name(name) != name:
+            continue
+        refs[name] = [parallel_steps(parallel_trainer(dev, dtype, fused), batch, perturb=p)
+                      for p in (0.0, 1e-6)]
+        torch.cuda.empty_cache()
+    del batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        init = "file://" + os.path.join(d, "rendezvous")
+        logs, _ = run_ranks(
+            [[sys.executable, "-c", f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+              f"chip_smoke.parallel_rank({r}, {world}, {init!r}, {d!r}, {str(dev)!r})"]
+             for r in range(world)], timeout, cwd=root)
+        for line in logs[0].splitlines():
+            if line.startswith("fsdp teacher"):
+                log(f"[parallel b rank 0] {line}")
+        ranks = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(world)]
+        step0 = {name: torch.load(os.path.join(d, f"{name}.pt"), weights_only=False)
+                 for name, *_ in PARALLEL_RUNS}
+    out = {"world": world, "per_rank_batch": TRAIN_B // world, "runs": {},
+           "glue": hold_glue([r["glue"] for r in ranks]),
+           "glue_seconds": max(r["glue_seconds"] for r in ranks)}
+    log(f"[parallel b glue] {json.dumps(out['glue'])}")
+    for name, dtype, fused, part in PARALLEL_RUNS:
+        ref, pert = refs[run_name(name)]
+        got = [r["runs"][name] for r in ranks]
+        what = f"parallel (b) {name}: {world} ranks vs one process"
+        fault = "_fault_" in name
+        try:
+            if dtype == torch.float32:
+                held = hold_step(what, step0[name], ref["step0"], noise=pert["step0"])
+            else:
+                anchor = refs[name.replace("bf16", "f32")][0]
+                held = hold_gap(what, step0[name], ref["step0"], anchor["step0"])
+            cap = 1e-3 if dtype == torch.float32 else 1e-2
+            held["later_losses"] = []
+            for i in range(1, PARALLEL_STEPS):
+                la, lb, lp = got[0]["losses"][i], ref["losses"][i], pert["losses"][i]
+                held["later_losses"].append({"err": abs(la - lb), "spread": abs(lp - lb)})
+                if not abs(la - lb) <= 1e-5 * abs(lb) + min(10 * abs(lp - lb), cap * abs(lb)):
+                    raise AssertionError(f"{what}: step {i} loss {la} != {lb} (perturbed {lp})")
+        except AssertionError as e:
+            if not fault:
+                raise
+            held = {"failed": str(e)[:400]}
+        if fault:
+            # The step check's reading of a planted fault: recorded, not held.
+            held["fault_hits"] = [g["fault_hits"] for g in got]
+            held["distance"] = step_distance(step0[name], ref["step0"])
+            held["one_process_spread"] = step_distance(pert["step0"], ref["step0"])
+            if min(held["fault_hits"]) <= 0:
+                raise AssertionError(f"{what}: the fault was not planted")
+        for g in got[1:]:
+            if (g["params"], g["buffers"], g["losses"]) != (
+                    got[0]["params"], got[0]["buffers"], got[0]["losses"]):
+                raise AssertionError(f"parallel (b) {name}: the ranks' parameters differ")
+        need = PARALLEL_PATH + (IR_TRAIN_KERNELS if fused else ())
+        for g in got:
+            if any(g["launches"].get(k, 0) <= 0 for k in need):
+                raise AssertionError(f"parallel (b) {name}: launches {g['launches']}")
+        r0 = got[0]
+        wall = float(np.median(r0["step_ms"][1:]))
+        run = {"losses": r0["losses"], "losses_one_process": ref["losses"],
+               "step_ms": r0["step_ms"], "step_ms_one_process": ref["step_ms"],
+               "step_ms_median_after_first": wall,
+               "step_ms_one_process_median_after_first": float(np.median(ref["step_ms"][1:])),
+               "collectives_per_step": r0["collectives_per_step"],
+               "collective_host_ms_per_step": r0["collective_host_s_per_step"] * 1e3,
+               "collective_share_of_step": (r0["collective_host_s_per_step"] * 1e3
+                                            / float(np.mean(r0["step_ms"][1:]))),
+               "collective_mb_per_step": r0["collective_bytes_per_step"] / 1e6,
+               "launches_rank0": r0["launches"], "held_step0": held}
+        if part == "fsdp":
+            run.update({k: r0[k] for k in ("teacher_bytes_per_rank", "teacher_bytes_full")})
+            if not r0["teacher_bytes_per_rank"] < 0.55 * r0["teacher_bytes_full"]:
+                raise AssertionError(f"parallel (b) fsdp: teacher bytes {run}")
+        out["runs"][name] = run
+        log(f"[parallel b {name}] {json.dumps(run)}")
+    return out
+
+
+def step_distance(a, b) -> dict:
+    """How far step `a` is from step `b` (each as kd_step returns it): the
+    loss's absolute difference, the gradients' relative L2 difference, the
+    largest BN statistic difference over its tensor's scale."""
+    (la, ga, sa), (lb, gb, sb) = a, b
+    norm = sum((g ** 2).sum().item() for g in gb.values()) ** 0.5
+    return {"loss": abs(la - lb),
+            "grad_rel_l2": sum(((ga[k] - gb[k]) ** 2).sum().item() for k in gb) ** 0.5 / norm,
+            "bn_stat_rel": max(((sa[k] - sb[k]).abs().max() / sb[k].abs().max().clamp(min=1e-12))
+                               .item() for k in sb)}
+
+
+def hold_gap(what, got, want, anchor) -> dict:
+    """Hold a bf16 step `got` as its one-process counterpart `want` stands to
+    the f32 one-process step `anchor` (each as kd_step returns it): each
+    distance of got's from the anchor (step_distance) at most twice want's
+    plus a fixed margin (1e-5 of the loss, 1e-3 relative L2, 1e-4 of a
+    statistic's scale)."""
+    d_got, d_want = step_distance(got, anchor), step_distance(want, anchor)
+    fixed = {"loss": 1e-5 * abs(anchor[0]), "grad_rel_l2": 1e-3, "bn_stat_rel": 1e-4}
+    for k, v in d_got.items():
+        if not v <= 2 * d_want[k] + fixed[k]:
+            raise AssertionError(f"{what}: {k} {v:g} from f32 > 2 x {d_want[k]:g} + {fixed[k]:g}")
+    return {"got_from_f32": d_got, "one_process_from_f32": d_want}
+
+
+def parallel_serving(dev, child) -> dict:
+    """(c) ServingEngine.from_predictor(devices=[the card]) against the
+    plain engine on the same Predictor: B=8 f32 weighted/128 with its
+    kernels, the same 16 frames through both, bit for bit; K1-K3 launched
+    on the data-parallel engine's run. Then the `serve --data-parallel 1`
+    child (started by the caller) answers one HTTP request within 1e-4 of
+    scale of the same seeded Predictor."""
+    from lmsu_tpu_torch import serve
+    from lmsu_tpu_torch.inference import Predictor
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    from lmsu_tpu_torch.serving import ServingEngine
+    pred = Predictor(serving_config(torch.float32), device=dev, seed=0)
+    randomize_bn(pred.model, 1)
+    frames = make_frames(np.random.default_rng(17), 16)
+    outs, launches = {}, None
+    for name, devices in (("plain", None), ("devices", [dev])):
+        eng = ServingEngine.from_predictor(pred, batch_size=B, image_size=(IMG, IMG),
+                                           num_points=NPTS, max_delay_ms=5.0, devices=devices)
+        try:
+            eng.warmup()
+            reset_launch_counts()
+            outs[name] = np.stack([f.result(timeout=300) for f in
+                                   [eng.submit(img, pts) for img, pts in frames]])
+            if devices is not None:
+                launches = {k: v.launches for k, v in kernels().items() if v.launches}
+        finally:
+            eng.close()
+    if not np.array_equal(outs["plain"], outs["devices"]) or any(
+            launches.get(k, 0) <= 0 for k in SERVING_KERNELS):
+        raise AssertionError(f"parallel (c): devices=[{dev}] != the plain engine "
+                             f"({float(np.abs(outs['plain'] - outs['devices']).max())}), "
+                             f"launches {launches}")
+    args = serve.parse_args(["--device", "cuda", "--seed", "0"])
+    eng = ServingEngine.from_predictor(Predictor(serve.build_config(args), device=dev, seed=0),
+                                       batch_size=B, image_size=(IMG, IMG), num_points=NPTS)
+    try:
+        direct = [eng.predict(*frames[0], timeout=300)]
+    finally:
+        eng.close()
+    served = finish_artifact_child(*child, frames[:1], direct, what="serve --data-parallel 1")
+    return {"frames": len(frames), "bit_equal": True, "launches": launches,
+            "data_parallel_1_child": served}
+
+
+def parallel_multiprocess(timeout: float = 420.0) -> dict:
+    """(d) `python -m lmsu_tpu_torch.run_multiprocess --device cuda
+    --num-processes 2` (gloo on the one card): it must exit 0 and print its
+    summary."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lmsu_tpu_torch.run_multiprocess", "--device",
+                           "cuda", "--num-processes", "2", "--timeout", str(timeout - 60)],
+                          cwd=root, capture_output=True, text=True, timeout=timeout)
+    text = proc.stdout
+    if proc.returncode != 0 or "OK" not in text:
+        raise AssertionError(f"run_multiprocess exited {proc.returncode}:\n"
+                             f"{(text + proc.stderr)[-3000:]}")
+    summary = json.loads(text[text.index("{", text.index("OK")):])
+    summary["seconds"] = time.perf_counter() - t0
+    return summary
+
+
+def start_serve_child(dev):
+    """`python -m lmsu_tpu_torch.serve --data-parallel 1` (weighted/128,
+    seed 0, B=8, port 0) in a child process; (c) finishes it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-u", "-m", "lmsu_tpu_torch.serve", "--device", "cuda", "--seed",
+           "0", "--data-parallel", "1", "--batch-size", str(B), "--port", "0", "--image-size",
+           str(IMG), str(IMG), "--num-points", str(NPTS), "--max-delay-ms", "5"]
+    return (subprocess.Popen(cmd, cwd=root, env=dict(os.environ, PYTHONUNBUFFERED="1"),
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            time.perf_counter())
+
+
+def phase_parallel(dev) -> dict:
+    """The parallel phase: (a) the world-1 NCCL step, (b) two gloo ranks on
+    the card, (c) data-parallel serving and `serve --data-parallel 1`, (d)
+    `run_multiprocess --device cuda --num-processes 2`."""
+    t0 = time.perf_counter()
+    child = start_serve_child(dev)
+    try:
+        res = {"world1_nccl": parallel_world1(dev)}
+        log(f"[parallel a] world-1 NCCL step: {json.dumps(res['world1_nccl'])}")
+        res["gloo_two_ranks"] = parallel_gloo(dev)
+        res["serving"] = parallel_serving(dev, child)
+        log(f"[parallel c] {json.dumps(res['serving'])}")
+    finally:
+        if child[0].poll() is None:
+            child[0].kill()
+            child[0].wait()
+    res["run_multiprocess"] = parallel_multiprocess()
+    log(f"[parallel d] run_multiprocess: {json.dumps(res['run_multiprocess'])}")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[parallel] phase {res['seconds']:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="kernels,serving,train,pandaset",
-                    help="comma list of kernels,serving,train,pandaset (build always runs)")
+    ap.add_argument("--phases", default="kernels,serving,train,pandaset,parallel",
+                    help="comma list of kernels,serving,train,pandaset,parallel (build always "
+                    "runs)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3836,6 +4427,7 @@ def main(argv=None) -> int:
         tres["synthetic_cli"] = run_synthetic_cli(dev)
         log(f"[train] train_synthetic + evaluate CLIs: {json.dumps(tres['synthetic_cli'])}")
         log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    pres = phase_parallel(dev) if "parallel" in phases else {}
     if "pandaset" in phases:
         tres["pandaset_cli"] = run_pandaset_cli(dev)
         log(f"[pandaset] frames, packs, train_pandaset + evaluate CLIs: "
@@ -3910,6 +4502,15 @@ def main(argv=None) -> int:
                 tres["recipe_f32"]["dataset_cache"]["launches"][name]
         if "pandaset_cli" in tres:
             entry["pandaset_train_launches"] = tres["pandaset_cli"]["launches"][name]
+        if pres:
+            # The parallel phase: the world-1 NCCL step's 3 steps, rank 0's 3
+            # steps of each two-rank gloo run, the devices=[card] engine's 16
+            # frames.
+            entry["parallel_launches"] = {
+                "world1_nccl_f32_fused": pres["world1_nccl"]["launches"].get(name, 0),
+                **{f"gloo_rank0_{run}": r["launches_rank0"].get(name, 0)
+                   for run, r in pres["gloo_two_ranks"]["runs"].items()},
+                "serving_devices": pres["serving"]["launches"].get(name, 0)}
         if "pillar_f32" in tres:
             if path in ("serving", "train"):
                 entry["pillar_train_launches"] = tres["pillar_f32"]["in_loop"]["launches"][name]
@@ -4034,6 +4635,17 @@ def main(argv=None) -> int:
                                 "peak_mem_gb": tres[k]["peak_mem_gb"]}
             for k in tres if k.startswith("remat_") and k != "remat_check"}
         print(json.dumps({"train": summary, "batch": TRAIN_B, "card": smi}))
+    if pres:
+        print(json.dumps({"parallel": {
+            "world1_nccl": {k: pres["world1_nccl"][k] for k in (
+                "first_step_forward_bit_equal", "plain_first_step_forward_repeats",
+                "three_steps_bit_equal", "plain_three_steps_repeat", "step_ms_mesh",
+                "step_ms_no_mesh")},
+            "gloo_two_ranks": {run: {k: v for k, v in r.items() if k not in (
+                "held_step0", "launches_rank0")} for run, r in
+                pres["gloo_two_ranks"]["runs"].items()},
+            "run_multiprocess": pres["run_multiprocess"], "seconds": pres["seconds"]},
+            "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

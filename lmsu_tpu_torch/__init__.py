@@ -9,11 +9,13 @@ plain PyTorch version beside it that CPU tensors take.
 The package imports neither jax nor anything of `lmsu_tpu`. Entry points
 (`inference.Predictor`, `serving.ServingEngine.from_predictor`, the
 trainers, `python -m lmsu_tpu_torch.{serve, train_distill, train_synthetic,
-train_fusion_ablation, train_pandaset, evaluate}`) run on CUDA unless asked
-for the CPU; `prepare_dataset` and `analyze_distribution` are host tools.
+train_fusion_ablation, train_pandaset, evaluate, run_multiprocess}`) run on
+CUDA unless asked for the CPU; `prepare_dataset` and `analyze_distribution`
+are host tools.
 
 Ported so far: the model with its four fusions and both heads, serving
 (Predictor -> ServingEngine -> HTTP), CE and KD training, PandaSet,
-synthetic and packed data, and every kernel of the JAX package (ROADMAP.md
-lists what is still to port).
+synthetic and packed data, data parallelism (parallel/: one process a
+device, the fsdp teacher, data-parallel serving), and every kernel of the
+JAX package (ROADMAP.md lists what is still to port).
 """

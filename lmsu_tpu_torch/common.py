@@ -6,10 +6,16 @@ ExperimentConfig, the loaders and resuming.
 dataset holds (PandaSet for train_pandaset and train_fusion_ablation,
 synthetic for train_synthetic, train_distill and evaluate). --data-root is
 the PandaSet tree or the pack directory, --decoded-cache keeps decoded
-PandaSet samples in host memory. Flags of options the port does not have
-(model parallelism) are absent, so argparse rejects them rather than
-dropping them. The port adds --device (CUDA unless 'cpu' is asked for) and
---bf16. --augment and --aug-* set TrainConfig.augment (ops/augment.py).
+PandaSet samples in host memory. --model-parallel 1 is accepted and more
+is refused by name when the config is built (the 2-D mesh is not ported).
+The port adds --device (CUDA unless 'cpu' is asked for) and --bf16.
+--augment and --aug-* set TrainConfig.augment (ops/augment.py).
+
+Data parallelism: run a trainer CLI under torchrun,
+  torchrun --nproc-per-node N -m lmsu_tpu_torch.train_distill ...
+`setup_mesh` makes the process group from torchrun's environment (one rank
+a device, cuda:LOCAL_RANK; gloo with --device cpu) before the loaders,
+which then decode this rank's stripe of every global --batch-size batch.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Optional
 import torch
 
 from lmsu_tpu_torch.config import AugmentConfig, ExperimentConfig
+from lmsu_tpu_torch.parallel.mesh import check_model_parallel
 
 FUSION_TYPES = ("concat", "minimal", "weighted", "gated_sum")
 SCATTER_IMPLS = ("xla", "xla_fastbwd", "sorted", "pallas", "sorted_pallas")
@@ -80,6 +87,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    "sorted-scatter kernels, and it also turns on the loaders' "
                    "by-cell point sort")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute, f32 parameters")
+    p.add_argument("--model-parallel", type=int, default=None,
+                   help="size of a second ('model') mesh axis (MeshConfig.model_parallel); "
+                   "only 1 is ported: the tp / sp teacher on a 2-D mesh is not")
     p.add_argument("--grad-clip-norm", type=float, default=None,
                    help="clip gradients to this global L2 norm")
     p.add_argument("--ema-decay", type=float, default=None,
@@ -164,8 +174,24 @@ def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
                                                         encoder_type=args.lidar_encoder))
     if args.bf16:
         model = model.replace(compute_dtype=torch.bfloat16)
+    mesh = cfg.mesh
+    if getattr(args, "model_parallel", None) is not None:
+        mesh = dataclasses.replace(mesh, model_parallel=args.model_parallel)
+        check_model_parallel(mesh)
     return cfg.replace(model=model, data=dataclasses.replace(cfg.data, **data_kw),
-                       train=dataclasses.replace(cfg.train, **train_kw))
+                       train=dataclasses.replace(cfg.train, **train_kw), mesh=mesh)
+
+
+def setup_mesh(args, cfg: Optional[ExperimentConfig] = None):
+    """The data mesh of a rank started by torchrun (WORLD_SIZE set): the
+    process group over NCCL on cuda:LOCAL_RANK, or gloo with --device cpu;
+    made before the loaders, which read their stripe from it, and the
+    trainers, which run on it. None for a plain run (one device)."""
+    from lmsu_tpu_torch.parallel.mesh import launched_distributed, make_mesh
+    if not launched_distributed():
+        return None
+    return make_mesh(cfg.mesh if cfg is not None else None,
+                     device=None if args.device == "cuda" else args.device)
 
 
 def build_loaders(cfg: ExperimentConfig, verbose: bool = True):

@@ -274,9 +274,16 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh of the JAX package. The port trains on one device, so
-    the trainer refuses anything but the defaults."""
+    """The device mesh (the JAX package's MeshConfig, field for field).
 
+    The port runs one process per device (parallel/mesh.py): the data axis
+    is the process group, batches are striped over its ranks and parameters
+    are replicated. num_devices, when set, must equal the group's world
+    size. model_parallel > 1 (a second, 'model' axis for the tp / sp
+    teacher) is not ported yet and is refused by name."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
     num_devices: Optional[int] = None
     model_parallel: int = 1
 

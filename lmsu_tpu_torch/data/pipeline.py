@@ -10,8 +10,11 @@ epoch (tests/test_torch_data.py pins it).
     exact.
   * `sample_index` carries each row's dataset index.
   * A daemon thread prefetches batches while the device computes.
-  * One process feeds one device: the JAX package's multi-host striping
-    (num_shards, shard_index) is not ported.
+  * Data parallelism (parallel/mesh.py, one process a device): batch_size
+    stays the GLOBAL batch size, every process computes the same global
+    order and decodes only its stripe of each global batch, rows
+    [shard*B/num_shards, (shard+1)*B/num_shards), padding and sample_mask
+    included; make_loader takes the stripe from the active mesh.
   * `materialize_dataset` stacks the whole set for the on-device epoch
     (TrainConfig.onchip_epoch), padded as the Batcher pads.
 """
@@ -20,23 +23,36 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
 
 class Batcher:
     """Iterates a dataset in shuffled, fixed-shape, padded batches. The
-    order of epoch e is a shuffle by SeedSequence([seed, e])."""
+    order of epoch e is a shuffle by SeedSequence([seed, e]). With
+    num_shards > 1 it yields shard_index's stripe of every global batch of
+    batch_size rows; sample_index and sample_mask are made globally, then
+    sliced, so the stripes of all shards concatenate to the one-process
+    batch."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = False,
+                 num_shards: int = 1, shard_index: int = 0,
                  decode_workers: int = 0, sample_transform=None):
+        if batch_size % num_shards != 0:
+            raise ValueError(f"global batch_size {batch_size} not divisible "
+                             f"by num_shards {num_shards}")
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} out of range for "
+                             f"{num_shards} shards")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         # Per-sample decode threads (0/1 = inline on the producer thread).
         self.decode_workers = decode_workers
         # Per-sample post-decode transform, e.g. data/rasterize.py::
@@ -76,6 +92,8 @@ class Batcher:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = self._order()
         B = self.batch_size
+        L = B // self.num_shards  # this shard's rows of each global batch
+        lo, hi = self.shard_index * L, (self.shard_index + 1) * L
         for start in range(0, len(order), B):
             chunk = order[start:start + B]
             if len(chunk) < B and self.drop_last:
@@ -84,6 +102,7 @@ class Batcher:
             if n_real < B:  # pad by repeating the first sample
                 chunk = np.concatenate([chunk, np.repeat(chunk[:1], B - n_real)])
             mask = np.arange(B) < n_real
+            chunk, mask = chunk[lo:hi], mask[lo:hi]  # decode only this stripe
             samples = self._decode(chunk)
             batch: Dict[str, np.ndarray] = {}
             for key in samples[0]:
@@ -177,9 +196,18 @@ def materialize_dataset(dataset, batch_size: int,
 
 
 def make_loader(dataset, batch_size: int, shuffle: bool, seed: int = 0,
-                drop_last: bool = False, prefetch: int = 2, decode_workers: int = 0,
-                sample_transform=None) -> PrefetchLoader:
-    """The prefetching loader over a Batcher."""
+                drop_last: bool = False, prefetch: int = 2,
+                num_shards: Optional[int] = None, shard_index: Optional[int] = None,
+                decode_workers: int = 0, sample_transform=None) -> PrefetchLoader:
+    """The prefetching loader over a Batcher. num_shards / shard_index
+    default to the active mesh's (world size, rank), so each rank of a
+    data-parallel run decodes only its stripe (one process: 1 / 0)."""
+    if num_shards is None or shard_index is None:
+        from lmsu_tpu_torch.parallel.mesh import process_data_stripes
+        n, i = process_data_stripes()
+        num_shards = n if num_shards is None else num_shards
+        shard_index = i if shard_index is None else shard_index
     return PrefetchLoader(Batcher(dataset, batch_size, shuffle, seed, drop_last,
+                                  num_shards=num_shards, shard_index=shard_index,
                                   decode_workers=decode_workers,
                                   sample_transform=sample_transform), prefetch)

@@ -18,6 +18,7 @@ init.
 
 from __future__ import annotations
 
+import copy
 import json
 from typing import Dict, Mapping, Optional
 
@@ -94,6 +95,20 @@ class Predictor:
     def _build_forwards(self) -> None:
         """The module forwards run: the model, or its frozen copy."""
         self._served = freeze_model(self.model) if self._freeze_weights else self.model
+
+    def replica(self, device) -> "Predictor":
+        """A copy of this Predictor on `device` (data-parallel serving): the
+        model, its int8 calibration and the frozen copy, if any, rebuilt
+        there; the config and the sorter shared."""
+        rep = copy.copy(self)
+        rep.device = resolve_device(device)
+        with torch.no_grad():
+            rep.model = copy.deepcopy(self.model).to(rep.device)
+            for m in rep.model.modules():
+                if isinstance(getattr(m, "act_absmax", None), torch.Tensor):
+                    m.act_absmax = m.act_absmax.to(rep.device)
+        rep._build_forwards()
+        return rep
 
     def quantize(self, calibration_batches) -> None:
         """Switch this Predictor to int8 (w8a8) serving.

@@ -43,6 +43,7 @@ import torch.utils.checkpoint
 
 from lmsu_tpu_torch.ops.ir_fused import IRParams, fold_bn, fused_ir_infer, fused_ir_train
 from lmsu_tpu_torch.ops.quant import int8_pointwise
+from lmsu_tpu_torch.parallel.mesh import all_reduce_, data_mesh
 
 
 _REMAT = threading.local()
@@ -167,12 +168,21 @@ class _FlaxRunningStats:
     re-run the same call takes copies of both running buffers, so the
     output and what autograd saves are the first run's and the buffers
     move once.
+
+    Under data parallelism (a mesh of more than one rank, parallel/mesh.py)
+    the statistics are the global batch's, as GSPMD makes flax's
+    (`_SyncedBatchNorm`). The running variance takes the biased batch
+    variance; the remat re-run reduces again and leaves the buffers alone.
+    torch's SyncBatchNorm cannot stand in: it refuses CPU tensors and keeps
+    the unbiased running variance.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
+        if data_mesh() is not None:
+            return self._synced(x)
         if recomputing():
             return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
                                 self.weight, self.bias, True, self.momentum, self.eps)
@@ -185,6 +195,76 @@ class _FlaxRunningStats:
             self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        """Train-mode BN over the global batch of the data mesh."""
+        y, mean, var = _SyncedBatchNorm.apply(x, self.weight, self.bias, self.eps, data_mesh())
+        if not recomputing():
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
+        return y
+
+
+class _SyncedBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of a data mesh.
+
+    Forward: each rank sums x and x^2 over its rows, one all-reduce sums
+    them and the row counts over ranks, and the mean and flax's fast
+    variance max(E[x^2] - E[x]^2, 0) normalise x as flax's `_normalize`
+    does, in f32, output in x's dtype. The sums accumulate, are reduced and
+    are finalised in float64 (x^2 formed in f32), then mean and variance
+    are f32: f32 sums split over ranks move the statistics by ~1e-7 a layer,
+    ~1e-6 through the network, enough to flip a ReLU at a pre-activation of
+    -2e-6 in the KD step of tests/test_torch_parallel_kd.py (with
+    fused_train) and take the step out of the JAX reference's spread.
+
+    Backward: BatchNorm's own derivative, dx = g inv (dy - mean(dy) - xhat
+    mean(dy xhat)), with the two means over the global batch (one
+    all-reduce of sum(dy), sum(dy xhat)); differentiating the fast variance
+    instead would form 2 x dL/dsq + dL/ds in f32, which cancels where a
+    channel's mean is large against its spread. The weight and bias
+    gradients are this rank's sums (as torch's SyncBatchNorm returns them):
+    the trainer's gradient all-reduce sums them once."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, mesh):
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.float()
+        f64 = torch.float64
+        tot = all_reduce_(torch.cat([xf.sum(dims, dtype=f64), (xf * xf).sum(dims, dtype=f64),
+                                     xf.new_full((1,), float(x.numel() // c), dtype=f64)]),
+                          mesh=mesh)
+        n = tot[2 * c]
+        mean64 = tot[:c] / n
+        mean = mean64.float()
+        var = torch.clamp(tot[c:2 * c] / n - mean64 * mean64, min=0.0).float()
+        shape = [1, c] + [1] * (x.dim() - 2)
+        inv = torch.rsqrt(var + eps)
+        y = (xf - mean.view(shape)) * (inv * weight.float()).view(shape) + bias.float().view(shape)
+        ctx.save_for_backward(x, weight, mean, inv)
+        ctx.n, ctx.mesh = float(n), mesh
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _g_mean, _g_var):
+        x, weight, mean, inv = ctx.saved_tensors
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, c] + [1] * (x.dim() - 2)
+        gyf = gy.float()
+        xhat = (x.float() - mean.view(shape)) * inv.view(shape)
+        local = torch.cat([gyf.sum(dims, dtype=torch.float64),
+                           (gyf * xhat).sum(dims, dtype=torch.float64)])
+        tot = all_reduce_(local.clone(), mesh=ctx.mesh) / ctx.n
+        mdy, mdyx = (t.float().view(shape) for t in tot.split(c))
+        dx = (gyf - mdy - xhat * mdyx) * (inv * weight.float()).view(shape)
+        db, dw = (t.to(weight.dtype) for t in local.split(c))
+        return dx.to(x.dtype), dw, db, None, None
 
 
 class ReLU6(nn.ReLU6):

@@ -62,6 +62,7 @@ import torch.nn.functional as F
 from lmsu_tpu_torch.ops._cuda import (_I, _L, _P, CudaKernel, aligned16, check_cuda_args,
                                       check_device, define_op, dtype_code, ptr, stream_ptr)
 from lmsu_tpu_torch.ops.kd_loss import split_bf16
+from lmsu_tpu_torch.parallel.mesh import all_reduce_, data_mesh
 
 KERNEL = CudaKernel("ir_fused_infer.cu", {
     "ir_fused_infer": (_P,) * 11 + (_I,) * 14 + (_P,),
@@ -879,9 +880,33 @@ def _bn_stats_finalize(s, sq, count):
     return mean, sq / count - mean * mean
 
 
+def _global(*vecs, count=None):
+    """Sums of the global batch under data parallelism (parallel/mesh.py):
+    the [C] vectors (and the row count, when given) all-reduced as one
+    tensor. At world size 1 they come back as they are, with no collective.
+    Returns (*vecs, count)."""
+    if data_mesh() is None:
+        return (*vecs, count)
+    parts = [v.float().reshape(-1) for v in vecs]
+    if count is not None:
+        parts.append(torch.full((1,), float(count), dtype=_F32, device=vecs[0].device))
+    flat = all_reduce_(torch.cat(parts))
+    out = list(flat[:-1].split([v.numel() for v in vecs])) if count is not None \
+        else list(flat.split([v.numel() for v in vecs]))
+    return (*out, flat[-1] if count is not None else None)
+
+
 class _FusedIRTrain(torch.autograd.Function):
     """ir_fused.py::fused_ir_train's custom VJP: _ir_train_forward (:566-666)
-    and _ir_train_backward (:669-835) with K8-K13 for the kernels."""
+    and _ir_train_backward (:669-835) with K8-K13 for the kernels.
+
+    Under data parallelism the three BN layers' statistics and their
+    backward sums are the global batch's: K8's (s, sq), K9's (s, sq) and
+    BN3's sums are all-reduced (with the row counts M1, M2) before they are
+    finalised, and r3, K11's r2 and K12's r1 before they feed dy, p2/q2 and
+    K13's p1/q1. The gradients of g1/be1, g2/be2, g3/be3 are the LOCAL r
+    sums (as torch's SyncBatchNorm returns them): the trainer's gradient
+    all-reduce sums them once, as it does dW1, dDW and dW2."""
 
     @staticmethod
     def forward(ctx, x, w1, g1, be1, dwk, g2, be2, w2, g3, be3, stride, has_expand, eps):
@@ -893,24 +918,27 @@ class _FusedIRTrain(torch.autograd.Function):
         dt = x.dtype
         x = x.contiguous()
         if has_expand:
-            m1, v1 = _bn_stats_finalize(*stats1(x, w1), M1)
+            s1_, sq1_, M1 = _global(*stats1(x, w1), count=M1)
+            m1, v1 = _bn_stats_finalize(s1_, sq1_, M1)
             s1, b1 = fold_bn(g1.float(), be1.float(), m1, v1, eps)
         else:
             m1, v1 = (torch.zeros(ce, dtype=_F32, device=x.device) for _ in range(2))
             s1 = b1 = None
         d, s, sq = expand_dw(x, w1 if has_expand else None, s1, b1, dwk, stride)
+        s, sq, M2 = _global(s, sq, count=M2)
         m2, v2 = _bn_stats_finalize(s, sq, M2)
         s2, b2 = fold_bn(g2.float(), be2.float(), m2, v2, eps)
         y_buf = proj(d, s2, b2, w2).to(dt)
         y32 = y_buf.float()
-        m3, v3 = _bn_stats_finalize(y32.sum((0, 1, 2)), (y32 * y32).sum((0, 1, 2)), M2)
+        m3, v3 = _bn_stats_finalize(*_global(y32.sum((0, 1, 2)), (y32 * y32).sum((0, 1, 2)))[:2],
+                                    M2)
         inv3 = torch.rsqrt(v3 + eps)
         out = (g3.float() * (y32 - m3) * inv3 + be3.float()).to(dt)
         if stride == 1 and cin == cout:
             out = x + out
         ctx.save_for_backward(x, d, y_buf, m1, v1, m2, v2, m3, v3, w1, g1, be1, dwk, g2, be2,
                               w2, g3, be3)
-        ctx.conf = (stride, has_expand, eps)
+        ctx.conf = (stride, has_expand, eps, M1, M2)
         stats = (m1, v1, m2, v2, m3, v3)
         ctx.mark_non_differentiable(*stats)
         return (out,) + stats
@@ -921,10 +949,9 @@ class _FusedIRTrain(torch.autograd.Function):
         # are outside autograd, as stop-gradient in flax.
         (x, d, y_buf, m1, v1, m2, v2, m3, v3, w1, g1, be1, dwk, g2, be2, w2, g3,
          be3) = ctx.saved_tensors
-        stride, has_expand, eps = ctx.conf
+        stride, has_expand, eps, M1, M2 = ctx.conf
         B, H, W, cin = x.shape
         ce, cout = dwk.shape[-1], w2.shape[-1]
-        M1, M2 = B * H * W, B * (H // stride) * (W // stride)
         dt = x.dtype
 
         # BN3 backward (glue, Cout wide).
@@ -933,22 +960,26 @@ class _FusedIRTrain(torch.autograd.Function):
         dout = g_out.float()
         r3a = dout.sum((0, 1, 2))
         r3b = (dout * yn).sum((0, 1, 2))
-        dy = (g3.float() * inv3 * (dout - r3a / M2 - yn * (r3b / M2))).to(dt)
+        r3a_g, r3b_g, _ = _global(r3a, r3b)
+        dy = (g3.float() * inv3 * (dout - r3a_g / M2 - yn * (r3b_g / M2))).to(dt)
 
         inv2 = torch.rsqrt(v2 + eps)
         s2, b2 = fold_bn(g2.float(), be2.float(), m2, v2, eps)
         dv2, dW2, r2a, r2b = proj_bwd(d, dy, s2, b2, m2, inv2, w2)
+        r2a_g, r2b_g, _ = _global(r2a, r2b)
         u2 = g2.float() * inv2
-        p2 = u2 * (r2a / M2)
-        q2 = u2 * (r2b / M2)
+        p2 = u2 * (r2a_g / M2)
+        q2 = u2 * (r2b_g / M2)
 
         if has_expand:
             inv1 = torch.rsqrt(v1 + eps)
             s1, b1 = fold_bn(g1.float(), be1.float(), m1, v1, eps)
             dv1, ddw, r1a, r1b = dw_bwd(x, w1, s1, b1, m1, inv1, dwk, dv2, u2, p2, q2, d, m2,
                                         inv2, stride)
+            r1a_g, r1b_g, _ = _global(r1a, r1b)
             u1 = g1.float() * inv1
-            dx, dW1 = expand_bwd(x, w1, m1, inv1, u1, u1 * (r1a / M1), u1 * (r1b / M1), dv1)
+            dx, dW1 = expand_bwd(x, w1, m1, inv1, u1, u1 * (r1a_g / M1), u1 * (r1b_g / M1),
+                                 dv1)
             dx = dx.to(dt)
             dg1, db1, dW1 = r1b.to(g1.dtype), r1a.to(be1.dtype), dW1.to(w1.dtype)
         else:

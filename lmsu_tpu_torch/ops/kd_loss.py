@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from lmsu_tpu_torch.ops._cuda import (_I, _P, CudaKernel, aligned16, check_cuda_args,
                                       dtype_code, ptr, stream_ptr)
-from lmsu_tpu_torch.ops.losses import kd_logit_kl, weighted_cross_entropy
+from lmsu_tpu_torch.ops.losses import LossTotals, kd_logit_kl, weighted_cross_entropy
 
 KERNEL = CudaKernel("kd_feature_mse.cu", {
     "kd_feature_mse": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -198,15 +198,18 @@ def kd_total_loss_fused(student_logits: torch.Tensor, teacher_logits: torch.Tens
                         temperature: float, alpha_kl: float, beta_feature: float,
                         feature_taps: Sequence[str],
                         projections: Mapping[str, torch.Tensor],
-                        sample_weight: Optional[torch.Tensor] = None
+                        sample_weight: Optional[torch.Tensor] = None,
+                        totals: Optional[LossTotals] = None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Drop-in for ops/losses.py::kd_total_loss with the kernel's feature
     matching (kd_loss_pallas.py:183-228). Per-sample weights fold in
     algebraically: with binary w, sum(w (S - T P)^2) == sum((w S - (w T) P)^2),
     so weighted rows are masked first and the mean is rescaled from all
-    samples to kept samples."""
-    ce = weighted_cross_entropy(student_logits, targets, class_weights, ignore_index)
-    kl = kd_logit_kl(student_logits, teacher_logits, temperature, sample_weight)
+    samples to kept samples. With `totals` (data parallelism) the rescale is
+    from this rank's samples to the global batch's (kept) samples: the
+    kernel's per-sample partials are untouched, only the normaliser moves."""
+    ce = weighted_cross_entropy(student_logits, targets, class_weights, ignore_index, totals)
+    kl = kd_logit_kl(student_logits, teacher_logits, temperature, sample_weight, totals)
     if feature_taps:
         fms = []
         for tap in feature_taps:
@@ -216,12 +219,15 @@ def kd_total_loss_fused(student_logits: torch.Tensor, teacher_logits: torch.Tens
                 # computes in f32 (kd_loss_pallas.py::_mse_partials).
                 s, t = s.float(), t.float()
             if sample_weight is None:
-                fms.append(fused_feature_mse(s, t, projections[tap]))
+                fm = fused_feature_mse(s, t, projections[tap])
+                fms.append(fm if totals is None else fm * (s.shape[0] / totals.samples))
             else:
                 w = sample_weight.to(s.dtype)
                 ws = w.reshape((-1,) + (1,) * (s.dim() - 1))
                 wt = sample_weight.to(t.dtype).reshape((-1,) + (1,) * (t.dim() - 1))
-                scale = (s[..., 0].numel() / sample_weight.float().sum().clamp(min=1e-12)
+                kept = (sample_weight.float().sum() if totals is None
+                        else totals.sample_weight)
+                scale = (s[..., 0].numel() / kept.clamp(min=1e-12)
                          / float(s[0, ..., 0].numel()))
                 fms.append(fused_feature_mse(s * ws, t * wt, projections[tap]) * scale)
         fm = torch.stack(fms).mean()

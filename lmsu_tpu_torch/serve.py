@@ -10,7 +10,7 @@ Usage:
   python -m lmsu_tpu_torch.serve [--checkpoint best.ckpt | --seed 0] \\
       [--device cuda] [--fusion-type {concat,minimal,weighted,gated_sum}] \\
       [--fusion-channels 128] [--bf16] [--freeze-weights] [--batch-size 8] \\
-      [--max-delay-ms 2] [--port 8765]
+      [--max-delay-ms 2] [--port 8765] [--data-parallel N]
 
   # from a Predictor.export() artifact (no model code needed)
   python -m lmsu_tpu_torch.serve --artifact student.pt2 --batch-size 1
@@ -22,7 +22,10 @@ contents (torch's files are zip archives); without it the weights are drawn
 from --seed (for smoke runs). --artifact serves an export_model.py artifact
 on the device it was exported for (--device must name it); its batch size,
 point count, image size and --no-point-valid must be the ones it was
-exported with.
+exported with. --data-parallel N serves one replica of the model on each of
+the first N CUDA devices (cuda:0 .. cuda:N-1; with --device cpu, N replicas
+on the CPU), each batch split evenly over them: the batch size (every rung
+of --batch-sizes) must divide by N.
 
 Client example (npz transport):
   import io, urllib.request, numpy as np
@@ -74,6 +77,9 @@ def build_engine(args):
     from lmsu_tpu_torch.inference import resolve_device
     from lmsu_tpu_torch.serving import ServingEngine
     if args.artifact:
+        if args.data_parallel:
+            sys.exit("ERROR: --data-parallel serves a model (--checkpoint or --seed), "
+                     "not an --artifact, which runs on the one device it was exported for")
         if not os.path.exists(args.artifact):
             sys.exit(f"ERROR: artifact {args.artifact!r} not found")
         return ServingEngine.from_exported(
@@ -82,10 +88,20 @@ def build_engine(args):
             max_delay_ms=args.max_delay_ms, max_queue=args.max_queue,
             batch_sizes=args.batch_sizes, device=resolve_device(args.device))
     pred = load_predictor(args, build_config(args))
+    devices = None
+    if args.data_parallel:
+        if resolve_device(args.device).type == "cpu":
+            devices = ["cpu"] * args.data_parallel
+        else:
+            n = torch.cuda.device_count()
+            if n < args.data_parallel:
+                sys.exit(f"ERROR: --data-parallel {args.data_parallel} but only "
+                         f"{n} devices visible")
+            devices = [torch.device("cuda", i) for i in range(args.data_parallel)]
     return ServingEngine.from_predictor(
         pred, batch_size=args.batch_size, batch_sizes=args.batch_sizes,
         image_size=tuple(args.image_size), num_points=args.num_points,
-        max_delay_ms=args.max_delay_ms, max_queue=args.max_queue)
+        max_delay_ms=args.max_delay_ms, max_queue=args.max_queue, devices=devices)
 
 
 def parse_args(argv=None):
@@ -122,6 +138,9 @@ def parse_args(argv=None):
     p.add_argument("--num-points", type=int, default=5000)
     p.add_argument("--no-point-valid", action="store_true",
                    help="artifact was exported without the mask input")
+    p.add_argument("--data-parallel", type=int, default=None, metavar="N",
+                   help="serve data-parallel over the first N devices: one replica a "
+                   "device, each batch split evenly (the batch size must divide by N)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8765)
     p.add_argument("--verbose", action="store_true", help="per-request access log")

@@ -22,12 +22,14 @@ Counterpart of lmsu_tpu/serving/engine.py, with the same design:
 
 Backends: any callable `(images, points, point_valid) -> logits` returning a
 torch tensor (on any device) or an array; `from_predictor` wraps the port's
-Predictor (frozen or not, float or int8), `from_exported` a
-Predictor.export() artifact. Not ported yet: mesh (data-parallel) serving.
+Predictor (frozen or not, float or int8), on its device or data-parallel
+over several (`devices`: a replica a device, each batch split evenly and
+the logits gathered), `from_exported` a Predictor.export() artifact.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -36,6 +38,11 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+
+
+def _on(device: torch.device):
+    """The device's CUDA context for launches (a no-op elsewhere)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 class EngineOverloaded(RuntimeError):
@@ -162,28 +169,63 @@ class ServingEngine:
 
     @classmethod
     def from_predictor(cls, predictor, *, batch_size: Optional[int] = None,
-                       max_delay_ms: float = 2.0, **kw) -> "ServingEngine":
-        """Serve a lmsu_tpu_torch.inference.Predictor on its device.
+                       max_delay_ms: float = 2.0, devices: Optional[Sequence] = None,
+                       **kw) -> "ServingEngine":
+        """Serve a lmsu_tpu_torch.inference.Predictor on its device, or
+        data-parallel over `devices` (the JAX package's mesh serving).
 
         The engine bypasses Predictor.__call__'s per-call host sort and
         instead applies the same sorter per-sample on client threads.
 
+        devices: one replica of the model on each (Predictor.replica); every
+        batch is split evenly over them, each chunk launched on its device
+        (CUDA launches do not wait, so the devices overlap), and the logits
+        gathered on the first. Each batch size must divide by the device
+        count, and batches must carry point_valid, as in the JAX package.
+
         Unless the Predictor is frozen (freeze_weights=True), the returned
         engine supports swap_variables(state_dict): the new weights are
-        copied into the live model under a lock that the dispatcher also
-        holds while it enqueues a forward, so every batch sees one
-        consistent set (the copy is queued on the same stream as the
-        forwards, so ordering holds on the device too).
+        copied into the live model (every replica's) under a lock that the
+        dispatcher also holds while it enqueues a forward, so every batch
+        sees one consistent set (the copy is queued on the same stream as
+        the forwards, so ordering holds on the device too).
         """
         lock = threading.Lock()
+        if devices is None:
+            replicas = [predictor]
 
-        def forward(images, points, point_valid):
-            with lock:
-                return predictor.forward_batch(images, points, point_valid)
+            def forward(images, points, point_valid):
+                with lock:
+                    return predictor.forward_batch(images, points, point_valid)
+        else:
+            n_dev = len(devices)
+            if n_dev < 1:
+                raise ValueError("devices must name at least one device")
+            for b in (kw.get("batch_sizes") or [batch_size]):
+                if b is None or b % n_dev:
+                    raise ValueError(f"batch size {b} must be divisible by the "
+                                     f"mesh device count {n_dev}")
+            replicas = [predictor.replica(d) for d in devices]
+
+            def forward(images, points, point_valid):
+                if point_valid is None:
+                    raise ValueError("mesh serving requires point_valid batches "
+                                     "(passes_point_valid=True)")
+                L = len(images) // n_dev
+                outs = []
+                with lock:
+                    for i, rep in enumerate(replicas):
+                        rows = slice(i * L, (i + 1) * L)
+                        with _on(rep.device):
+                            outs.append(rep.forward_batch(images[rows], points[rows],
+                                                          point_valid[rows]))
+                first = replicas[0].device
+                return torch.cat([o.to(first, non_blocking=True) for o in outs])
 
         def swap(state_dict):
             with lock, torch.no_grad():
-                predictor.model.load_state_dict(state_dict, strict=True)
+                for rep in replicas:
+                    rep.model.load_state_dict(state_dict, strict=True)
 
         eng = cls(forward, batch_size=batch_size, max_delay_ms=max_delay_ms,
                   sorter=predictor._sorter, **kw)

@@ -21,6 +21,7 @@ Usage:
       [--lidar-encoder {spatial,pointpillars}] [--teacher-lidar-encoder ...] \\
       [--augment] [--aug-hflip P] [--aug-*] \\
       [--scan-steps K] [--onchip-epoch] [--onchip-eval] [--progress] \\
+      [--teacher-partition fsdp] [--model-parallel 1] \\
       [--snapshot-every N] [--handle-sigterm] [--async-checkpoint] \\
       [--save-dir checkpoints/distill_student] [--resume]
 
@@ -46,6 +47,11 @@ spills to host memory above --cache-hbm-gb GiB. Augmentation (--augment,
 --aug-*) covers both phases; with the cache it is noisy-student KD, and the
 flip is refused. Checkpoints are torch files (latest.pth, best.pth) in
 --save-dir beside training_history.json.
+
+Data parallelism: torchrun --nproc-per-node N -m lmsu_tpu_torch.train_distill
+... runs one rank a device (training/trainer.py); --batch-size is the global
+batch, and --teacher-partition fsdp shards the frozen teacher's storage over
+the ranks.
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ import argparse
 import dataclasses
 
 from lmsu_tpu_torch.common import (add_common_args, apply_overrides, build_loaders,
-                                   maybe_resume)
+                                   maybe_resume, setup_mesh)
 from lmsu_tpu_torch.config import (ExperimentConfig, KDConfig, ModelConfig, TrainConfig,
                                    teacher_config)
 
@@ -72,6 +78,13 @@ def build_configs(args):
         kd = dataclasses.replace(kd, cache_hbm_limit_bytes=int(args.cache_hbm_gb * (1 << 30)))
     if args.cache_dtype is not None:
         kd = dataclasses.replace(kd, cache_dtype=args.cache_dtype)
+    if args.teacher_partition is not None:
+        if args.teacher_partition in ("tp", "sp") and (args.model_parallel or 1) <= 1:
+            raise SystemExit(
+                f"--teacher-partition {args.teacher_partition} needs --model-parallel > 1 "
+                f"(it shards over the 'model' mesh axis); use 'fsdp' to shard over the data "
+                f"axis instead.")
+        kd = dataclasses.replace(kd, teacher_partition=args.teacher_partition)
     cfg = ExperimentConfig(
         model=ModelConfig(num_classes=2, fusion_type="weighted", fusion_out_channels=128,
                           use_pallas_fusion=args.use_pallas_fusion),
@@ -121,6 +134,11 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache-dtype", default=None, choices=["auto", "bfloat16"],
                    help="teacher-cache storage dtype (KDConfig.cache_dtype); bfloat16 "
                    "halves it")
+    p.add_argument("--teacher-partition", default=None, choices=["tp", "sp", "fsdp"],
+                   help="how the teacher shards over the mesh: 'tp' / 'sp' over a 'model' "
+                   "axis (need --model-parallel > 1, not ported); 'fsdp' storage-shards "
+                   "the frozen teacher over the data-parallel ranks "
+                   "(KDConfig.teacher_partition)")
     p.add_argument("--cache-hbm-gb", type=float, default=None,
                    help="device-memory budget of the teacher cache in GiB "
                    "(KDConfig.cache_hbm_limit_bytes, default 4); a larger cache "
@@ -135,6 +153,7 @@ def main(argv=None) -> float:
     resolve_device(args.device)
     pin_f32_precision()
     cfg, tcfg_model = build_configs(args)
+    setup_mesh(args, cfg)
 
     teacher_sd = None
     if args.train_teacher:

@@ -27,7 +27,7 @@ import argparse
 import dataclasses
 import json
 
-from lmsu_tpu_torch.common import add_common_args, apply_overrides, build_loaders
+from lmsu_tpu_torch.common import add_common_args, apply_overrides, build_loaders, setup_mesh
 from lmsu_tpu_torch.config import KDConfig, preset_fusion_ablation
 from lmsu_tpu_torch.models import get_architecture_summary
 
@@ -78,6 +78,7 @@ def main(argv=None) -> dict:
     args = make_parser().parse_args(argv)
     resolve_device(args.device)
     pin_f32_precision()
+    mesh = setup_mesh(args)
 
     results = {ft: train_variant(ft, args) for ft in args.variants}
     print("\n=== Fusion ablation results ===")
@@ -86,9 +87,10 @@ def main(argv=None) -> dict:
         print(f"{ft:>10s} {r['miou']:8.4f} {r['total_params']:>10s}")
     best = max(results, key=lambda k: results[k]["miou"])
     print(f"Best fusion: {best} (mIoU {results[best]['miou']:.4f})")
-    with open(args.output, "w") as f:
-        json.dump(results, f, indent=2)
-    print(f"Wrote {args.output}")
+    if mesh is None or mesh.rank == 0:
+        with open(args.output, "w") as f:
+            json.dump(results, f, indent=2)
+        print(f"Wrote {args.output}")
     return results
 
 

@@ -24,7 +24,7 @@ from __future__ import annotations
 import argparse
 
 from lmsu_tpu_torch.common import (add_common_args, apply_overrides, build_loaders,
-                                   maybe_resume)
+                                   maybe_resume, setup_mesh)
 from lmsu_tpu_torch.config import ExperimentConfig, preset_pandaset_weighted
 from lmsu_tpu_torch.models import get_architecture_summary
 
@@ -60,6 +60,7 @@ def main(argv=None) -> float:
     resolve_device(args.device)
     pin_f32_precision()
     cfg = build_config(args, parser)
+    setup_mesh(args, cfg)
     train_loader, val_loader = build_loaders(cfg)
     trainer = Trainer(cfg, train_loader, val_loader, device=args.device)
     print("Model architecture:")

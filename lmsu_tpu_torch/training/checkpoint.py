@@ -156,12 +156,15 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 class HistoryWriter:
     """training_history.json with the reference schema (trainer.py:67-74,
     144-152): lists under train_loss / train_miou / val_loss / val_miou /
-    lr, the file rewritten whole each epoch."""
+    lr, the file rewritten whole each epoch. With write=False (a data-parallel
+    rank other than 0) it keeps the history in memory and writes nothing."""
 
     KEYS = ("train_loss", "train_miou", "val_loss", "val_miou", "lr")
 
-    def __init__(self, save_dir: str):
-        os.makedirs(save_dir, exist_ok=True)
+    def __init__(self, save_dir: str, write: bool = True):
+        self.write = write
+        if write:
+            os.makedirs(save_dir, exist_ok=True)
         self.path = os.path.join(save_dir, "training_history.json")
         self.history = {k: [] for k in self.KEYS}
 
@@ -169,6 +172,8 @@ class HistoryWriter:
                val_miou: float, lr: float) -> None:
         for k, v in zip(self.KEYS, (train_loss, train_miou, val_loss, val_miou, lr)):
             self.history[k].append(float(v))
+        if not self.write:
+            return
         with open(self.path, "w") as f:
             json.dump(self.history, f, indent=2)
 

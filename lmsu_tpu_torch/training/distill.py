@@ -41,8 +41,17 @@ host-spilled cache gathers a chunk's rows on the host before its copy;
 the on-device epoch takes the in-loop teacher or the device cache (with
 onchip_contiguous the cache is permuted with the set, once an epoch, and
 each step gets its rows pre-gathered); the spilled cache cannot ride it
-(NotImplementedError). Refused by name: teacher partitioning over devices
-("sp", "fsdp").
+(NotImplementedError).
+
+Data parallelism (training/trainer.py, parallel/mesh.py): the teacher is
+replicated (KDConfig.teacher_partition "tp", which on the 1-D mesh has no
+model axis to shard over, as in the JAX package) or storage-sharded over
+the ranks ("fsdp", parallel/tp.py: each rank keeps a slice of every frozen
+leaf and a module's leaves are all-gathered for its forward); "sp" needs a
+model axis and raises the JAX package's ValueError. The teacher cache takes
+the host-memory path at world size > 1, as in the JAX package: each rank
+fills its stripe and an all-gather a batch writes every rank's rows, so
+the cache is whole on every rank and any later shuffle finds its rows.
 """
 
 from __future__ import annotations
@@ -59,6 +68,8 @@ from lmsu_tpu_torch.models.factory import check_kernel_shapes
 from lmsu_tpu_torch.ops.kd_loss import check_kd_feature_mse, kd_total_loss_fused
 from lmsu_tpu_torch.ops.losses import kd_total_loss
 from lmsu_tpu_torch.ops.metrics import confusion_matrix
+from lmsu_tpu_torch.parallel.mesh import Mesh, all_gather, broadcast_module_
+from lmsu_tpu_torch.parallel.tp import shard_teacher_fsdp
 from lmsu_tpu_torch.training.trainer import Trainer
 
 
@@ -85,10 +96,14 @@ def channels_last(taps: Mapping[str, torch.Tensor], names) -> Dict[str, torch.Te
 
 def check_kd_config(kd) -> None:
     if kd.teacher_partition not in ("tp", "sp", "fsdp"):
-        raise ValueError(f"unknown KDConfig.teacher_partition {kd.teacher_partition!r}")
-    if kd.teacher_partition in ("sp", "fsdp"):
-        raise NotImplementedError(f"not ported yet: KDConfig.teacher_partition="
-                                  f"{kd.teacher_partition!r} (teacher partitioning)")
+        raise ValueError(f"unknown KDConfig.teacher_partition {kd.teacher_partition!r}; "
+                         "expected 'tp', 'sp' or 'fsdp'")
+    if kd.teacher_partition == "sp":
+        # The port's mesh is 1-D (MeshConfig.model_parallel > 1 is refused).
+        raise ValueError(
+            "teacher_partition='sp' needs a model axis (MeshConfig.model_parallel > 1); on "
+            "this 1-D mesh it would silently replicate the teacher. Use --model-parallel N, "
+            "or 'fsdp' to shard over the data axis.")
     if kd.cache_dtype not in ("auto", "bfloat16"):
         raise ValueError(f"KDConfig.cache_dtype must be 'auto' or 'bfloat16', "
                          f"got {kd.cache_dtype!r}")
@@ -140,13 +155,15 @@ class DistillationTrainer(Trainer):
 
     `teacher_state_dict` is one state dict, or a list of them for an
     ensemble (its length is then the member count). The default
-    teacher_partition "tp" means, on one device as in the JAX package's 1-D
-    mesh, a replicated (whole) teacher."""
+    teacher_partition "tp" means, on the 1-D mesh as in the JAX package, a
+    replicated (whole) teacher; "fsdp" shards its storage over the mesh's
+    ranks (`teacher_shards` then holds the per-rank bytes)."""
 
     def __init__(self, config: ExperimentConfig, train_loader, val_loader, *,
                  teacher_state_dict: Union[None, Mapping[str, torch.Tensor],
                                            Sequence[Mapping[str, torch.Tensor]]] = None,
-                 teacher_model_config: Optional[ModelConfig] = None, device="cuda"):
+                 teacher_model_config: Optional[ModelConfig] = None, device="cuda",
+                 mesh: Optional[Mesh] = None):
         self.kd = config.train.kd
         check_kd_config(self.kd)
         self.teacher_config = teacher_model_config or teacher_config(
@@ -164,7 +181,8 @@ class DistillationTrainer(Trainer):
         self.loss_impl = kd_total_loss_fused if self.kd.use_pallas else kd_total_loss
         self.teacher_cache: Optional[Dict[str, torch.Tensor]] = None       # on the device
         self.teacher_cache_host: Optional[Dict[str, torch.Tensor]] = None  # spilled
-        super().__init__(config, train_loader, val_loader, device=device)
+        self.teacher_shards = None  # parallel/tp.py::FsdpShards under "fsdp"
+        super().__init__(config, train_loader, val_loader, device=device, mesh=mesh)
 
     def _teacher_states(self) -> Optional[List[Mapping[str, torch.Tensor]]]:
         """The members' weights, in member order; None for random members."""
@@ -191,6 +209,13 @@ class DistillationTrainer(Trainer):
         self.teacher.to(self.device).eval().requires_grad_(False)
         check_kernel_shapes(self.teacher, self.device, train=False)
         self._teacher_sd = None
+        broadcast_module_(self.teacher, mesh=self.mesh)
+        if self.kd.teacher_partition == "fsdp":
+            self.teacher_shards = shard_teacher_fsdp(self.teacher, self.mesh)
+            if self.rank == 0 and self.world > 1:
+                sh = self.teacher_shards
+                print(f"fsdp teacher: {sh.bytes_per_rank / 1e6:.3f} MB a rank of "
+                      f"{sh.bytes_full / 1e6:.3f} MB ({self.world} ranks)", flush=True)
         s_ch, t_ch = tap_channels(self.config.model), tap_channels(self.teacher_config)
         if self.kd.use_pallas and self.device.type == "cuda":
             for tap in self.kd.feature_taps:
@@ -239,14 +264,28 @@ class DistillationTrainer(Trainer):
             b = self._to_device(batch)
             logits, taps = self.teacher_forward(b)
             rows = {"logits": logits, **taps}
+            real = b["sample_mask"] if "sample_mask" in b else \
+                torch.ones_like(b["sample_index"], dtype=torch.bool)
+            idx = b["sample_index"]
+            if self.world > 1:
+                # Every rank's rows of this global batch, on every rank.
+                rows = {k: all_gather(v, self.mesh) for k, v in rows.items()}
+                idx = all_gather(idx.long(), self.mesh)
+                real = all_gather(real.to(torch.uint8), self.mesh).bool()
             if cache is None:
                 per_sample = sum(v[0].numel() for v in rows.values()) * dt.itemsize
                 total = per_sample * n
-                on_device = total <= self.kd.cache_hbm_limit_bytes
+                # The device cache is process-local: data parallelism always
+                # takes the host path (every rank holds the whole cache).
+                on_device = total <= self.kd.cache_hbm_limit_bytes and self.world == 1
                 where = self.device if on_device else torch.device("cpu")
                 if on_device:
                     print(f"teacher cache: {total / 1e9:.2f} GB on the device "
                           f"({n} samples x {per_sample / 1e6:.2f} MB)")
+                elif self.world > 1:
+                    print(f"teacher cache: {total / 1e9:.2f} GB in host RAM on each of "
+                          f"{self.world} ranks (data parallelism; {n} samples x "
+                          f"{per_sample / 1e6:.2f} MB)")
                 else:
                     print(f"teacher cache: {total / 1e9:.2f} GB > HBM limit "
                           f"{self.kd.cache_hbm_limit_bytes / 1e9:.2f} GB — "
@@ -256,9 +295,7 @@ class DistillationTrainer(Trainer):
                          for k, v in rows.items()}
             # The padding rows of a final partial batch repeat a real sample:
             # only the real rows are written.
-            real = b["sample_mask"] if "sample_mask" in b else \
-                torch.ones_like(b["sample_index"], dtype=torch.bool)
-            idx = b["sample_index"][real]
+            idx = idx[real]
             for k, v in rows.items():
                 dst = cache[k]
                 dst.index_copy_(0, idx.to(dst.device), v[real].to(dst.device, dt))
@@ -355,6 +392,7 @@ class DistillationTrainer(Trainer):
                                     or self.teacher_cache_host is not None):
             teacher_out = self.gather_teacher(batch, b)
         b = self._augmented(b)
+        totals = self._loss_totals(b, b.get("sample_mask"))
         t_logits, t_taps = teacher_out if teacher_out is not None else self.teacher_forward(b)
         self.model.train()
         s_logits, s_taps = self.model(b["image"], b["points"], b.get("point_valid"),
@@ -365,7 +403,7 @@ class DistillationTrainer(Trainer):
             class_weights=self.class_weights, ignore_index=tc.ignore_index,
             temperature=kd.temperature, alpha_kl=kd.alpha_kl, beta_feature=kd.beta_feature,
             feature_taps=kd.feature_taps, projections=dict(self.proj.items()),
-            sample_weight=b.get("sample_mask"))
+            sample_weight=b.get("sample_mask"), totals=totals)
         cm = confusion_matrix(s_logits.detach(), b["segmentation"], tc.metrics_num_classes,
                               tc.ignore_index)
         self._apply_update(loss)

@@ -38,8 +38,20 @@ The loops (the JAX package's trainer.py:348-620):
 Run control (trainer.py:625-748): async_checkpoint (checkpoint.py::
 AsyncCheckpointer), snapshot_every (epoch_###.pth), handle_sigterm and
 request_preempt (stop after the current epoch, its checkpoint written and
-flushed), debug_nans and progress (training/monitor.py). Refused by name:
-data/model parallelism (MeshConfig).
+flushed), debug_nans and progress (training/monitor.py).
+
+Data parallelism (`mesh`, parallel/mesh.py; one process a device): each
+rank's loader yields its stripe of every global batch; BatchNorm and the
+fused blocks reduce their statistics over the mesh, the loss normalisers
+are the global batch's (one all-reduce of three totals a step), and one
+flat all-reduce sums the gradients (the projections' too) before clipping
+and AdamW, so every rank takes the same update. Augmentation draws for the
+global batch and keeps its own rows. The epoch's loss sums and confusion
+matrix are reduced once at its end. Rank 0 alone writes checkpoints and
+training_history.json; every rank restores the same file. A SIGTERM stop
+is agreed by a max-reduce of the flag at the epoch's end. The on-device
+epoch and validation are single-process, as in the JAX package. Refused by
+name: MeshConfig.model_parallel > 1 (the tp / sp teacher on a 2-D mesh).
 """
 
 from __future__ import annotations
@@ -60,8 +72,10 @@ from lmsu_tpu_torch.inference import resolve_device
 from lmsu_tpu_torch.models import create_model
 from lmsu_tpu_torch.models.factory import check_kernel_shapes
 from lmsu_tpu_torch.ops import augment
-from lmsu_tpu_torch.ops.losses import weighted_cross_entropy
+from lmsu_tpu_torch.ops.losses import LossTotals, global_loss_totals, weighted_cross_entropy
 from lmsu_tpu_torch.ops.metrics import confusion_matrix, iou_from_confusion
+from lmsu_tpu_torch.parallel.mesh import (Mesh, all_reduce_, broadcast_, check_mesh_config,
+                                          data_mesh)
 from lmsu_tpu_torch.training import checkpoint as ckpt
 from lmsu_tpu_torch.training.monitor import NanGuard, ProgressBar
 from lmsu_tpu_torch.training.schedule import cosine_epoch_schedule, lr_at_epoch
@@ -71,11 +85,11 @@ _BATCH_DTYPES = {"points": np.float32, "segmentation": np.int64, "point_valid": 
                  "sample_mask": np.bool_, "sample_index": np.int64}
 
 
-def check_train_config(config: ExperimentConfig) -> None:
+def check_train_config(config: ExperimentConfig, world_size: int = 1) -> None:
     """Raise NotImplementedError naming each training option the port does
-    not have yet: data/model parallelism."""
-    if config.mesh.model_parallel != 1 or config.mesh.num_devices not in (None, 1):
-        raise NotImplementedError("not ported yet: MeshConfig (data/model parallelism)")
+    not have yet (MeshConfig.model_parallel > 1), ValueError for a
+    MeshConfig.num_devices other than the world size."""
+    check_mesh_config(config.mesh, world_size)
 
 
 def to_device_packed(arrays: Dict[str, np.ndarray], device: torch.device
@@ -106,10 +120,12 @@ def to_device_packed(arrays: Dict[str, np.ndarray], device: torch.device
 
 class _EpochSums:
     """Loss and confusion-matrix sums of an epoch, on the device, in step
-    order; read once."""
+    order; read once. Under data parallelism each rank holds its shares,
+    summed over the mesh once, in finish()."""
 
-    def __init__(self):
+    def __init__(self, mesh: Optional[Mesh] = None):
         self.total, self.cm, self.n = None, None, 0
+        self.mesh = mesh
 
     def add(self, loss: torch.Tensor, cm: torch.Tensor) -> None:
         self.total = loss.float() if self.total is None else self.total + loss.float()
@@ -120,6 +136,9 @@ class _EpochSums:
         return float(self.total) / self.n if self.n else 0.0
 
     def finish(self, num_classes: int) -> Tuple[float, Dict]:
+        if self.mesh is not None and self.mesh.world_size > 1 and self.n:
+            self.total = all_reduce_(self.total.clone(), mesh=self.mesh)
+            self.cm = all_reduce_(self.cm.clone(), mesh=self.mesh)
         cm = (self.cm.cpu().numpy() if self.cm is not None
               else np.zeros((num_classes, num_classes), np.int64))
         return self.mean_loss(), iou_from_confusion(cm)
@@ -164,14 +183,22 @@ class Trainer:
     Loaders yield batches of numpy arrays (data/pipeline.py): image uint8
     [B, H, W, 3], points [B, N, 4], segmentation [B, h, w], and optionally
     point_valid, sample_mask and sample_index. Runs on CUDA unless
-    `device="cpu"` is asked for."""
+    `device="cpu"` is asked for. `mesh` (parallel/mesh.py::make_mesh;
+    default: the active mesh when it spans more than one rank) runs on the
+    mesh's device, data-parallel when it has more than one rank, each loader
+    yielding this rank's stripe; a mesh of more than one rank must be the
+    active one, and with none or one rank no other may be active."""
 
     def __init__(self, config: ExperimentConfig, train_loader, val_loader, *,
-                 device="cuda", model=None):
-        check_train_config(config)
+                 device="cuda", model=None, mesh: Optional[Mesh] = None):
+        self.mesh = mesh if mesh is not None else data_mesh()
+        self.world = self.mesh.world_size if self.mesh is not None else 1
+        self.rank = self.mesh.rank if self.mesh is not None else 0
+        self._check_mesh()
+        check_train_config(config, self.world)
         augment.check_augment_compat(config.train.augment, config.model.lidar.scatter_impl,
                                      cache_teacher=config.train.kd.cache_teacher)
-        self.device = resolve_device(device)
+        self.device = resolve_device(self.mesh.device if self.mesh is not None else device)
         self.config = config
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -187,6 +214,8 @@ class Trainer:
         self.params = OrderedDict(
             [(f"model.{n}", p) for n, p in self.model.named_parameters()]
             + [(n, p) for n, p in extra.items()])
+        # Rank 0's weights everywhere (the JAX package's replicate).
+        broadcast_(list(self.params.values()) + list(self.model.buffers()), mesh=self.mesh)
         self.optimizer, self.schedule = make_optimizer(tc, self.params.values(),
                                                        self.steps_per_epoch)
         self.step = 0
@@ -196,7 +225,7 @@ class Trainer:
         self.last_host_stall_frac = 0.0
         self.last_loss_parts_raw: Dict[str, torch.Tensor] = {}
         self.save_dir = tc.save_dir
-        self.history = ckpt.HistoryWriter(self.save_dir)
+        self.history = ckpt.HistoryWriter(self.save_dir, write=self.rank == 0)
         self._epoch_index = 0
         self._preempt_requested = False
         self._async_ckpt: Optional[ckpt.AsyncCheckpointer] = None
@@ -216,7 +245,10 @@ class Trainer:
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         """A batch (numpy arrays, or tensors on any device) on the device in
-        the trainer's dtypes; tensors already there are not copied."""
+        the trainer's dtypes; tensors already there are not copied. Every
+        step starts here, so the mesh is checked here too (_check_mesh)."""
+        self._check_mesh()
+
         def t(a, dtype=None):
             a = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
             return a.to(self.device, dtype=dtype)
@@ -233,15 +265,49 @@ class Trainer:
 
     def _augmented(self, b: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """TrainConfig.augment applied to a batch on the device (identity
-        when off), with the draws of the current step."""
+        when off), with the draws of the current step. Under data
+        parallelism the draws are made for the global batch and each rank
+        keeps its stripe's rows, so they do not depend on the world size."""
         aug = self.config.train.augment
         if not aug.enabled:
             return b
         gen = augment.step_generator(self.config.train.seed, aug.seed_offset, self.step,
                                      self.device)
-        return augment.apply_augment(b, augment.draw_augment(gen, aug, b), aug,
-                                     pc_range=self.config.data.pc_range,
+        L = b["points"].shape[0]
+        shapes = {k: b[k][:1].expand(L * self.world, *b[k].shape[1:])
+                  for k in ("image", "points")}
+        draws = {k: None if v is None else v[self.rank * L:(self.rank + 1) * L]
+                 for k, v in augment.draw_augment(gen, aug, shapes).items()}
+        return augment.apply_augment(b, draws, aug, pc_range=self.config.data.pc_range,
                                      ignore_index=self.config.train.ignore_index)
+
+    def _check_mesh(self) -> None:
+        """BatchNorm, the fused blocks and the loaders reduce over the active
+        mesh, the trainer over its own: they must be one (at one rank, no
+        other may be active)."""
+        if (self.mesh if self.world > 1 else None) is not data_mesh():
+            raise ValueError("Trainer: its mesh must be the active one (the last made by "
+                             "parallel/mesh.py::make_mesh, not destroyed), or None with no "
+                             "mesh of more than one rank active")
+
+    def _loss_totals(self, b: Dict[str, torch.Tensor],
+                     sample_weight: Optional[torch.Tensor] = None) -> Optional[LossTotals]:
+        """The global batch's loss normalisers (None on one device)."""
+        if self.world == 1:
+            return None
+        return global_loss_totals(b["segmentation"], self.class_weights,
+                                  self.config.train.ignore_index, sample_weight, self.mesh)
+
+    def _reduce_grads(self) -> None:
+        """Sum the gradients over the mesh: one flat all-reduce (per dtype)."""
+        if self.world == 1:
+            return
+        grads = [p.grad for p in self.params.values()]
+        for dtype in dict.fromkeys(g.dtype for g in grads):
+            gs = [g for g in grads if g.dtype == dtype]
+            flat = all_reduce_(torch.cat([g.reshape(-1) for g in gs]), mesh=self.mesh)
+            for g, f in zip(gs, flat.split([g.numel() for g in gs])):
+                g.copy_(f.view_as(g))
 
     def _apply_update(self, loss: torch.Tensor) -> None:
         """Backward, optional clipping, AdamW at schedule(step), EMA."""
@@ -253,6 +319,7 @@ class Trainer:
         for p in self.params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        self._reduce_grads()
         tc = self.config.train
         if tc.grad_clip_norm is not None:
             clip_by_global_norm([p.grad for p in self.params.values()], tc.grad_clip_norm)
@@ -269,7 +336,7 @@ class Trainer:
         self.model.train()
         logits = self.model(b["image"], b["points"], b.get("point_valid"))
         loss = weighted_cross_entropy(logits, b["segmentation"], self.class_weights,
-                                      tc.ignore_index)
+                                      tc.ignore_index, self._loss_totals(b))
         cm = confusion_matrix(logits.detach(), b["segmentation"], tc.metrics_num_classes,
                               tc.ignore_index)
         self._apply_update(loss)
@@ -291,7 +358,7 @@ class Trainer:
             state.update(self.model.named_buffers())
             logits = torch.func.functional_call(self.model, state, args)
         loss = weighted_cross_entropy(logits, b["segmentation"], self.class_weights,
-                                      tc.ignore_index)
+                                      tc.ignore_index, self._loss_totals(b))
         cm = confusion_matrix(logits, b["segmentation"], tc.metrics_num_classes,
                               tc.ignore_index)
         return loss, cm
@@ -300,7 +367,9 @@ class Trainer:
 
     @property
     def last_loss_parts(self) -> Dict[str, float]:
-        """Loss components of the most recent KD train step, as floats."""
+        """Loss components of the most recent KD train step, as floats (under
+        data parallelism this rank's shares: they sum over the ranks to the
+        global batch's components)."""
         return {k: float(v) for k, v in self.last_loss_parts_raw.items()}
 
     def _step(self, batch, train: bool, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -326,7 +395,7 @@ class Trainer:
         K = tc.scan_steps
         bar = ProgressBar(len(loader) if hasattr(loader, "__len__") else None,
                           "Training" if train else "Validation", tc.progress)
-        sums, pending = _EpochSums(), []
+        sums, pending = _EpochSums(self.mesh), []
         waited, t0 = 0.0, time.perf_counter()
         it = iter(loader)
         try:
@@ -381,6 +450,12 @@ class Trainer:
         permuted once. No host batch, no per-step copy."""
         if not hasattr(self.train_loader, "batcher"):
             raise ValueError("onchip_epoch needs a Batcher-based loader")
+        if self.world > 1:
+            raise NotImplementedError(
+                "onchip_epoch is single-process: the epoch scan gathers from one "
+                "HBM-resident copy of the whole dataset, which multi-host shard_batch would "
+                "replicate per process. Use the host loader path under multi-host data "
+                "parallelism.")
         tc = self.config.train
         batcher = self.train_loader.batcher
         B = batcher.batch_size  # the loader's, as len(train_loader) sets the schedule
@@ -436,12 +511,13 @@ class Trainer:
 
     def validate(self) -> Tuple[float, Dict]:
         want = self.config.train.onchip_eval
-        supported = hasattr(self.val_loader, "batcher")
+        supported = hasattr(self.val_loader, "batcher") and self.world == 1
         if want is None:  # follow onchip_epoch where the loader allows it
             want = self.config.train.onchip_epoch and supported
         elif want and not supported:
-            raise ValueError("onchip_eval=True needs a Batcher-based val loader; set "
-                             "onchip_eval=None for automatic fallback to the host path.")
+            raise ValueError("onchip_eval=True needs a Batcher-based val loader and a single "
+                             "process; set onchip_eval=None for automatic fallback to the "
+                             "host path.")
         if want:
             return self._run_val_onchip()
         return self._run_epoch(self.val_loader, train=False)
@@ -466,6 +542,10 @@ class Trainer:
 
     def save_checkpoint(self, epoch: int, val_miou: float, is_best: bool = False,
                         snapshot: Optional[str] = None) -> None:
+        """Write latest (and best, and the snapshot); rank 0 alone under
+        data parallelism, the weights being equal on every rank."""
+        if self.rank != 0:
+            return
         if self.config.train.async_checkpoint:
             if self._async_ckpt is None:
                 self._async_ckpt = ckpt.AsyncCheckpointer()
@@ -504,6 +584,16 @@ class Trainer:
         epoch recorded and its checkpoint written and flushed; resume from
         latest.pth. Safe from any thread or a signal handler."""
         self._preempt_requested = True
+
+    def _stop_agreed(self) -> bool:
+        """Whether to stop after this epoch: under data parallelism a
+        max-reduce of every rank's flag, so all ranks stop together and none
+        waits in a collective that the others never reach."""
+        if self.world == 1:
+            return self._preempt_requested
+        flag = torch.tensor([float(self._preempt_requested)], device=self.device)
+        self._preempt_requested = bool(all_reduce_(flag, "max", mesh=self.mesh).item())
+        return self._preempt_requested
 
     # -- main loop (reference: trainer.py:154-194) -------------------------------
 
@@ -545,7 +635,7 @@ class Trainer:
                 snap = (ckpt.snapshot_name(epoch) if tc.snapshot_every
                         and (epoch + 1) % tc.snapshot_every == 0 else None)
                 self.save_checkpoint(epoch, val_miou, is_best=is_best, snapshot=snap)
-                if self._preempt_requested:
+                if self._stop_agreed():
                     break
         finally:
             # Restore the handler and drain pending writes, also on an error.

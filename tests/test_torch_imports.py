@@ -55,6 +55,26 @@ def test_package_imports_with_jax_blocked():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
 
 
+def test_parallel_modules_are_checked_and_refuse_a_missing_gpu(monkeypatch):
+    """parallel/* and run_multiprocess.py are among the sources checked
+    above (and imported with JAX blocked); a rank that asks for CUDA
+    without it raises instead of dropping to the CPU, as does the
+    multi-process run, whose ranks run on CUDA unless --device cpu says."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"lmsu_tpu_torch/parallel/__init__.py", "lmsu_tpu_torch/parallel/mesh.py",
+            "lmsu_tpu_torch/parallel/tp.py", "lmsu_tpu_torch/run_multiprocess.py"} <= names
+    from lmsu_tpu_torch import run_multiprocess
+    from lmsu_tpu_torch.parallel import mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_multiprocess.main(["--device", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_multiprocess.main([])
+    assert mesh.active() is None
+
+
 def _tiny_config():
     from lmsu_tpu_torch.config import (CameraEncoderConfig, LidarEncoderConfig,
                                        ModelConfig)

@@ -398,12 +398,14 @@ def test_whole_encoder_train_step_matches_jax(rng):
 
 
 @pytest.fixture(scope="module")
-def jax_kd_run():
+def jax_kd_run(tmp_path_factory):
     """bench.py's KD step at the test size of tests/test_torch_kd_step.py,
     with CameraEncoderConfig(fused_train=True): STEPS steps from the initial
     weights, and the same from weights moved by 1e-6 of themselves (the
-    reference's own spread)."""
-    return kd._jax_trajectory("sorted_pallas", fused_train=True)
+    reference's own spread); made once a test run
+    (kd.jax_trajectory_cached)."""
+    return kd.jax_trajectory_cached(kd.shared_dir(tmp_path_factory), "sorted_pallas",
+                                    fused_train=True)
 
 
 def test_kd_steps_with_fused_train_match_jax(jax_kd_run, tmp_path):

@@ -34,6 +34,11 @@ Per kind, the count of tensors whose error exceeds the fixed margin must not
 exceed the count whose reference spread does (printed with -s).
 """
 
+import fcntl
+import os
+import pickle
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -86,15 +91,32 @@ def _batch():
 
 
 @pytest.fixture(scope="module")
-def jax_runs():
-    """The JAX trajectory for a scatter_impl, made at first use."""
-    runs = {}
+def jax_runs(tmp_path_factory):
+    """The JAX trajectory for a scatter_impl, made at first use in this test
+    run (jax_trajectory_cached)."""
+    return lambda scatter: jax_trajectory_cached(shared_dir(tmp_path_factory), scatter)
 
-    def get(scatter):
-        if scatter not in runs:
-            runs[scatter] = _jax_trajectory(scatter)
-        return runs[scatter]
-    return get
+
+def shared_dir(tmp_path_factory) -> Path:
+    """A directory that every pytest-xdist worker of this test run sees (the
+    run's base temporary directory: each worker's own is a child of it)."""
+    base = tmp_path_factory.getbasetemp()
+    return base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+
+
+def jax_trajectory_cached(cache_dir, scatter, fused_train=False):
+    """_jax_trajectory(scatter, fused_train=fused_train), made once a test
+    run: the first caller makes it under a file lock and pickles it into
+    cache_dir; every other (another file, another worker, a rank) waits for
+    it and reads it back, the same arrays."""
+    path = Path(cache_dir) / f"jax_kd_trajectory_{scatter}_{int(fused_train)}.pkl"
+    with open(path.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            tmp = path.with_suffix(".tmp")
+            tmp.write_bytes(pickle.dumps(_jax_trajectory(scatter, fused_train=fused_train)))
+            tmp.rename(path)
+    return pickle.loads(path.read_bytes())
 
 
 def _jax_trajectory(scatter, steps=STEPS, student=None, fused_train=False):

@@ -111,13 +111,15 @@ def test_resumed_run_ends_where_the_full_run_ends(full_run, tmp_path):
     ("augment", "augment"),
     ("cache_teacher", dict(cache_teacher=True)),
     ("ensemble", dict(ensemble_size=2)),
-    ("teacher_partition", dict(teacher_partition="fsdp")),
+    ("teacher_partition", dict(teacher_partition="sp")),
     ("MeshConfig", "mesh"),
 ])
 def test_unported_options_are_refused_by_name(tmp_path, option, field):
     """Options the port does not have raise NotImplementedError naming
-    them: parallelism and teacher partitioning. The rest are ported and are
-    refused, by name, where the JAX package refuses them: a point-moving
+    them: MeshConfig.model_parallel > 1 (the 2-D mesh). The rest are ported
+    and are refused, by name, where the JAX package refuses them: the "sp"
+    teacher partition on the 1-D mesh (ValueError: it needs a model axis;
+    "fsdp" and "tp" are ported, tests/test_torch_parallel_kd.py), a point-moving
     augmentation term with the sorted scatter, the flip with the cache, one
     state dict for a two-member ensemble (ValueError); the on-device epoch
     or validation over a loader without a Batcher (ValueError), and the
@@ -139,7 +141,9 @@ def test_unported_options_are_refused_by_name(tmp_path, option, field):
         cfg = cfg.replace(mesh=MeshConfig(model_parallel=2))
     elif option in ("cache_teacher", "ensemble", "teacher_partition"):
         cfg = cfg.replace(train=dataclasses.replace(tc, kd=dataclasses.replace(tc.kd, **field)))
-        if option == "cache_teacher":
+        if option == "teacher_partition":
+            option, error = "teacher_partition='sp' needs a model axis", ValueError
+        elif option == "cache_teacher":
             cfg = cfg.replace(train=dataclasses.replace(
                 cfg.train, augment=AugmentConfig(enabled=True, hflip_prob=0.5)),
                 model=cfg.model.replace(lidar=dataclasses.replace(cfg.model.lidar,
@@ -164,7 +168,8 @@ def test_unported_options_are_refused_by_name(tmp_path, option, field):
         with pytest.raises(ValueError, match=f"{option}.*Batcher"):
             tr.train_epoch() if option == "onchip_epoch" else tr.validate()
         return
-    match = {"ensemble": "ensemble", "MeshConfig": "parallelism"}.get(option, option)
+    match = {"ensemble": "ensemble", "MeshConfig": "MeshConfig.model_parallel > 1"}.get(option,
+                                                                                 option)
     with pytest.raises(error, match=match):
         DistillationTrainer(cfg, [], [], device="cpu", teacher_state_dict=teacher_sd)
 
