@@ -205,6 +205,22 @@ Phases:
              r2 sums left local; the ranks' parameters equal bit for bit,
              the collectives a step and their share of host time, the fsdp
              teacher's bytes a rank;
+             (e) the model axis (parallel_model_axis_e): two gloo ranks on the
+             card as a (data 1, model 2) mesh, weighted/128 and its 2x
+             teacher at full width on the same path, B=128 a rank when two
+             one-process peaks fit (else 64): the teacher split by channel
+             (tp) and by image rows (sp), f32 and bf16, its logits and taps
+             against the one-process teacher on the same rows (f32 1e-5 of
+             scale; bf16 twice the one-process bf16 teacher's gap to f32),
+             a fused_inference teacher split both ways (K3), each planted
+             fault (`planted_split_fault`: a contraction fed a channel slice
+             with no gather; a halo of zeros) at least 100x past the f32
+             limit; three KD steps of
+             each held as (b) holds its runs, the ranks' sha256 equal, the
+             teacher's bytes and peak forward bytes a rank, the collectives
+             a step by axis; (f) (while (d) runs) four gloo ranks as a
+             (data 2, model 2) mesh, one tp and one sp KD step at the global
+             B=16 against one process;
              (c) ServingEngine.from_predictor(devices=[the card]) against
              the plain engine bit for bit, and a `serve --data-parallel 1`
              child answering over HTTP; (d) `python -m
@@ -3860,13 +3876,38 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def parallel_trainer(dev, dtype, fused: bool, part: str = "tp", mesh=None):
+def parallel_trainer(dev, dtype, fused: bool, part: str = "tp", mesh=None, fused_teacher=False):
     """The KD trainer of train_config at the global batch TRAIN_B (the
-    in-loop teacher), on `mesh` when given."""
+    in-loop teacher), on `mesh` when given; its teacher with fused_inference
+    blocks (K3) when `fused_teacher`."""
+    import dataclasses
+
     from lmsu_tpu_torch.training import DistillationTrainer
     cfg = train_config(dtype, True, TRAIN_B, fused_train=fused, kd={"teacher_partition": part})
+    tcfg = teacher_for(cfg)
+    if fused_teacher:
+        tcfg = tcfg.replace(camera=dataclasses.replace(tcfg.camera, fused_inference=True))
     return DistillationTrainer(cfg, [None], [None], device=dev, mesh=mesh,
-                               teacher_model_config=teacher_for(cfg))
+                               teacher_model_config=tcfg)
+
+
+_REFS: dict = {}
+
+
+def one_process_refs(dev, dtype, fused: bool, batch_size: int):
+    """The one-process reference of the parallel checks, made once per
+    (dtype, fused_train, batch): parallel_steps of parallel_trainer over
+    train_batch(rng 21) at `batch_size`, from the seeded weights and from
+    them moved by 1e-6 (the spread)."""
+    key = (str(dtype), fused, batch_size)
+    if key not in _REFS:
+        batch = train_batch(np.random.default_rng(21), batch_size, dev)
+        _REFS[key] = [parallel_steps(parallel_trainer(dev, dtype, fused), batch, perturb=p)
+                      for p in (0.0, 1e-6)]
+        del batch
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return _REFS[key]
 
 
 def parallel_steps(tr, batch, steps: int = PARALLEL_STEPS, perturb: float = 0.0, mesh=None):
@@ -3885,12 +3926,14 @@ def parallel_steps(tr, batch, steps: int = PARALLEL_STEPS, perturb: float = 0.0,
     if mesh is not None:
         mesh.reset_counts()
     out = {"losses": [], "step_ms": []}
+    torch.cuda.reset_peak_memory_stats()
     for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, _ = tr.train_step(batch)
         if mesh is not None:
-            loss = all_reduce_(loss.detach().clone(), mesh=mesh)
+            # The global loss: each rank's share summed over the data axis.
+            loss = all_reduce_(loss.detach().clone(), mesh=mesh.data_axis())
         out["losses"].append(float(loss))
         torch.cuda.synchronize()
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
@@ -3901,10 +3944,16 @@ def parallel_steps(tr, batch, steps: int = PARALLEL_STEPS, perturb: float = 0.0,
                              if k.endswith(("running_mean", "running_var"))})
             if mesh is not None:
                 mesh.reset_counts()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
     if mesh is not None and steps > 1:
-        out["collectives_per_step"] = mesh.counts["calls"] / (steps - 1)
-        out["collective_host_s_per_step"] = mesh.counts["seconds"] / (steps - 1)
-        out["collective_bytes_per_step"] = mesh.counts["bytes"] / (steps - 1)
+        axes = mesh.axis_counts()
+        tot = {k: sum(a[k] for a in axes.values()) for k in ("calls", "seconds", "bytes")}
+        out["collectives_per_step"] = tot["calls"] / (steps - 1)
+        out["collective_host_s_per_step"] = tot["seconds"] / (steps - 1)
+        out["collective_bytes_per_step"] = tot["bytes"] / (steps - 1)
+        out["collectives_per_step_by_axis"] = {
+            k: {"calls": a["calls"] / (steps - 1), "mb": a["bytes"] / (steps - 1) / 1e6,
+                "host_ms": a["seconds"] / (steps - 1) * 1e3} for k, a in axes.items()}
     out["params"] = fingerprint(list(tr.params.values())).cpu().tolist()
     out["buffers"] = fingerprint(list(tr.model.buffers())).cpu().tolist()
     return out
@@ -4034,17 +4083,8 @@ def parallel_gloo(dev, world: int = 2, timeout: float = 420.0) -> dict:
     import tempfile
 
     from lmsu_tpu_torch.parallel.mesh import run_ranks
-    refs = {}
-    batch = train_batch(np.random.default_rng(21), TRAIN_B, dev)
-    for name, dtype, fused, part in PARALLEL_RUNS:
-        if run_name(name) != name:
-            continue
-        refs[name] = [parallel_steps(parallel_trainer(dev, dtype, fused), batch, perturb=p)
-                      for p in (0.0, 1e-6)]
-        torch.cuda.empty_cache()
-    del batch
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    refs = {name: one_process_refs(dev, dtype, fused, TRAIN_B)
+            for name, dtype, fused, part in PARALLEL_RUNS if run_name(name) == name}
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as d:
         init = "file://" + os.path.join(d, "rendezvous")
@@ -4190,22 +4230,420 @@ def parallel_serving(dev, child) -> dict:
             "data_parallel_1_child": served}
 
 
-def parallel_multiprocess(timeout: float = 420.0) -> dict:
+def parallel_multiprocess(timeout: float = 420.0, while_running=None):
     """(d) `python -m lmsu_tpu_torch.run_multiprocess --device cuda
     --num-processes 2` (gloo on the one card): it must exit 0 and print its
-    summary."""
+    summary. `while_running()`, when given, runs in this process meanwhile.
+    Returns (the summary, while_running's result)."""
+    import tempfile
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "lmsu_tpu_torch.run_multiprocess", "--device",
-                           "cuda", "--num-processes", "2", "--timeout", str(timeout - 60)],
-                          cwd=root, capture_output=True, text=True, timeout=timeout)
-    text = proc.stdout
+    with tempfile.TemporaryFile(mode="w+") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "lmsu_tpu_torch.run_multiprocess",
+                                 "--device", "cuda", "--num-processes", "2", "--timeout",
+                                 str(timeout - 60)], cwd=root, stdout=out,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            extra = while_running() if while_running is not None else None
+            proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out.seek(0)
+        text = out.read()
     if proc.returncode != 0 or "OK" not in text:
-        raise AssertionError(f"run_multiprocess exited {proc.returncode}:\n"
-                             f"{(text + proc.stderr)[-3000:]}")
+        raise AssertionError(f"run_multiprocess exited {proc.returncode}:\n{text[-3000:]}")
     summary = json.loads(text[text.index("{", text.index("OK")):])
     summary["seconds"] = time.perf_counter() - t0
-    return summary
+    return summary, extra
+
+
+# -- the model axis: the tp and sp teachers on a 2-D (data, model) mesh ----------
+
+# The teacher check's limit in f32: each output's largest difference from
+# the one-process teacher's over that output's largest magnitude.
+TEACHER_LIMIT_F32 = 1e-5
+# The model-axis runs of (e): (dtype name, dtype); tp then sp in each.
+MODEL_AXIS_DTYPES = (("f32", torch.float32), ("bf16", torch.bfloat16))
+# The rows of (e)'s batch that the planted faults and the fused_inference
+# teacher run on: each tp forward of B=128 moves ~5 GB a rank through
+# gloo's host staging on the one card (~10 s), and these checks read a
+# scale-relative distance that does not need the whole batch.
+MODEL_AXIS_SUB_ROWS = 32
+
+
+@contextlib.contextmanager
+def planted_split_fault(part: str):
+    """Plant one fault in the split teacher's next forward (parallel/tp.py):
+    "tp" feeds its first contraction over a split activation (the first
+    gather) this rank's channel slice with zeros for the other ranks'
+    channels, as if the gather were left out; "sp" fills its first halo
+    exchange with zero rows. Yields a dict whose "hits" counts them."""
+    from lmsu_tpu_torch.parallel import tp as ptp
+    hits = {"hits": 0}
+    if part == "tp":
+        cls, name = ptp.TensorParallelTeacher, "whole"
+
+        def faulty(self, a):
+            if not a.split or hits["hits"]:
+                return real(self, a)
+            hits["hits"] += 1
+            parts = [torch.zeros_like(a.t)] * self.mm.world_size
+            parts[self.mm.rank] = a.t
+            return torch.cat(parts, 1)
+    else:
+        cls, name = ptp.SpatialTeacher, "halo"
+
+        def faulty(self, x, below):
+            top, bottom = real(self, x, below)
+            if hits["hits"]:
+                return top, bottom
+            hits["hits"] += 1
+            return torch.zeros_like(top), None if bottom is None else torch.zeros_like(bottom)
+    real = getattr(cls, name)
+    setattr(cls, name, faulty)
+    try:
+        yield hits
+    finally:
+        setattr(cls, name, real)
+
+
+def teacher_outputs(tr, batch) -> dict:
+    """A KD trainer's teacher on `batch`: its logits and its taps (all whole)."""
+    with torch.no_grad():
+        logits, taps = tr.teacher(batch["image"], batch["points"], batch.get("point_valid"),
+                                  return_intermediates=True)
+    return {"logits": logits, **{k: v for k, v in taps.items() if k != "logits"}}
+
+
+def scale_errs(got: dict, want: dict) -> dict:
+    """Each output's largest difference over want's largest magnitude."""
+    return {k: ((got[k].double() - want[k].double()).abs().max()
+                / want[k].double().abs().max().clamp(min=1e-30)).item() for k in want}
+
+
+class first_call:
+    """Hooks on `teacher` that keep its first call's outputs (as
+    teacher_outputs gives them), its peak device bytes above what it started
+    on, the collectives it made by axis and its gathers, in `seen`;
+    close() removes them."""
+
+    def __init__(self, teacher, mesh):
+        self.seen = {}
+
+        def pre(mod, args):
+            if not self.seen:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                self.seen.update(base=torch.cuda.memory_allocated(), counts=mesh.axis_counts())
+
+        def post(mod, args, out):
+            if "out" in self.seen:
+                return
+            torch.cuda.synchronize()
+            after = mesh.axis_counts()
+            self.seen.update(
+                out={"logits": out[0], **{k: v for k, v in out[1].items() if k != "logits"}},
+                peak=torch.cuda.max_memory_allocated() - self.seen["base"],
+                collectives={a: {k: after[a][k] - self.seen["counts"][a][k] for k in after[a]}
+                             for a in after},
+                gathers=mod.gathers)
+        self.handles = [teacher.register_forward_pre_hook(pre),
+                        teacher.register_forward_hook(post)]
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+
+
+def forward_peak(tr, batch):
+    """(outputs, the forward's peak device bytes above what it started on)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = teacher_outputs(tr, batch)
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def params_sha256(tr) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in list(tr.params.values()) + list(tr.model.buffers()):
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def model_axis_rank(rank: int, world: int, mp: int, init: str, out_dir: str, device: str,
+                    batch_size: int, plan: str) -> None:
+    """One rank of the (data world/mp, model mp) mesh over gloo on the one
+    card, this rank's data stripe of train_batch(rng 21) at `batch_size`.
+    plan "e": tp, then sp, f32 then bf16: three KD steps, and the teacher
+    check on the first step's teacher call (each output against the
+    one-process teacher on the same rows, and in bf16 the one-process f32
+    teacher too; each planted fault in f32, a forward of its own); then the
+    fused_inference teacher (K3) split both ways; plan "f": one KD step of
+    tp and one of sp (f32). Writes rank<r>.json
+    and, rank 0, each run's first step to <run>.pt."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lmsu_tpu_torch.config import MeshConfig
+    from lmsu_tpu_torch.inference import pin_f32_precision
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    from lmsu_tpu_torch.parallel import mesh as pm
+    pin_f32_precision()
+    dev = torch.device(device)
+    mesh = pm.make_mesh(MeshConfig(model_parallel=mp), backend="gloo", init_method=init,
+                        rank=rank, world_size=world, device=dev, timeout_s=300)
+    L = batch_size // mesh.data_size
+    batch = {k: v[mesh.data_rank * L:(mesh.data_rank + 1) * L]
+             for k, v in train_batch(np.random.default_rng(21), batch_size, dev).items()}
+    sub = {k: v[:MODEL_AXIS_SUB_ROWS] for k, v in batch.items()}
+    res = {"teacher": {}, "runs": {}}
+    t0 = time.perf_counter()
+
+    def kd_run(name, tr, steps):
+        """`steps` KD steps of `tr` on this rank's rows, its launches counted."""
+        reset_launch_counts()
+        r = parallel_steps(tr, batch, steps=steps, mesh=mesh)
+        r["launches"] = {k: v.launches for k, v in kernels().items() if v.launches}
+        r["sha256"] = params_sha256(tr)
+        r["layout"] = tr.teacher_layout
+        if rank == 0:
+            torch.save(r["step0"], os.path.join(out_dir, f"{name}.pt"))
+        del r["step0"]
+        res["runs"][name] = r
+
+    if plan == "f":
+        for part in ("tp", "sp"):
+            kd_run(f"f32_{part}", parallel_trainer(dev, torch.float32, True, part, mesh=mesh), 1)
+            torch.cuda.empty_cache()
+    else:
+        anchor = None
+        for dt, dtype in MODEL_AXIS_DTYPES:
+            with pm.using(None):
+                whole, whole_peak = forward_peak(parallel_trainer(dev, dtype, True), batch)
+            gap = None if anchor is None else scale_errs(whole, anchor)
+            for part in ("tp", "sp"):
+                tr = parallel_trainer(dev, dtype, True, part, mesh=mesh)
+                # The KD steps; the teacher check reads the first step's
+                # teacher call (its outputs, peak bytes and collectives).
+                first = first_call(tr.teacher, mesh)
+                kd_run(f"{dt}_{part}", tr, PARALLEL_STEPS)
+                first.close()
+                t1 = time.perf_counter()
+                got = first.seen.pop("out")
+                sh = tr.teacher_shards
+                r = {"errs": scale_errs(got, whole), "layout": tr.teacher_layout,
+                     "collectives": first.seen["collectives"],
+                     "peak_forward_bytes": first.seen["peak"],
+                     "peak_forward_bytes_whole": whole_peak, "gathers": first.seen["gathers"]}
+                if part == "tp":
+                    r.update(bytes_per_rank=sh.bytes_per_rank, bytes_full=sh.bytes_full)
+                else:
+                    r["halos"] = sh.halos
+                if gap is not None:
+                    r["errs_from_f32"] = scale_errs(got, anchor)
+                    r["whole_gap_from_f32"] = gap
+                del got
+                if dt == "f32":
+                    # Each planted fault (planted_split_fault), f32, on the
+                    # first MODEL_AXIS_SUB_ROWS rows.
+                    with planted_split_fault(part) as hits:
+                        r["fault_errs"] = scale_errs(
+                            teacher_outputs(tr, sub), {k: v[:len(sub["image"])]
+                                                       for k, v in whole.items()})
+                    r["fault_hits"] = hits["hits"]
+                r["seconds"] = time.perf_counter() - t1
+                res["teacher"][f"{dt}_{part}"] = r
+                del tr
+                torch.cuda.empty_cache()
+            if anchor is None:
+                anchor = whole
+            else:
+                del whole
+        del anchor
+        # K3 under both splits: the teacher with fused_inference blocks (f32),
+        # on the first MODEL_AXIS_SUB_ROWS rows.
+        with pm.using(None):
+            whole = teacher_outputs(parallel_trainer(dev, torch.float32, True,
+                                                     fused_teacher=True), sub)
+        for part in ("tp", "sp"):
+            tr = parallel_trainer(dev, torch.float32, True, part, mesh=mesh, fused_teacher=True)
+            reset_launch_counts()
+            got = teacher_outputs(tr, sub)
+            res["teacher"][f"f32_fused_inference_{part}"] = {
+                "errs": scale_errs(got, whole),
+                "launches": {k: v.launches for k, v in kernels().items() if v.launches}}
+            del tr, got
+        del whole
+        torch.cuda.empty_cache()
+        res["teacher_seconds"] = sum(r.get("seconds", 0.0) for r in res["teacher"].values())
+    res["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    pm.destroy(mesh)
+
+
+def launch_model_axis(dev, world: int, mp: int, batch_size: int, plan: str,
+                      timeout: float = 600.0):
+    """Run model_axis_rank on `world` processes over gloo on the card:
+    (each rank's JSON, each run's first step from rank 0)."""
+    import tempfile
+
+    from lmsu_tpu_torch.parallel.mesh import run_ranks
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        init = "file://" + os.path.join(d, "rendezvous")
+        logs, _ = run_ranks(
+            [[sys.executable, "-c", f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+              f"chip_smoke.model_axis_rank({r}, {world}, {mp}, {init!r}, {d!r}, {str(dev)!r}, "
+              f"{batch_size}, {plan!r})"] for r in range(world)], timeout, cwd=root)
+        for line in logs[0].splitlines():
+            if line.startswith(("tp teacher", "fsdp teacher")):
+                log(f"[parallel {plan} rank 0] {line}")
+        ranks = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(world)]
+        step0 = {name: torch.load(os.path.join(d, f"{name}.pt"), weights_only=False)
+                 for name in ranks[0]["runs"]}
+    return ranks, step0
+
+
+def hold_teacher(ranks) -> dict:
+    """(e)'s teacher check on every rank: f32 each output within
+    TEACHER_LIMIT_F32 of scale of the one-process teacher's; bf16 each
+    output's distance from the one-process f32 teacher at most twice the
+    one-process bf16 teacher's own; the fused_inference teacher in f32 as
+    f32, K3 launched; each planted fault past the f32 limit by at least
+    100x in some output. Returns the worst readings; raises on any miss."""
+    out, misses = {}, []
+    for rank, res in enumerate(ranks):
+        for key, r in res["teacher"].items():
+            log(f"[parallel e teacher rank {rank}] {key}: {json.dumps(r)}")
+            if key.startswith("bf16"):
+                worst = max(r["errs_from_f32"][k] / max(2 * r["whole_gap_from_f32"][k], 1e-30)
+                            for k in r["errs"])
+                ok = worst <= 1
+            else:
+                worst = max(r["errs"].values()) / TEACHER_LIMIT_F32
+                ok = worst <= 1
+            if "fused_inference" in key and r["launches"].get("ir_fused_infer", 0) <= 0:
+                misses.append(f"{key}: K3 did not launch")
+            if not ok:
+                misses.append(f"{key} rank {rank}: {worst:g} x its limit: {r['errs']}")
+            out[key] = max(out.get(key, 0.0), worst)
+            if "fault_errs" in r:
+                over = max(r["fault_errs"].values()) / TEACHER_LIMIT_F32
+                out[f"{key}_fault"] = min(out.get(f"{key}_fault", float("inf")), over)
+                if r["fault_hits"] != 1:
+                    misses.append(f"{key} rank {rank}: the fault was planted "
+                                  f"{r['fault_hits']} times, not once")
+                if not over >= 100:
+                    misses.append(f"{key} rank {rank}: the planted fault reads only {over:g} x "
+                                  "the limit")
+    if misses:
+        raise AssertionError("parallel (e) teacher: " + "; ".join(misses))
+    return {"worst_over_limit": {k: v for k, v in out.items() if not k.endswith("_fault")},
+            "fault_least_over_limit": {k: v for k, v in out.items() if k.endswith("_fault")}}
+
+
+def hold_model_axis_steps(what, ranks, step0, refs, need) -> dict:
+    """The KD runs of the model-axis ranks against the one-process steps
+    (`refs`: {dtype name: [plain, perturbed]} at the global batch): f32
+    first steps by hold_step with the spread, bf16 by hold_gap against the
+    f32 reference, the later losses as parallel_gloo holds them; every
+    rank's parameters and buffers equal (sha256) and the path's kernels
+    launched on each rank."""
+    out = {}
+    for name in ranks[0]["runs"]:
+        dt = name.split("_")[0]
+        ref, pert = refs[dt]
+        got = [r["runs"][name] for r in ranks]
+        w = f"{what} {name}"
+        if dt == "f32":
+            held = hold_step(w, step0[name], ref["step0"], noise=pert["step0"])
+        else:
+            held = hold_gap(w, step0[name], ref["step0"], refs["f32"][0]["step0"])
+        cap = 1e-3 if dt == "f32" else 1e-2
+        held["later_losses"] = []
+        for i in range(1, len(got[0]["losses"])):
+            la, lb, lp = got[0]["losses"][i], ref["losses"][i], pert["losses"][i]
+            held["later_losses"].append({"err": abs(la - lb), "spread": abs(lp - lb)})
+            if not abs(la - lb) <= 1e-5 * abs(lb) + min(10 * abs(lp - lb), cap * abs(lb)):
+                raise AssertionError(f"{w}: step {i} loss {la} != {lb} (perturbed {lp})")
+        shas = [g["sha256"] for g in got]
+        if len(set(shas)) != 1:
+            raise AssertionError(f"{w}: the ranks' parameters differ: {shas}")
+        for g in got:
+            if g["layout"] != name.split("_")[1] or any(
+                    g["launches"].get(k, 0) <= 0 for k in need):
+                raise AssertionError(f"{w}: layout {g['layout']}, launches {g['launches']}")
+        r0 = got[0]
+        steps_ms = r0["step_ms"][1:] or r0["step_ms"]
+        ref_ms = ref["step_ms"][1:] or ref["step_ms"]
+        run = {"losses": r0["losses"], "losses_one_process": ref["losses"][:len(r0["losses"])],
+               "sha256_ranks": shas, "step_ms": r0["step_ms"],
+               "step_ms_one_process": ref["step_ms"],
+               "step_ms_median": float(np.median(steps_ms)),
+               "step_ms_one_process_median": float(np.median(ref_ms)),
+               "collectives_per_step_by_axis": r0.get("collectives_per_step_by_axis"),
+               "peak_gb_rank0": r0["peak_bytes"] / 1e9, "launches_rank0": r0["launches"],
+               "held_step0": held}
+        out[name] = run
+        log(f"[{what} {name}] {json.dumps({k: v for k, v in run.items() if k != 'held_step0'})}")
+    return out
+
+
+def parallel_model_axis_e(dev) -> dict:
+    """(e) two gloo ranks on the card as a (data 1, model 2) mesh: weighted/128
+    and its 2x teacher at full width on the KD path (sorted_pallas, the fused
+    gate, K7, fused_train), the teacher split by channel (tp) and by image
+    rows (sp), f32 and bf16: the teacher check (hold_teacher) on the first
+    KD step's teacher call and three KD steps against the one-process steps
+    over the same rows; each rank takes the whole batch, B=128 when two of
+    the one-process step's peaks fit on the card with 8 GB to spare, else 64
+    (the planted faults and the fused_inference teacher on its first
+    MODEL_AXIS_SUB_ROWS rows)."""
+    t0 = time.perf_counter()
+    ref128 = one_process_refs(dev, torch.float32, True, TRAIN_B)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    B_e = TRAIN_B if 2 * ref128[0]["peak_bytes"] + 8e9 < total else TRAIN_B // 2
+    log(f"[parallel e] B={B_e} a rank (the one-process B={TRAIN_B} step's peak "
+        f"{ref128[0]['peak_bytes'] / 1e9:.2f} GB, the card {total / 1e9:.2f} GB)")
+    refs = {dt: one_process_refs(dev, dtype, True, B_e) for dt, dtype in MODEL_AXIS_DTYPES}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ranks, step0 = launch_model_axis(dev, 2, 2, B_e, "e")
+    out = {"batch_per_rank": B_e, "teacher": hold_teacher(ranks),
+           "teacher_seconds": max(r["teacher_seconds"] for r in ranks),
+           "rank_seconds": max(r["seconds"] for r in ranks),
+           "runs": hold_model_axis_steps("parallel e", ranks, step0, refs,
+                                         PARALLEL_PATH + IR_TRAIN_KERNELS)}
+    t = ranks[0]["teacher"]
+    out["teacher_bytes"] = {"tp_per_rank": t["f32_tp"]["bytes_per_rank"],
+                            "whole": t["f32_tp"]["bytes_full"]}
+    out["peak_forward_bytes"] = {
+        k: {"split": t[k]["peak_forward_bytes"], "whole": t[k]["peak_forward_bytes_whole"]}
+        for k in ("f32_tp", "f32_sp", "bf16_tp", "bf16_sp")}
+    out["teacher_collectives"] = {k: t[k]["collectives"] for k in ("f32_tp", "f32_sp")}
+    out["gathers_per_forward"] = {k: t[k]["gathers"] for k in ("f32_tp", "f32_sp")}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[parallel e] {json.dumps({k: v for k, v in out.items() if k != 'runs'})}")
+    return out
+
+
+def parallel_model_axis_f(dev) -> dict:
+    """(f) four gloo ranks on the card as a (data 2, model 2) mesh, one tp
+    and one sp KD step (f32) at the global B=16 against one process (a
+    first step each: its time holds cuDNN's algorithm search)."""
+    t0 = time.perf_counter()
+    refs16 = {"f32": one_process_refs(dev, torch.float32, True, 16)}
+    ranks, step0 = launch_model_axis(dev, 4, 2, 16, "f")
+    out = {"runs": hold_model_axis_steps("parallel f", ranks, step0, refs16,
+                                         PARALLEL_PATH + IR_TRAIN_KERNELS),
+           "rank_seconds": max(r["seconds"] for r in ranks),
+           "seconds": time.perf_counter() - t0}
+    log(f"[parallel f] {out['seconds']:.1f} s")
+    return out
 
 
 def start_serve_child(dev):
@@ -4222,21 +4660,29 @@ def start_serve_child(dev):
 
 def phase_parallel(dev) -> dict:
     """The parallel phase: (a) the world-1 NCCL step, (b) two gloo ranks on
-    the card, (c) data-parallel serving and `serve --data-parallel 1`, (d)
-    `run_multiprocess --device cuda --num-processes 2`."""
+    the card, (e) the model axis on two ranks (parallel_model_axis_e), (c)
+    data-parallel serving and `serve --data-parallel 1`, (d)
+    `run_multiprocess --device cuda --num-processes 2` and beside it (f) the
+    model axis on four ranks (parallel_model_axis_f)."""
     t0 = time.perf_counter()
     child = start_serve_child(dev)
     try:
         res = {"world1_nccl": parallel_world1(dev)}
         log(f"[parallel a] world-1 NCCL step: {json.dumps(res['world1_nccl'])}")
         res["gloo_two_ranks"] = parallel_gloo(dev)
+        res["model_axis"] = {"e": parallel_model_axis_e(dev)}
         res["serving"] = parallel_serving(dev, child)
         log(f"[parallel c] {json.dumps(res['serving'])}")
     finally:
         if child[0].poll() is None:
             child[0].kill()
             child[0].wait()
-    res["run_multiprocess"] = parallel_multiprocess()
+    # (f) runs while (d)'s processes do: both are checks of correctness
+    # whose times are first steps and a tiny epoch.
+    res["run_multiprocess"], res["model_axis"]["f"] = parallel_multiprocess(
+        while_running=lambda: parallel_model_axis_f(dev))
+    res["model_axis"]["seconds"] = res["model_axis"]["e"]["seconds"] + \
+        res["model_axis"]["f"]["seconds"]
     log(f"[parallel d] run_multiprocess: {json.dumps(res['run_multiprocess'])}")
     res["seconds"] = time.perf_counter() - t0
     log(f"[parallel] phase {res['seconds']:.1f} s")
@@ -4510,6 +4956,10 @@ def main(argv=None) -> int:
                 "world1_nccl_f32_fused": pres["world1_nccl"]["launches"].get(name, 0),
                 **{f"gloo_rank0_{run}": r["launches_rank0"].get(name, 0)
                    for run, r in pres["gloo_two_ranks"]["runs"].items()},
+                # The model axis: rank 0's steps of each (e) and (f) run.
+                **{f"model_axis_{cell}_rank0_{run}": r["launches_rank0"].get(name, 0)
+                   for cell in ("e", "f")
+                   for run, r in pres["model_axis"][cell]["runs"].items()},
                 "serving_devices": pres["serving"]["launches"].get(name, 0)}
         if "pillar_f32" in tres:
             if path in ("serving", "train"):
@@ -4644,6 +5094,17 @@ def main(argv=None) -> int:
             "gloo_two_ranks": {run: {k: v for k, v in r.items() if k not in (
                 "held_step0", "launches_rank0")} for run, r in
                 pres["gloo_two_ranks"]["runs"].items()},
+            "model_axis": {
+                "e_batch_per_rank": pres["model_axis"]["e"]["batch_per_rank"],
+                "teacher": pres["model_axis"]["e"]["teacher"],
+                "teacher_bytes": pres["model_axis"]["e"]["teacher_bytes"],
+                "peak_forward_bytes": pres["model_axis"]["e"]["peak_forward_bytes"],
+                **{f"{cell}_{run}": {**{k: r[k] for k in (
+                    "step_ms", "step_ms_median", "step_ms_one_process_median",
+                    "collectives_per_step_by_axis", "sha256_ranks", "peak_gb_rank0")},
+                    "held": {k: v for k, v in r["held_step0"].items() if k != "largest_diffs"}}
+                   for cell in ("e", "f") for run, r in pres["model_axis"][cell]["runs"].items()},
+                "seconds": pres["model_axis"]["seconds"]},
             "run_multiprocess": pres["run_multiprocess"], "seconds": pres["seconds"]},
             "card": smi}))
     print(smi)

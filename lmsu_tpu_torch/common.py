@@ -6,8 +6,10 @@ ExperimentConfig, the loaders and resuming.
 dataset holds (PandaSet for train_pandaset and train_fusion_ablation,
 synthetic for train_synthetic, train_distill and evaluate). --data-root is
 the PandaSet tree or the pack directory, --decoded-cache keeps decoded
-PandaSet samples in host memory. --model-parallel 1 is accepted and more
-is refused by name when the config is built (the 2-D mesh is not ported).
+PandaSet samples in host memory. --model-parallel N sets
+MeshConfig.model_parallel: under torchrun the ranks form the 2-D
+('data', 'model') mesh, over whose model axis the KD teacher is split
+(parallel/tp.py); every other path replicates along it.
 The port adds --device (CUDA unless 'cpu' is asked for) and --bf16.
 --augment and --aug-* set TrainConfig.augment (ops/augment.py).
 
@@ -28,7 +30,6 @@ from typing import Optional
 import torch
 
 from lmsu_tpu_torch.config import AugmentConfig, ExperimentConfig
-from lmsu_tpu_torch.parallel.mesh import check_model_parallel
 
 FUSION_TYPES = ("concat", "minimal", "weighted", "gated_sum")
 SCATTER_IMPLS = ("xla", "xla_fastbwd", "sorted", "pallas", "sorted_pallas")
@@ -88,8 +89,12 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    "by-cell point sort")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute, f32 parameters")
     p.add_argument("--model-parallel", type=int, default=None,
-                   help="size of a second ('model') mesh axis (MeshConfig.model_parallel); "
-                   "only 1 is ported: the tp / sp teacher on a 2-D mesh is not")
+                   help="size of a second ('model') mesh axis: builds a 2-D ('data','model') "
+                   "mesh of the torchrun ranks; the KD teacher is tensor- or "
+                   "spatially-partitioned over it (parallel/tp.py, "
+                   "KDConfig.teacher_partition); other paths replicate. Not needed for "
+                   "--teacher-partition fsdp, which shards teacher weight storage over "
+                   "the data axis")
     p.add_argument("--grad-clip-norm", type=float, default=None,
                    help="clip gradients to this global L2 norm")
     p.add_argument("--ema-decay", type=float, default=None,
@@ -177,14 +182,14 @@ def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
     mesh = cfg.mesh
     if getattr(args, "model_parallel", None) is not None:
         mesh = dataclasses.replace(mesh, model_parallel=args.model_parallel)
-        check_model_parallel(mesh)
     return cfg.replace(model=model, data=dataclasses.replace(cfg.data, **data_kw),
                        train=dataclasses.replace(cfg.train, **train_kw), mesh=mesh)
 
 
 def setup_mesh(args, cfg: Optional[ExperimentConfig] = None):
-    """The data mesh of a rank started by torchrun (WORLD_SIZE set): the
-    process group over NCCL on cuda:LOCAL_RANK, or gloo with --device cpu;
+    """The mesh of a rank started by torchrun (WORLD_SIZE set): the process
+    group over NCCL on cuda:LOCAL_RANK, or gloo with --device cpu, 2-D
+    with --model-parallel N > 1 (N must divide WORLD_SIZE);
     made before the loaders, which read their stripe from it, and the
     trainers, which run on it. None for a plain run (one device)."""
     from lmsu_tpu_torch.parallel.mesh import launched_distributed, make_mesh

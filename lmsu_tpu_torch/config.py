@@ -276,11 +276,12 @@ class TrainConfig:
 class MeshConfig:
     """The device mesh (the JAX package's MeshConfig, field for field).
 
-    The port runs one process per device (parallel/mesh.py): the data axis
-    is the process group, batches are striped over its ranks and parameters
-    are replicated. num_devices, when set, must equal the group's world
-    size. model_parallel > 1 (a second, 'model' axis for the tp / sp
-    teacher) is not ported yet and is refused by name."""
+    The port runs one process per device (parallel/mesh.py). model_parallel
+    M (which must divide the world size) lays the ranks out data-major on a
+    (world / M, M) mesh: batches are striped over the data axis, the
+    student is replicated along the model axis, and the KD teacher is split
+    over it (tp / sp). num_devices, when set, must equal the group's world
+    size."""
 
     data_axis: str = "data"
     model_axis: str = "model"

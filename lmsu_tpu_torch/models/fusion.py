@@ -225,7 +225,16 @@ class CompleteSegmentationModel(nn.Module):
         if images.dtype == torch.uint8:
             images = images.to(dt) / 255.0
         x = images.to(dt).permute(0, 3, 1, 2)
-        cam_raw = self.camera_encoder(x)
+        return self.forward_from_encoder(self.camera_encoder(x), points, point_valid,
+                                         return_intermediates)
+
+    def forward_from_encoder(self, cam_raw, points: torch.Tensor,
+                             point_valid: Optional[torch.Tensor] = None,
+                             return_intermediates: bool = False):
+        """The forward after the camera encoder, from its output `cam_raw`
+        (the multi-scale dict or the last map): the spatially partitioned
+        teacher (parallel/tp.py) runs the encoder itself."""
+        dt = self.config.compute_dtype
         cam_feat = self.camera_fpn(cam_raw) if self.camera_fpn is not None else cam_raw
         lidar_feat = self.lidar_encoder(points, point_valid, dt).permute(0, 3, 1, 2)
         if cam_feat.shape[-2:] != lidar_feat.shape[-2:]:

@@ -67,17 +67,25 @@ class SpatialLiDAREncoder(nn.Module):
         self.config = config
         self.point_mlp = _mlp(config.input_dim, config)
 
-    def forward(self, points: torch.Tensor, point_valid: Optional[torch.Tensor] = None,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """points [B, N, input_dim] -> BEV features [B, H, W, feature_dim] (NHWC)."""
+    @property
+    def mlp(self) -> nn.Sequential:
+        return self.point_mlp
+
+    def point_inputs(self, points: torch.Tensor, point_valid: Optional[torch.Tensor] = None,
+                     dtype: torch.dtype = torch.float32):
+        """(the MLP's input [B, N, input_dim] in `dtype`, each point's flat
+        BEV cell, its validity)."""
         cfg = self.config
-        x = apply_seq(self.point_mlp, points.to(dtype).transpose(1, 2))
-        feats = x.transpose(1, 2).contiguous()
         flat_idx, valid = points_to_bev_indices(points[..., :2], cfg.grid_size,
                                                 cfg.point_cloud_range)
         if point_valid is not None:
             valid = valid & point_valid
-        return _scatter(cfg, feats, flat_idx, valid)
+        return points.to(dtype), flat_idx, valid
+
+    def forward(self, points: torch.Tensor, point_valid: Optional[torch.Tensor] = None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """points [B, N, input_dim] -> BEV features [B, H, W, feature_dim] (NHWC)."""
+        return _point_net(self, points, point_valid, dtype)
 
 
 class PointPillarsLiDAREncoder(nn.Module):
@@ -100,8 +108,14 @@ class PointPillarsLiDAREncoder(nn.Module):
         self.config = config
         self.pfn = _mlp(config.input_dim + 3, config)
 
-    def forward(self, points: torch.Tensor, point_valid: Optional[torch.Tensor] = None,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    @property
+    def mlp(self) -> nn.Sequential:
+        return self.pfn
+
+    def point_inputs(self, points: torch.Tensor, point_valid: Optional[torch.Tensor] = None,
+                     dtype: torch.dtype = torch.float32):
+        """(the decorated points [B, N, input_dim + 3] in `dtype`, each
+        point's flat BEV cell, its validity)."""
         cfg = self.config
         H, W = cfg.grid_size
         x_min, y_min, _, x_max, y_max, _ = cfg.point_cloud_range
@@ -121,8 +135,19 @@ class PointPillarsLiDAREncoder(nn.Module):
         dist = torch.sqrt(points[..., 0] ** 2 + points[..., 1] ** 2 + 1e-8)
         feats = torch.cat([points.to(dtype), dx[..., None], dy[..., None],
                            dist[..., None].to(dtype)], dim=-1)
-        x = apply_seq(self.pfn, feats.transpose(1, 2))
-        return _scatter(cfg, x.transpose(1, 2).contiguous(), flat_idx, valid)
+        return feats, flat_idx, valid
+
+    def forward(self, points: torch.Tensor, point_valid: Optional[torch.Tensor] = None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return _point_net(self, points, point_valid, dtype)
+
+
+def _point_net(enc, points, point_valid, dtype) -> torch.Tensor:
+    """An encoder's forward: its per-point MLP over point_inputs (every
+    point, padded ones included), then the scatter-max of the valid ones."""
+    feats, flat_idx, valid = enc.point_inputs(points, point_valid, dtype)
+    x = apply_seq(enc.mlp, feats.transpose(1, 2))
+    return _scatter(enc.config, x.transpose(1, 2).contiguous(), flat_idx, valid)
 
 
 ENCODERS = {"spatial": SpatialLiDAREncoder, "pointpillars": PointPillarsLiDAREncoder}

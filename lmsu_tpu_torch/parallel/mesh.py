@@ -18,14 +18,27 @@ stripe of every global batch, and the collectives placed by hand:
 After any number of steps, N ranks over a global batch B give what one
 process gives over B, up to the order of f32 sums.
 
+The 2-D mesh (MeshConfig.model_parallel = M > 1) is the JAX package's
+data-major `reshape(n / M, M)`: rank r sits at data coordinate d = r // M
+and model coordinate m = r % M, so the M ranks of one model group (same
+d) are neighbours. Every rank builds every data group (same m) and every
+model group (same d), in one fixed order, with the mesh's timeout. The
+student is data-parallel over the DATA axis and replicated along the model
+axis: `data_mesh()` (BatchNorm, the fused blocks' sums, the loss
+normalisers, the epoch sums, the teacher cache) is the data axis, and the
+ranks of one model group decode the same stripe (`process_data_stripes`).
+`model_mesh()` is the model axis, over which the frozen teacher is split
+(parallel/tp.py). At M = 1 the data axis is the mesh itself and every
+path is the 1-D mesh's.
+
 `make_mesh` reads torchrun's RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR /
 MASTER_PORT, or takes an explicit `init_method` (tests use file:// in a
 temporary directory). NCCL on CUDA, gloo on the CPU; gloo on CUDA only when
 the caller asks for it (two ranks sharing one card, which NCCL refuses;
 gloo takes the CUDA tensors as they are, checked on an H100 with torch
-2.11). The group has a timeout, so a collective that hangs raises. Without
-a process group (no torchrun environment, no init_method) the mesh is one
-device and every collective here is the identity.
+2.11). The groups have a timeout, so a collective that hangs raises.
+Without a process group (no torchrun environment, no init_method) the mesh
+is one device and every collective here is the identity.
 """
 
 from __future__ import annotations
@@ -51,8 +64,14 @@ _ACTIVE: Optional["Mesh"] = None
 
 @dataclass
 class Mesh:
-    """A 1-D data mesh: this process's rank, the world size, its device and
-    the process group (None at world size 1 without a group)."""
+    """A mesh of ranks, or one axis of it: this process's coordinate
+    (`rank`) and the axis size (`world_size`), its device and its process
+    group (None where the axis is one rank, or at world size 1 without a
+    group). `ranks` are the group's members' global ranks in group order
+    (None: 0..world_size-1, the whole world). A 2-D mesh (model_size > 1)
+    holds its two axes, `data_axis()` and `model_axis()`, each a Mesh with
+    its own collective counts; at model_size 1 the data axis is the mesh
+    itself."""
 
     config: MeshConfig
     rank: int
@@ -63,25 +82,88 @@ class Mesh:
     # Collective calls, bytes and host seconds since the last reset.
     counts: Dict[str, float] = field(default_factory=lambda: {"calls": 0, "bytes": 0,
                                                                "seconds": 0.0})
+    model_size: int = 1
+    ranks: Optional[Tuple[int, ...]] = None
+    axes: Dict[str, "Mesh"] = field(default_factory=dict, repr=False)
+
+    @property
+    def data_size(self) -> int:
+        return self.world_size // self.model_size
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model_size
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model_size
+
+    def data_axis(self) -> "Mesh":
+        """The data axis: this mesh itself at model_size 1."""
+        return self.axes.get("data", self)
+
+    def model_axis(self) -> Optional["Mesh"]:
+        """The model axis (None at model_size 1)."""
+        return self.axes.get("model")
+
+    def global_rank(self, r: int) -> int:
+        """The global rank of this group's rank r."""
+        return self.ranks[r] if self.ranks is not None else r
 
     def reset_counts(self) -> None:
-        self.counts.update(calls=0, bytes=0, seconds=0.0)
+        for m in (self, *self.axes.values()):
+            m.counts.update(calls=0, bytes=0, seconds=0.0)
+
+    def axis_counts(self) -> Dict[str, Dict[str, float]]:
+        """The counts by axis: "world" (collectives over every rank), and
+        on a 2-D mesh "data" and "model"."""
+        return {"world": dict(self.counts), **{k: dict(v.counts) for k, v in self.axes.items()}}
 
 
-def check_model_parallel(config: MeshConfig) -> None:
-    """model_parallel > 1 (the 2-D mesh) is not ported: refused by name."""
-    if config.model_parallel > 1:
-        raise NotImplementedError("not ported yet: MeshConfig.model_parallel > 1 "
-                                  "(tp/sp teacher on a 2-D mesh)")
+def check_model_parallel(config: MeshConfig, world_size: int) -> None:
+    """The JAX package's check (lmsu_tpu/parallel/mesh.py::make_mesh):
+    model_parallel must divide the number of devices (here ranks)."""
+    mp = config.model_parallel
+    if mp < 1:
+        raise ValueError(f"model_parallel={mp} must be >= 1")
+    if world_size % mp:
+        raise ValueError(f"model_parallel={mp} does not divide {world_size} devices")
 
 
 def check_mesh_config(config: MeshConfig, world_size: int) -> None:
-    """model_parallel > 1 is not ported; num_devices, when set, must be the
-    world size."""
-    check_model_parallel(config)
+    """model_parallel must divide the world size; num_devices, when set,
+    must be the world size."""
+    check_model_parallel(config, world_size)
     if config.num_devices is not None and config.num_devices != world_size:
         raise ValueError(f"MeshConfig.num_devices={config.num_devices} but the process group "
                          f"has {world_size} ranks (one device a rank)")
+
+
+def mesh_layout(world_size: int, model_parallel: int) -> Dict[str, List[List[int]]]:
+    """The data-major layout of `world_size` ranks: {"data": each data
+    group's ranks (same model coordinate m, by d), "model": each model
+    group's (same data coordinate d, by m)}; rank = d * model_parallel + m."""
+    M = model_parallel
+    D = world_size // M
+    return {"data": [[d * M + m for d in range(D)] for m in range(M)],
+            "model": [[d * M + m for m in range(M)] for d in range(D)]}
+
+
+def _axis_groups(mesh: "Mesh", backend: str, timeout_s: float) -> None:
+    """Build every data group and every model group on this rank (all ranks
+    call new_group for all groups, in the same order) and attach this
+    rank's two axes to `mesh`. A group of one rank is not made."""
+    # (this rank's coordinate on the axis, the index of its group)
+    coords = {"data": (mesh.data_rank, mesh.model_rank),
+              "model": (mesh.model_rank, mesh.data_rank)}
+    for axis, groups in mesh_layout(mesh.world_size, mesh.model_size).items():
+        pos, which = coords[axis]
+        for i, ranks in enumerate(groups):
+            g = (dist.new_group(ranks, timeout=datetime.timedelta(seconds=timeout_s),
+                                backend=backend) if len(ranks) > 1 else None)
+            if i == which:
+                mesh.axes[axis] = Mesh(mesh.config, pos, len(ranks), mesh.device, mesh.backend,
+                                       group=g, ranks=tuple(ranks))
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -99,8 +181,8 @@ def make_mesh(config: Optional[MeshConfig] = None, *, backend: Optional[str] = N
               device=None, init_method: Optional[str] = None, rank: Optional[int] = None,
               world_size: Optional[int] = None,
               timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
-    """The data mesh of this process, made active (BatchNorm, the fused
-    blocks and the loaders read it).
+    """The mesh of this process, made active (BatchNorm, the fused blocks
+    and the loaders read its data axis, the teacher its model axis).
 
     Rank and world size come from the arguments, else from torchrun's RANK
     and WORLD_SIZE. A process group is made when an init_method is given or
@@ -108,7 +190,8 @@ def make_mesh(config: Optional[MeshConfig] = None, *, backend: Optional[str] = N
     this one device with no group. The device is cuda:LOCAL_RANK unless
     `device` names another (the CPU for tests); a CUDA device without CUDA
     raises, and there is no fallback. `backend` defaults to nccl on CUDA and
-    gloo on the CPU."""
+    gloo on the CPU. With config.model_parallel = M > 1 the ranks form
+    the data-major 2-D mesh and every data and model group is made here."""
     global _ACTIVE
     config = config or MeshConfig()
     rank = rank if rank is not None else (_env_int("RANK") or 0)
@@ -132,7 +215,7 @@ def make_mesh(config: Optional[MeshConfig] = None, *, backend: Optional[str] = N
         if backend is not None:
             raise ValueError("a backend needs a process group: pass init_method or run "
                              "under torchrun")
-        mesh = Mesh(config, 0, 1, dev, None)
+        mesh = Mesh(config, 0, 1, dev, None, model_size=config.model_parallel)
         _ACTIVE = mesh
         return mesh
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
@@ -149,7 +232,9 @@ def make_mesh(config: Optional[MeshConfig] = None, *, backend: Optional[str] = N
             kw["device_id"] = dev
         dist.init_process_group(**kw)
     mesh = Mesh(config, dist.get_rank(), dist.get_world_size(), dev, backend,
-                group=dist.group.WORLD)
+                group=dist.group.WORLD, model_size=config.model_parallel)
+    if mesh.model_size > 1:
+        _axis_groups(mesh, backend, timeout_s)
     _ACTIVE = mesh
     return mesh
 
@@ -172,11 +257,26 @@ def using(mesh: Optional[Mesh]):
         _ACTIVE = before
 
 
-def data_mesh() -> Optional[Mesh]:
-    """The active mesh when it spans more than one rank, else None: the
-    layers that reduce over the data axis do nothing else at world size 1."""
-    m = _ACTIVE
+def spanning(mesh: Optional[Mesh] = None) -> Optional[Mesh]:
+    """`mesh` (default: the active one) when it spans more than one rank,
+    else None."""
+    m = mesh if mesh is not None else _ACTIVE
     return m if m is not None and m.world_size > 1 else None
+
+
+def data_mesh() -> Optional[Mesh]:
+    """The data axis of the active mesh when it spans more than one rank,
+    else None: the layers that reduce over the data axis do nothing else
+    at one rank. On a 1-D mesh the data axis is the mesh itself."""
+    m = _ACTIVE
+    return spanning(m.data_axis()) if m is not None else None
+
+
+def model_mesh(mesh: Optional[Mesh] = None) -> Optional[Mesh]:
+    """The model axis of `mesh` (default: the active one) when it has more
+    than one rank, else None: the teacher's collectives under tp and sp."""
+    m = mesh if mesh is not None else _ACTIVE
+    return spanning(m.model_axis()) if m is not None and m.model_axis() is not None else None
 
 
 def world_size(mesh: Optional[Mesh] = None) -> int:
@@ -198,10 +298,13 @@ def destroy(mesh: Optional[Mesh] = None) -> None:
 
 
 def process_data_stripes(mesh: Optional[Mesh] = None) -> Tuple[int, int]:
-    """(num_stripes, stripe_index) of this process: on the 1-D mesh
-    (world_size, rank). Feed it to make_loader(num_shards=..., shard_index=...)."""
+    """(num_stripes, stripe_index) of this process: (D, rank // M) on the
+    (D, M) mesh, (world_size, rank) on the 1-D mesh. The M ranks of one
+    model group decode the same stripe, as in the JAX package when the
+    model axis spans processes (lmsu_tpu/parallel/mesh.py:71-110). Feed it
+    to make_loader(num_shards=..., shard_index=...)."""
     m = mesh if mesh is not None else _ACTIVE
-    return (m.world_size, m.rank) if m is not None else (1, 0)
+    return (m.data_size, m.data_rank) if m is not None else (1, 0)
 
 
 def local_shard_slices(global_shape: Sequence[int], num_shards: int,
@@ -262,8 +365,8 @@ def all_reduce_sum(x: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor
     return _AllReduceSum.apply(x, m)
 
 
-def all_gather(t: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Every rank's `t` (same shape on each) concatenated on dim 0, in rank
+def all_gather(t: torch.Tensor, mesh: Optional[Mesh] = None, dim: int = 0) -> torch.Tensor:
+    """Every rank's `t` (same shape on each) concatenated on `dim`, in rank
     order; t itself at world size 1."""
     m = mesh if mesh is not None else data_mesh()
     if m is None or m.world_size == 1:
@@ -274,24 +377,28 @@ def all_gather(t: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
     def gather(ts):
         dist.all_gather(ts[1:], ts[0], group=m.group)
     _run(m, gather, [t] + outs)
-    return torch.cat(outs)
+    return torch.cat(outs, dim)
 
 
 def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0,
                mesh: Optional[Mesh] = None) -> None:
-    """Overwrite `tensors` in place with rank `src`'s (the counterpart of
-    replicate: parameters and buffers at start-up)."""
+    """Overwrite `tensors` in place with those of the mesh's rank `src` (a
+    rank of its group; the counterpart of replicate: parameters and buffers
+    at start-up): one broadcast of them all, flattened, a dtype and device
+    each."""
     m = mesh if mesh is not None else data_mesh()
     if m is None or m.world_size == 1:
         return
+    groups: Dict[tuple, List[torch.Tensor]] = {}
     for t in tensors:
-        if t.numel() == 0:
-            continue
-        with torch.no_grad():
-            buf = t.detach() if t.is_contiguous() else t.detach().contiguous()
-            _run(m, lambda ts: dist.broadcast(ts[0], src, group=m.group), [buf])
-            if buf is not t:
-                t.detach().copy_(buf)
+        if t.numel():
+            groups.setdefault((t.dtype, t.device), []).append(t)
+    with torch.no_grad():
+        for ts in groups.values():
+            flat = torch.cat([t.detach().reshape(-1) for t in ts])
+            _run(m, lambda xs: dist.broadcast(xs[0], m.global_rank(src), group=m.group), [flat])
+            for t, f in zip(ts, flat.split([t.numel() for t in ts])):
+                t.detach().copy_(f.view_as(t))
 
 
 def broadcast_module_(module: torch.nn.Module, src: int = 0,

@@ -16,14 +16,18 @@ Counterpart of scripts/run_multiprocess.py for the PyTorch port:
         reference's own spread under that perturbation: the ranks sum in
         another order, and at this size the second AdamW step turns f32
         rounding into changes of ~1e-4 of the loss (tests/test_torch_kd_step.py),
-      - the ranks decoded disjoint stripes that cover every sample;
+      - the ranks decoded disjoint stripes that cover every sample (with
+        --model-parallel M, the M ranks of one model group the same one);
   * worker mode (--process-id): one KD training epoch + validation on tiny
     shapes through the production path: the Batcher's stripe decoding,
     synced BatchNorm, global loss normalisers, the gradient all-reduce, the
     teacher-cache fill forced onto the host-memory path
     (cache_hbm_limit_bytes=0) and completed by all-gathers, precached KD
     steps; --teacher-partition fsdp shards the teacher's storage over the
-    ranks.
+    data axis. --model-parallel M > 1 makes the ranks a 2-D (data, model)
+    mesh (one process a device, so the model axis always spans processes):
+    under tp the worker asserts that some teacher leaf is split, under sp
+    that the image rows are.
 
 Each rank runs on --device: CUDA (the default; no CUDA device raises),
 rank r on cuda:(r mod device count), NCCL when every rank has a card of its
@@ -34,6 +38,8 @@ report share the host and the card.
 
 Usage:
   python -m lmsu_tpu_torch.run_multiprocess --device cpu     # 2 ranks, CPU
+  python -m lmsu_tpu_torch.run_multiprocess --device cpu --num-processes 4 \
+      --model-parallel 2 --teacher-partition sp             # a 2 x 2 mesh
   python -m lmsu_tpu_torch.run_multiprocess --num-processes 2 \\
       --teacher-partition fsdp --scatter-impl sorted_pallas  # on the card(s)
 """
@@ -56,7 +62,8 @@ N_TRAIN = 2 * BATCH
 
 def _config(args, save_dir: str):
     from lmsu_tpu_torch.config import (CameraEncoderConfig, DataConfig, ExperimentConfig,
-                                       KDConfig, LidarEncoderConfig, ModelConfig, TrainConfig)
+                                       KDConfig, LidarEncoderConfig, MeshConfig, ModelConfig,
+                                       TrainConfig)
     return ExperimentConfig(
         model=ModelConfig(
             num_classes=2, fusion_type="concat", fusion_out_channels=32,
@@ -69,9 +76,13 @@ def _config(args, save_dir: str):
         train=TrainConfig(
             num_epochs=1, class_weights=(0.4, 3.5), save_dir=save_dir,
             kd=KDConfig(enabled=True, feature_taps=("camera_feat", "post_fusion"),
-                        cache_teacher=True, teacher_partition=args.teacher_partition,
+                        cache_teacher=True,
+                        # The single-process reference runs the whole teacher.
+                        teacher_partition=(args.teacher_partition if args.num_processes > 1
+                                           else "tp"),
                         # The host-memory path: what every data-parallel run takes.
-                        cache_hbm_limit_bytes=0)))
+                        cache_hbm_limit_bytes=0)),
+        mesh=MeshConfig(model_parallel=args.model_parallel if args.num_processes > 1 else 1))
 
 
 def worker(args) -> None:
@@ -91,12 +102,12 @@ def worker(args) -> None:
         device = torch.device("cuda", args.process_id % torch.cuda.device_count())
     else:
         device = torch.device(args.device)
+    cfg = _config(args, os.path.join(args.tmp, f"run_p{args.process_id}_of_{n}"))
     mesh = None
     if n > 1:
-        mesh = pmesh.make_mesh(device=device, backend=args.backend,
+        mesh = pmesh.make_mesh(cfg.mesh, device=device, backend=args.backend,
                                init_method=args.init_method, rank=args.process_id,
                                world_size=n, timeout_s=args.timeout)
-    cfg = _config(args, os.path.join(args.tmp, f"run_p{args.process_id}_of_{n}"))
     num_stripes, stripe_index = pmesh.process_data_stripes(mesh)
     ds = SyntheticMultiModalDataset(num_samples=N_TRAIN, image_size=cfg.data.image_size,
                                     grid_size=cfg.data.grid_size,
@@ -128,9 +139,17 @@ def worker(args) -> None:
     val_loss, val_metrics = trainer.validate()
     seconds = time.perf_counter() - t0
     shards = trainer.teacher_shards
-    if args.teacher_partition == "fsdp" and n > 1 and not (
-            shards is not None and shards.bytes_per_rank < shards.bytes_full):
-        raise AssertionError("fsdp teacher: no leaf is actually sharded")
+    M = cfg.mesh.model_parallel
+    if (args.teacher_partition == "fsdp" and n // M > 1) or (
+            args.teacher_partition == "tp" and M > 1):
+        # The teacher's leaves must really be split (over the data axis for
+        # fsdp, the model axis for tp), not silently replicated.
+        if not (shards is not None and shards.bytes_per_rank < shards.bytes_full):
+            raise AssertionError(f"{args.teacher_partition} teacher: no leaf is actually "
+                                 "split")
+    if args.teacher_partition == "sp" and n > 1 and not (trainer.teacher_layout == "sp"
+                                               and shards.halos > 0):
+        raise AssertionError("sp teacher: the image rows are not split")
     teacher_bytes = sum(t.numel() * t.element_size()
                         for t in list(trainer.teacher.parameters())
                         + list(trainer.teacher.buffers()))
@@ -138,15 +157,15 @@ def worker(args) -> None:
         "process_id": args.process_id, "num_processes": n, "device": str(device),
         "backend": mesh.backend if mesh is not None else None,
         "teacher_partition": args.teacher_partition, "scatter_impl": args.scatter_impl,
-        "model_parallel": 1, "num_stripes": num_stripes, "stripe_index": stripe_index,
+        "teacher_layout": trainer.teacher_layout,
+        "model_parallel": M, "num_stripes": num_stripes, "stripe_index": stripe_index,
         "decoded_indices": decoded,
         "train_loss": float(train_loss), "train_miou": float(train_metrics["miou"]),
         "val_loss": float(val_loss), "val_miou": float(val_metrics["miou"]),
         "loss_parts": trainer.last_loss_parts,
-        "teacher_bytes_between_forwards": (shards.bytes_per_rank if shards is not None
-                                           else teacher_bytes),
-        "teacher_bytes_full": shards.bytes_full if shards is not None else teacher_bytes,
-        "collectives": dict(mesh.counts) if mesh is not None else None,
+        "teacher_bytes_between_forwards": getattr(shards, "bytes_per_rank", teacher_bytes),
+        "teacher_bytes_full": getattr(shards, "bytes_full", teacher_bytes),
+        "collectives": mesh.axis_counts() if mesh is not None else None,
         "seconds": seconds,
         "params_sha256": hashlib.sha256(b"".join(
             p.detach().cpu().numpy().tobytes() for p in trainer.params.values())).hexdigest(),
@@ -164,6 +183,7 @@ def _command(args, pid: int, nproc: int, tmp: str, init: str, perturb: float = 0
     cmd = [sys.executable, "-m", "lmsu_tpu_torch.run_multiprocess", "--process-id", str(pid),
            "--num-processes", str(nproc), "--output", out, "--device", args.device,
            "--teacher-partition", args.teacher_partition, "--scatter-impl", args.scatter_impl,
+           "--model-parallel", str(args.model_parallel),
            "--init-method", init, "--tmp", tmp, "--timeout", str(args.timeout),
            "--perturb", str(perturb)]
     if args.backend:
@@ -172,9 +192,14 @@ def _command(args, pid: int, nproc: int, tmp: str, init: str, perturb: float = 0
 
 
 def launch(args) -> dict:
-    n = args.num_processes
-    if BATCH % n:
-        raise SystemExit(f"--num-processes must divide the global batch {BATCH}")
+    n, M = args.num_processes, args.model_parallel
+    if M < 1 or n % M:
+        raise SystemExit(f"--model-parallel {M} must divide --num-processes {n}")
+    if BATCH % (n // M):
+        raise SystemExit(f"the data axis (--num-processes / --model-parallel) must divide "
+                         f"the global batch {BATCH}")
+    if args.teacher_partition == "sp" and M == 1:
+        raise SystemExit("--teacher-partition sp needs --model-parallel > 1")
     if args.device == "cuda":
         import torch
         if not torch.cuda.is_available():
@@ -201,11 +226,16 @@ def launch(args) -> dict:
         for k in ("train_loss", "val_loss", "train_miou", "val_miou", "params_sha256"):
             if r[k] != dist[0][k]:
                 raise AssertionError(f"ranks disagree on {k}: {r[k]} != {dist[0][k]}")
-    # 2. disjoint stripes covering the dataset exactly once.
-    all_idx = sorted(i for r in dist for i in r["decoded_indices"])
-    if all_idx != list(range(N_TRAIN)):
+    # 2. disjoint stripes covering the dataset exactly once; the ranks of
+    #    one model group (the same stripe index) decode the same one.
+    stripes = {}
+    for r in dist:
+        if stripes.setdefault(r["stripe_index"], r["decoded_indices"]) != r["decoded_indices"]:
+            raise AssertionError("the ranks of one model group decoded different stripes")
+    all_idx = sorted(i for v in stripes.values() for i in v)
+    if all_idx != list(range(N_TRAIN)) or len(stripes) != n // M:
         raise AssertionError("stripes overlap or miss samples")
-    if any(len(r["decoded_indices"]) != N_TRAIN // n for r in dist):
+    if any(len(v) != N_TRAIN // (n // M) for v in stripes.values()):
         raise AssertionError("stripes of unequal size")
     # 3. distributed == single process over the same global batch, up to the
     #    order of f32 sums: a fixed margin plus 10x the reference's spread.
@@ -223,8 +253,9 @@ def launch(args) -> dict:
         "num_processes": n, "devices_total": n, "device": args.device,
         "backend": dist[0]["backend"],
         "teacher_partition": args.teacher_partition, "scatter_impl": args.scatter_impl,
-        "model_parallel": 1, "num_stripes": dist[0]["num_stripes"],
-        "model_axis_spans_processes": False,
+        "model_parallel": M, "num_stripes": dist[0]["num_stripes"],
+        # One process a device: a model axis of more than one rank spans processes.
+        "model_axis_spans_processes": M > 1, "teacher_layout": dist[0]["teacher_layout"],
         "train_loss_distributed": dist[0]["train_loss"], "train_loss_single": ref["train_loss"],
         "val_miou_distributed": dist[0]["val_miou"], "val_miou_single": ref["val_miou"],
         "held_to_reference": held,
@@ -251,7 +282,15 @@ def main(argv=None):
                    "of its own, else gloo")
     p.add_argument("--teacher-partition", default="tp", choices=["tp", "sp", "fsdp"],
                    help="KDConfig.teacher_partition ('tp' on the 1-D mesh = a replicated "
-                   "teacher; 'fsdp' shards its storage over the ranks; 'sp' is refused)")
+                   "teacher, on the 2-D mesh split by channel over the model axis; 'sp' "
+                   "splits its image rows over the model axis and needs --model-parallel "
+                   "> 1; 'fsdp' shards its storage over the data axis)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="MeshConfig.model_parallel: the ranks form a 2-D ('data','model') "
+                   "mesh, data-major; one process a device, so the model axis spans "
+                   "processes: the teacher's gathers and halo exchanges ride the "
+                   "inter-process collectives, and the processes of one model group "
+                   "decode identical batch stripes")
     p.add_argument("--scatter-impl", default="xla",
                    choices=["xla", "xla_fastbwd", "sorted", "pallas", "sorted_pallas"])
     p.add_argument("--timeout", type=float, default=600.0,

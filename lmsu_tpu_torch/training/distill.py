@@ -43,15 +43,22 @@ onchip_contiguous the cache is permuted with the set, once an epoch, and
 each step gets its rows pre-gathered); the spilled cache cannot ride it
 (NotImplementedError).
 
-Data parallelism (training/trainer.py, parallel/mesh.py): the teacher is
-replicated (KDConfig.teacher_partition "tp", which on the 1-D mesh has no
-model axis to shard over, as in the JAX package) or storage-sharded over
-the ranks ("fsdp", parallel/tp.py: each rank keeps a slice of every frozen
-leaf and a module's leaves are all-gathered for its forward); "sp" needs a
-model axis and raises the JAX package's ValueError. The teacher cache takes
-the host-memory path at world size > 1, as in the JAX package: each rank
-fills its stripe and an all-gather a batch writes every rank's rows, so
-the cache is whole on every rank and any later shuffle finds its rows.
+Parallelism (training/trainer.py, parallel/mesh.py, parallel/tp.py;
+the JAX package's distill.py:183-225): the teacher is broadcast from rank 0,
+then placed by KDConfig.teacher_partition:
+  * "fsdp" shards its storage over the DATA axis of either mesh (each rank
+    keeps a slice of every frozen leaf; a module's leaves are all-gathered
+    for its forward);
+  * on a 2-D mesh (MeshConfig.model_parallel > 1), "tp" (the default)
+    splits it by channel over the model axis and "sp" splits its camera
+    encoder by image rows over it;
+  * on the 1-D mesh "tp" means a replicated teacher, as in the JAX
+    package, and "sp" raises the JAX package's ValueError.
+The teacher cache takes the host-memory path when the data axis has more
+than one rank, as in the JAX package: each rank fills its stripe (with
+the split teacher, on a 2-D mesh) and an all-gather over the data axis a
+batch writes every stripe's rows, so the cache is whole on every rank and
+any later shuffle finds its rows.
 """
 
 from __future__ import annotations
@@ -68,8 +75,9 @@ from lmsu_tpu_torch.models.factory import check_kernel_shapes
 from lmsu_tpu_torch.ops.kd_loss import check_kd_feature_mse, kd_total_loss_fused
 from lmsu_tpu_torch.ops.losses import kd_total_loss
 from lmsu_tpu_torch.ops.metrics import confusion_matrix
-from lmsu_tpu_torch.parallel.mesh import Mesh, all_gather, broadcast_module_
-from lmsu_tpu_torch.parallel.tp import shard_teacher_fsdp
+from lmsu_tpu_torch.parallel.mesh import Mesh, all_gather, broadcast_module_, spanning
+from lmsu_tpu_torch.parallel.tp import (check_sp_height, shard_teacher_fsdp, shard_teacher_sp,
+                                        shard_teacher_tp, tp_axis)
 from lmsu_tpu_torch.training.trainer import Trainer
 
 
@@ -94,12 +102,13 @@ def channels_last(taps: Mapping[str, torch.Tensor], names) -> Dict[str, torch.Te
     return {k: taps[k].permute(0, 2, 3, 1) for k in names}
 
 
-def check_kd_config(kd) -> None:
+def check_kd_config(kd, mesh: Optional[Mesh] = None) -> None:
+    """KDConfig's refusals; "sp" needs a model axis on `mesh` (default: the
+    active mesh)."""
     if kd.teacher_partition not in ("tp", "sp", "fsdp"):
         raise ValueError(f"unknown KDConfig.teacher_partition {kd.teacher_partition!r}; "
                          "expected 'tp', 'sp' or 'fsdp'")
-    if kd.teacher_partition == "sp":
-        # The port's mesh is 1-D (MeshConfig.model_parallel > 1 is refused).
+    if kd.teacher_partition == "sp" and tp_axis(mesh) is None:
         raise ValueError(
             "teacher_partition='sp' needs a model axis (MeshConfig.model_parallel > 1); on "
             "this 1-D mesh it would silently replicate the teacher. Use --model-parallel N, "
@@ -156,8 +165,10 @@ class DistillationTrainer(Trainer):
     `teacher_state_dict` is one state dict, or a list of them for an
     ensemble (its length is then the member count). The default
     teacher_partition "tp" means, on the 1-D mesh as in the JAX package, a
-    replicated (whole) teacher; "fsdp" shards its storage over the mesh's
-    ranks (`teacher_shards` then holds the per-rank bytes)."""
+    replicated (whole) teacher; "fsdp" shards its storage over the data
+    axis, and on a 2-D mesh "tp" and "sp" split it over the model axis
+    (`teacher_layout` names the placement, `teacher_shards` holds its
+    bookkeeping: the bytes a rank, and the collectives of a forward)."""
 
     def __init__(self, config: ExperimentConfig, train_loader, val_loader, *,
                  teacher_state_dict: Union[None, Mapping[str, torch.Tensor],
@@ -165,7 +176,7 @@ class DistillationTrainer(Trainer):
                  teacher_model_config: Optional[ModelConfig] = None, device="cuda",
                  mesh: Optional[Mesh] = None):
         self.kd = config.train.kd
-        check_kd_config(self.kd)
+        check_kd_config(self.kd, mesh if mesh is not None else spanning())
         self.teacher_config = teacher_model_config or teacher_config(
             config.model, self.kd.teacher_width_mult)
         self.num_teachers = (len(self.kd.teacher_checkpoints) if self.kd.teacher_checkpoints
@@ -181,7 +192,8 @@ class DistillationTrainer(Trainer):
         self.loss_impl = kd_total_loss_fused if self.kd.use_pallas else kd_total_loss
         self.teacher_cache: Optional[Dict[str, torch.Tensor]] = None       # on the device
         self.teacher_cache_host: Optional[Dict[str, torch.Tensor]] = None  # spilled
-        self.teacher_shards = None  # parallel/tp.py::FsdpShards under "fsdp"
+        self.teacher_shards = None  # parallel/tp.py's FsdpShards, TPShards or SPShards
+        self.teacher_layout = "replicated"
         super().__init__(config, train_loader, val_loader, device=device, mesh=mesh)
 
     def _teacher_states(self) -> Optional[List[Mapping[str, torch.Tensor]]]:
@@ -210,12 +222,24 @@ class DistillationTrainer(Trainer):
         check_kernel_shapes(self.teacher, self.device, train=False)
         self._teacher_sd = None
         broadcast_module_(self.teacher, mesh=self.mesh)
-        if self.kd.teacher_partition == "fsdp":
-            self.teacher_shards = shard_teacher_fsdp(self.teacher, self.mesh)
-            if self.rank == 0 and self.world > 1:
-                sh = self.teacher_shards
-                print(f"fsdp teacher: {sh.bytes_per_rank / 1e6:.3f} MB a rank of "
-                      f"{sh.bytes_full / 1e6:.3f} MB ({self.world} ranks)", flush=True)
+        part = self.kd.teacher_partition
+        model_axis = self.mesh is not None and tp_axis(self.mesh) is not None
+        if part == "fsdp":
+            self.teacher_shards = shard_teacher_fsdp(self.teacher, self.dmesh)
+            if self.teacher_shards is not None:
+                self.teacher_layout = "fsdp"
+        elif model_axis and part == "tp":
+            self.teacher, self.teacher_shards = shard_teacher_tp(self.teacher, self.mesh)
+            self.teacher_layout = "tp"
+        elif model_axis and part == "sp":
+            check_sp_height(self.config.data.image_size[0], self.mesh.model_size)
+            self.teacher, self.teacher_shards = shard_teacher_sp(self.teacher, self.mesh)
+            self.teacher_layout = "sp"
+        sh = self.teacher_shards
+        if self.is_writer and self.teacher_layout in ("fsdp", "tp"):
+            n = self.world if self.teacher_layout == "fsdp" else self.mesh.model_size
+            print(f"{self.teacher_layout} teacher: {sh.bytes_per_rank / 1e6:.3f} MB a rank of "
+                  f"{sh.bytes_full / 1e6:.3f} MB ({n} ranks)", flush=True)
         s_ch, t_ch = tap_channels(self.config.model), tap_channels(self.teacher_config)
         if self.kd.use_pallas and self.device.type == "cuda":
             for tap in self.kd.feature_taps:
@@ -269,9 +293,9 @@ class DistillationTrainer(Trainer):
             idx = b["sample_index"]
             if self.world > 1:
                 # Every rank's rows of this global batch, on every rank.
-                rows = {k: all_gather(v, self.mesh) for k, v in rows.items()}
-                idx = all_gather(idx.long(), self.mesh)
-                real = all_gather(real.to(torch.uint8), self.mesh).bool()
+                rows = {k: all_gather(v, self.dmesh) for k, v in rows.items()}
+                idx = all_gather(idx.long(), self.dmesh)
+                real = all_gather(real.to(torch.uint8), self.dmesh).bool()
             if cache is None:
                 per_sample = sum(v[0].numel() for v in rows.values()) * dt.itemsize
                 total = per_sample * n

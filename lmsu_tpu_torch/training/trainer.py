@@ -50,8 +50,20 @@ global batch and keeps its own rows. The epoch's loss sums and confusion
 matrix are reduced once at its end. Rank 0 alone writes checkpoints and
 training_history.json; every rank restores the same file. A SIGTERM stop
 is agreed by a max-reduce of the flag at the epoch's end. The on-device
-epoch and validation are single-process, as in the JAX package. Refused by
-name: MeshConfig.model_parallel > 1 (the tp / sp teacher on a 2-D mesh).
+epoch and validation are single-process, as in the JAX package.
+
+On a 2-D (data, model) mesh (MeshConfig.model_parallel = M > 1) the
+student is data-parallel over the data axis and replicated along the model
+axis: the M ranks of one model group take the same stripe, and every
+reduction above runs over the data axis only. The replicas must stay
+identical bit for bit, and on the card they need not compute the same
+gradient bits (the FPN's bilinear backward uses atomicAdd). So the
+gradients are all-reduced over the data axis and then broadcast, with the
+student's floating-point buffers (its BatchNorm running statistics), from
+the rank of model coordinate 0 to the rest of its model group: one more
+collective a step, and every rank of the group leaves the step with rank
+0's bits. AdamW and the EMA then move identical parameters identically.
+Rank 0 of the whole mesh writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -74,8 +86,8 @@ from lmsu_tpu_torch.models.factory import check_kernel_shapes
 from lmsu_tpu_torch.ops import augment
 from lmsu_tpu_torch.ops.losses import LossTotals, global_loss_totals, weighted_cross_entropy
 from lmsu_tpu_torch.ops.metrics import confusion_matrix, iou_from_confusion
-from lmsu_tpu_torch.parallel.mesh import (Mesh, all_reduce_, broadcast_, check_mesh_config,
-                                          data_mesh)
+from lmsu_tpu_torch.parallel.mesh import (Mesh, active, all_reduce_, broadcast_,
+                                          check_mesh_config, model_mesh, spanning)
 from lmsu_tpu_torch.training import checkpoint as ckpt
 from lmsu_tpu_torch.training.monitor import NanGuard, ProgressBar
 from lmsu_tpu_torch.training.schedule import cosine_epoch_schedule, lr_at_epoch
@@ -86,9 +98,8 @@ _BATCH_DTYPES = {"points": np.float32, "segmentation": np.int64, "point_valid": 
 
 
 def check_train_config(config: ExperimentConfig, world_size: int = 1) -> None:
-    """Raise NotImplementedError naming each training option the port does
-    not have yet (MeshConfig.model_parallel > 1), ValueError for a
-    MeshConfig.num_devices other than the world size."""
+    """ValueError for a MeshConfig.model_parallel that does not divide the
+    world size, or a MeshConfig.num_devices other than it."""
     check_mesh_config(config.mesh, world_size)
 
 
@@ -185,17 +196,21 @@ class Trainer:
     point_valid, sample_mask and sample_index. Runs on CUDA unless
     `device="cpu"` is asked for. `mesh` (parallel/mesh.py::make_mesh;
     default: the active mesh when it spans more than one rank) runs on the
-    mesh's device, data-parallel when it has more than one rank, each loader
-    yielding this rank's stripe; a mesh of more than one rank must be the
-    active one, and with none or one rank no other may be active."""
+    mesh's device, data-parallel over its data axis, each loader yielding
+    this rank's stripe; a mesh of more than one rank must be the active
+    one, and with none or one rank no other may be active. `world` and
+    `rank` are the data axis's size and this rank's coordinate on it."""
 
     def __init__(self, config: ExperimentConfig, train_loader, val_loader, *,
                  device="cuda", model=None, mesh: Optional[Mesh] = None):
-        self.mesh = mesh if mesh is not None else data_mesh()
-        self.world = self.mesh.world_size if self.mesh is not None else 1
-        self.rank = self.mesh.rank if self.mesh is not None else 0
+        self.mesh = mesh if mesh is not None else spanning()
+        self.dmesh = self.mesh.data_axis() if self.mesh is not None else None
+        self.world = self.dmesh.world_size if self.dmesh is not None else 1
+        self.rank = self.dmesh.rank if self.dmesh is not None else 0
+        self.global_world = self.mesh.world_size if self.mesh is not None else 1
+        self.is_writer = self.mesh is None or self.mesh.rank == 0
         self._check_mesh()
-        check_train_config(config, self.world)
+        check_train_config(config, self.global_world)
         augment.check_augment_compat(config.train.augment, config.model.lidar.scatter_impl,
                                      cache_teacher=config.train.kd.cache_teacher)
         self.device = resolve_device(self.mesh.device if self.mesh is not None else device)
@@ -225,7 +240,7 @@ class Trainer:
         self.last_host_stall_frac = 0.0
         self.last_loss_parts_raw: Dict[str, torch.Tensor] = {}
         self.save_dir = tc.save_dir
-        self.history = ckpt.HistoryWriter(self.save_dir, write=self.rank == 0)
+        self.history = ckpt.HistoryWriter(self.save_dir, write=self.is_writer)
         self._epoch_index = 0
         self._preempt_requested = False
         self._async_ckpt: Optional[ckpt.AsyncCheckpointer] = None
@@ -285,7 +300,8 @@ class Trainer:
         """BatchNorm, the fused blocks and the loaders reduce over the active
         mesh, the trainer over its own: they must be one (at one rank, no
         other may be active)."""
-        if (self.mesh if self.world > 1 else None) is not data_mesh():
+        mine = spanning(self.mesh) if self.mesh is not None else None
+        if mine is not spanning(active()):
             raise ValueError("Trainer: its mesh must be the active one (the last made by "
                              "parallel/mesh.py::make_mesh, not destroyed), or None with no "
                              "mesh of more than one rank active")
@@ -296,18 +312,23 @@ class Trainer:
         if self.world == 1:
             return None
         return global_loss_totals(b["segmentation"], self.class_weights,
-                                  self.config.train.ignore_index, sample_weight, self.mesh)
+                                  self.config.train.ignore_index, sample_weight, self.dmesh)
 
     def _reduce_grads(self) -> None:
-        """Sum the gradients over the mesh: one flat all-reduce (per dtype)."""
-        if self.world == 1:
-            return
+        """Sum the gradients over the data axis: one flat all-reduce (per
+        dtype). On a 2-D mesh, then one broadcast of the gradients and the
+        student's floating-point buffers from the rank of model coordinate 0
+        to its model group (the module docstring)."""
         grads = [p.grad for p in self.params.values()]
-        for dtype in dict.fromkeys(g.dtype for g in grads):
-            gs = [g for g in grads if g.dtype == dtype]
-            flat = all_reduce_(torch.cat([g.reshape(-1) for g in gs]), mesh=self.mesh)
-            for g, f in zip(gs, flat.split([g.numel() for g in gs])):
-                g.copy_(f.view_as(g))
+        mm = model_mesh(self.mesh) if self.mesh is not None else None
+        if self.world > 1:
+            for dtype in dict.fromkeys(g.dtype for g in grads):
+                gs = [g for g in grads if g.dtype == dtype]
+                flat = all_reduce_(torch.cat([g.reshape(-1) for g in gs]), mesh=self.dmesh)
+                for g, f in zip(gs, flat.split([g.numel() for g in gs])):
+                    g.copy_(f.view_as(g))
+        if mm is not None:
+            broadcast_(grads + [b for b in self.model.buffers() if b.is_floating_point()], 0, mm)
 
     def _apply_update(self, loss: torch.Tensor) -> None:
         """Backward, optional clipping, AdamW at schedule(step), EMA."""
@@ -395,7 +416,7 @@ class Trainer:
         K = tc.scan_steps
         bar = ProgressBar(len(loader) if hasattr(loader, "__len__") else None,
                           "Training" if train else "Validation", tc.progress)
-        sums, pending = _EpochSums(self.mesh), []
+        sums, pending = _EpochSums(self.dmesh), []
         waited, t0 = 0.0, time.perf_counter()
         it = iter(loader)
         try:
@@ -450,7 +471,7 @@ class Trainer:
         permuted once. No host batch, no per-step copy."""
         if not hasattr(self.train_loader, "batcher"):
             raise ValueError("onchip_epoch needs a Batcher-based loader")
-        if self.world > 1:
+        if self.global_world > 1:
             raise NotImplementedError(
                 "onchip_epoch is single-process: the epoch scan gathers from one "
                 "HBM-resident copy of the whole dataset, which multi-host shard_batch would "
@@ -511,7 +532,7 @@ class Trainer:
 
     def validate(self) -> Tuple[float, Dict]:
         want = self.config.train.onchip_eval
-        supported = hasattr(self.val_loader, "batcher") and self.world == 1
+        supported = hasattr(self.val_loader, "batcher") and self.global_world == 1
         if want is None:  # follow onchip_epoch where the loader allows it
             want = self.config.train.onchip_epoch and supported
         elif want and not supported:
@@ -542,9 +563,9 @@ class Trainer:
 
     def save_checkpoint(self, epoch: int, val_miou: float, is_best: bool = False,
                         snapshot: Optional[str] = None) -> None:
-        """Write latest (and best, and the snapshot); rank 0 alone under
-        data parallelism, the weights being equal on every rank."""
-        if self.rank != 0:
+        """Write latest (and best, and the snapshot); rank 0 of the mesh
+        alone under data parallelism, the weights being equal on every rank."""
+        if not self.is_writer:
             return
         if self.config.train.async_checkpoint:
             if self._async_ckpt is None:
@@ -589,7 +610,7 @@ class Trainer:
         """Whether to stop after this epoch: under data parallelism a
         max-reduce of every rank's flag, so all ranks stop together and none
         waits in a collective that the others never reach."""
-        if self.world == 1:
+        if self.global_world == 1:
             return self._preempt_requested
         flag = torch.tensor([float(self._preempt_requested)], device=self.device)
         self._preempt_requested = bool(all_reduce_(flag, "max", mesh=self.mesh).item())

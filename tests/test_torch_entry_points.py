@@ -163,17 +163,20 @@ def test_entry_point_raises_without_cuda(monkeypatch, cli, argv):
 
 
 def test_common_flags_are_the_ported_options_only():
-    """The option the port refuses is refused by name: --model-parallel
-    parses, 1 builds, more raises NotImplementedError naming
-    MeshConfig.model_parallel when the config is built; --data-root,
+    """--model-parallel N sets MeshConfig.model_parallel (1 and 2 build; a
+    trainer on one process then refuses 2 with the JAX package's
+    ValueError, since 2 does not divide one rank); --data-root,
     --decoded-cache and --dataset set their fields, and without --dataset
     the preset's holds; --fusion-type takes the four fusions; the loop and
     run-control flags and --lidar-encoder set their fields."""
     p = train_synthetic.make_parser()
     assert train_synthetic.build_config(p.parse_args(["--model-parallel", "1"])) \
         .mesh.model_parallel == 1
-    with pytest.raises(NotImplementedError, match="MeshConfig.model_parallel > 1"):
-        train_synthetic.build_config(p.parse_args(["--model-parallel", "2"]))
+    cfg2 = train_synthetic.build_config(p.parse_args(["--model-parallel", "2"]))
+    assert cfg2.mesh.model_parallel == 2
+    from lmsu_tpu_torch.training import Trainer
+    with pytest.raises(ValueError, match="model_parallel=2 does not divide 1 devices"):
+        Trainer(cfg2, [], [], device="cpu")
     with pytest.raises(SystemExit):
         p.parse_args(["--dataset", "nuscenes"])
     data = train_synthetic.build_config(p.parse_args(
@@ -281,18 +284,20 @@ def test_train_distill_trains_an_ensemble_of_teachers(tmp_path, monkeypatch, cap
 
 
 def test_train_distill_rejects_unported_flags():
-    """--model-parallel 2 (the 2-D mesh) is not ported: refused by name when
-    the config is built; 1 is accepted. --teacher-partition fsdp parses into
-    KDConfig; tp and sp without --model-parallel > 1 exit as the JAX script
-    does. --teacher-lidar-encoder and --scan-steps are ported: the teacher's
+    """--model-parallel 2 builds the config of the 2-D mesh, with tp or sp
+    as asked; 1 is accepted. --teacher-partition fsdp parses into KDConfig;
+    tp and sp without --model-parallel > 1 exit as the JAX script does. --teacher-lidar-encoder and --scan-steps are ported: the teacher's
     encoder is set on top of teacher_config, the student's stays its own."""
     p = train_distill.make_parser()
     cfg, _ = train_distill.build_configs(p.parse_args(["--teacher-partition", "fsdp"]))
     assert cfg.train.kd.teacher_partition == "fsdp"
     cfg, _ = train_distill.build_configs(p.parse_args(["--model-parallel", "1"]))
     assert cfg.mesh.model_parallel == 1
-    with pytest.raises(NotImplementedError, match="MeshConfig.model_parallel > 1"):
-        train_distill.build_configs(p.parse_args(["--model-parallel", "2"]))
+    cfg, _ = train_distill.build_configs(p.parse_args(["--model-parallel", "2"]))
+    assert (cfg.mesh.model_parallel, cfg.train.kd.teacher_partition) == (2, "tp")
+    cfg, _ = train_distill.build_configs(p.parse_args(["--model-parallel", "2",
+                                                       "--teacher-partition", "sp"]))
+    assert (cfg.mesh.model_parallel, cfg.train.kd.teacher_partition) == (2, "sp")
     with pytest.raises(SystemExit, match="needs --model-parallel > 1"):
         train_distill.build_configs(p.parse_args(["--teacher-partition", "sp"]))
     cfg, tcfg = train_distill.build_configs(p.parse_args(

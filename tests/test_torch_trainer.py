@@ -115,9 +115,10 @@ def test_resumed_run_ends_where_the_full_run_ends(full_run, tmp_path):
     ("MeshConfig", "mesh"),
 ])
 def test_unported_options_are_refused_by_name(tmp_path, option, field):
-    """Options the port does not have raise NotImplementedError naming
-    them: MeshConfig.model_parallel > 1 (the 2-D mesh). The rest are ported
-    and are refused, by name, where the JAX package refuses them: the "sp"
+    """Every option is ported (MeshConfig.model_parallel > 1, the 2-D mesh,
+    since tests/test_torch_parallel_2d.py) and each is refused, by name,
+    where the JAX package refuses it: a model_parallel that does not divide
+    the ranks (ValueError, JAX's words: on one process 2 does not), the "sp"
     teacher partition on the 1-D mesh (ValueError: it needs a model axis;
     "fsdp" and "tp" are ported, tests/test_torch_parallel_kd.py), a point-moving
     augmentation term with the sorted scatter, the flip with the cache, one
@@ -139,6 +140,7 @@ def test_unported_options_are_refused_by_name(tmp_path, option, field):
         option, error = "sorted_pallas", ValueError
     elif field == "mesh":
         cfg = cfg.replace(mesh=MeshConfig(model_parallel=2))
+        option, error = "model_parallel=2 does not divide 1 devices", ValueError
     elif option in ("cache_teacher", "ensemble", "teacher_partition"):
         cfg = cfg.replace(train=dataclasses.replace(tc, kd=dataclasses.replace(tc.kd, **field)))
         if option == "teacher_partition":
@@ -168,8 +170,7 @@ def test_unported_options_are_refused_by_name(tmp_path, option, field):
         with pytest.raises(ValueError, match=f"{option}.*Batcher"):
             tr.train_epoch() if option == "onchip_epoch" else tr.validate()
         return
-    match = {"ensemble": "ensemble", "MeshConfig": "MeshConfig.model_parallel > 1"}.get(option,
-                                                                                 option)
+    match = {"ensemble": "ensemble"}.get(option, option)
     with pytest.raises(error, match=match):
         DistillationTrainer(cfg, [], [], device="cpu", teacher_state_dict=teacher_sd)
 
