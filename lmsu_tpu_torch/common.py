@@ -33,6 +33,38 @@ from lmsu_tpu_torch.config import AugmentConfig, ExperimentConfig
 
 FUSION_TYPES = ("concat", "minimal", "weighted", "gated_sum")
 SCATTER_IMPLS = ("xla", "xla_fastbwd", "sorted", "pallas", "sorted_pallas")
+#: Each fusion's published output width (the host tools' models).
+FUSION_CHANNELS = {"concat": 256, "minimal": 128, "weighted": 128, "gated_sum": 128}
+
+#: Where the port's host tools and experiments write by default
+#: (result JSONs, run directories, figures). Every default output of their
+#: scripts/ counterparts is a file the JAX package keeps in git (the root
+#: result JSONs, checkpoints/<run>/training_history.json,
+#: docs/weighted_gate_analysis.json); the port's go under this root of its
+#: own, which .gitignore lists, so a run with the defaults overwrites none
+#: of them. Each tool and experiment takes --output-root to move it.
+OUTPUT_ROOT = "torch_runs"
+
+
+def import_pyplot():
+    """matplotlib's pyplot on the Agg backend, imported when a tool draws.
+    Without matplotlib it raises, naming it: a tool asked for figures never
+    skips them silently (the card's machine has no matplotlib; the tools'
+    compute functions run there without it)."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise RuntimeError("drawing figures needs matplotlib, which is not installed "
+                           "here; install it or run the tool where it is") from e
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    return plt
+
+
+def add_output_root_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--output-root", default=OUTPUT_ROOT,
+                   help="directory of every default output path (result JSON, run "
+                   "directories, figures); default %(default)s")
 
 
 def add_common_args(p: argparse.ArgumentParser) -> None:

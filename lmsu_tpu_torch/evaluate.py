@@ -38,6 +38,19 @@ def checkpoint_weights(payload: dict) -> dict:
     return state
 
 
+def load_weights(path: str, model_config: ModelConfig) -> dict:
+    """The model state dict of a checkpoint, told by content: a torch file
+    of the port's trainers (checkpoint_weights: the EMA's parameters where
+    the run kept them) or a JAX-package flax checkpoint (its EMA shadow
+    where present, converted by utils/weights.py)."""
+    from lmsu_tpu_torch.training.checkpoint import load_checkpoint
+    from lmsu_tpu_torch.utils.flax_checkpoint import is_torch_file, load_model_variables
+    from lmsu_tpu_torch.utils.weights import from_jax_variables
+    if is_torch_file(path):
+        return checkpoint_weights(load_checkpoint(path))
+    return from_jax_variables(load_model_variables(path), model_config)
+
+
 def evaluate_checkpoint(cfg: ExperimentConfig, checkpoint: str, split: str = "val",
                         device="cuda") -> dict:
     """Load `checkpoint` into the trainer's model and run one eval epoch

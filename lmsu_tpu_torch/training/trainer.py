@@ -91,6 +91,7 @@ from lmsu_tpu_torch.parallel.mesh import (Mesh, active, all_reduce_, broadcast_,
 from lmsu_tpu_torch.training import checkpoint as ckpt
 from lmsu_tpu_torch.training.monitor import NanGuard, ProgressBar
 from lmsu_tpu_torch.training.schedule import cosine_epoch_schedule, lr_at_epoch
+from lmsu_tpu_torch.utils.profiling import StallMeter
 
 # The device dtype of each batch key (other keys stay on the host).
 _BATCH_DTYPES = {"points": np.float32, "segmentation": np.int64, "point_valid": np.bool_,
@@ -417,15 +418,15 @@ class Trainer:
         bar = ProgressBar(len(loader) if hasattr(loader, "__len__") else None,
                           "Training" if train else "Validation", tc.progress)
         sums, pending = _EpochSums(self.dmesh), []
-        waited, t0 = 0.0, time.perf_counter()
-        it = iter(loader)
+        # Training measures input stall (StallMeter). The share is written in
+        # the finally, so an epoch that an exception cuts short (a loader
+        # error, a NaN guard, a failed step) reports its own share, as the
+        # JAX trainer's (trainer.py:331-346); closing the meter's iterator
+        # first sets its total also when the step raised.
+        meter = StallMeter(loader) if train else None
+        it = iter(meter if train else loader)
         try:
-            while True:
-                tw = time.perf_counter()
-                batch = next(it, None)
-                waited += time.perf_counter() - tw
-                if batch is None:
-                    break
+            for batch in it:
                 if K == 1:
                     sums.add(*self._step(batch, train))
                     bar.update(1)
@@ -441,8 +442,9 @@ class Trainer:
                 bar.update(1)
         finally:
             bar.close()
-        if train:
-            self.last_host_stall_frac = waited / max(time.perf_counter() - t0, 1e-9)
+            if train:
+                it.close()
+                self.last_host_stall_frac = meter.stall_frac
         return sums.finish(tc.metrics_num_classes)
 
     # -- the on-device epoch (TrainConfig.onchip_epoch / onchip_eval) ---------

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: it imports neither jax/flax nor msgpack nor
-anything of the JAX package, its entry points run on CUDA unless asked for the CPU,
+anything of the JAX package or its scripts/, nor matplotlib when a module is
+imported (the host tools import it to draw), its entry points run on CUDA
+unless asked for the CPU,
 and its kernel wrappers never fall back to the plain version for a tensor
 that is not on the CPU."""
 
@@ -16,7 +18,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "lmsu_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "lmsu_tpu",
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "lmsu_tpu", "scripts",
              "lightweight_multi_modal_scene_understanding_via_knowledge_distillation_tpu"}
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -38,7 +40,9 @@ def test_source_imports_no_jax(path):
 
 def test_package_imports_with_jax_blocked():
     """Every module of the port (and chip_smoke.py) imports in a process
-    where jax, flax and the JAX package cannot be imported at all."""
+    where jax, flax, the JAX package and its scripts/ cannot be imported at
+    all, and none of them imports matplotlib (the host tools, experiments/
+    among the modules walked, import it only to draw)."""
     code = (
         "import sys\n"
         f"for m in {sorted(FORBIDDEN)!r}: sys.modules[m] = None\n"
@@ -48,6 +52,7 @@ def test_package_imports_with_jax_blocked():
         "import chip_smoke\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r} and sys.modules[m] is not None]\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "print('ok')\n")
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
