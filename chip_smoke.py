@@ -7,6 +7,7 @@ check them.
     python3 chip_smoke.py --phases pandaset
     python3 chip_smoke.py --phases parallel
     python3 chip_smoke.py --phases experiments
+    python3 chip_smoke.py --phases benches
 
 Phases:
   1. build   every hand-written kernel (one nvcc per source, in parallel),
@@ -252,9 +253,37 @@ Phases:
              the card around ten B=128 f32 KD steps, p50 within 10% of CUDA
              events' median (the unsynchronised timer's reading printed).
 
+  8. benches the last experiments, summarize and the benches
+             (phase_benches), every output under a temporary output root:
+             (a) the nine experiments (`python -m
+             lmsu_tpu_torch.experiments.<name>`: augment, augment_noisy,
+             best_recipe, teacher_scaling, capacity_gap, ta_chain, ema,
+             gated_sum, quant_accuracy) at the experiments phase's tiny
+             regime with their kernel opt-ins (the augment family K6, K2,
+             K7: its flip and point dropout refuse the sorted scatter; the
+             recipe experiments K6, K7; ema K6; gated_sum K1, K5;
+             quant_accuracy K1, K2, K3, K5): the script's result keys,
+             every mIoU finite in [0, 1], the selected kernels launched;
+             (f) quant_accuracy's int8 evaluation launches K3; (c)
+             bench_serving at full width in f32 and bf16 (B=8, one
+             concurrency level for 2 s, a 2 s open-loop saturation and a
+             null backend sleeping the measured B=8 forward): one frame's
+             engine output == the Predictor called directly (f32 1e-5,
+             bf16 2e-2), K1-K3 launched; (d) bench_frozen_predictor's
+             chained forwards (B=1 and 8, f32 and bf16, the frozen copy and
+             the module path) against one forward of the same input (f32
+             1e-5 of scale, bf16 twice the module path's gap to f32), its
+             ms a chained forward beside one forward's CUDA-event time; (e)
+             dress_rehearsal's packed and onchip modes on numpy-made packs
+             of DRESS_FRAMES frames, K1 and K5 launched (raw, cache and
+             bench_input_pipeline only where PIL and pandas import); (b)
+             summarize_experiments over the root: the sections of the JSONs
+             written print, no TPU named, no *_v5e* file opened. Each
+             part's seconds are printed.
+
 Output: the card's name and power limit (nvidia-smi), then per-phase lines,
 the whole run's seconds, then one `{"kernels": [...]}` JSON line, the serving, train,
-parallel and experiments summaries,
+parallel, experiments and benches summaries,
 the nvidia-smi line again, and as the last line `{"ok": true, "device":
 {...}}`. Any failed check raises and the script exits non-zero; without a
 GPU it exits non-zero at once.
@@ -267,6 +296,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -5008,12 +5038,349 @@ def phase_experiments(dev) -> dict:
     return res
 
 
+# -- benches phase: the last experiments, summarize and the benches -----
+
+# The augment family's arms flip and drop points, which the sorted scatter
+# refuses (ops/augment.py::check_augment_compat): they take the pallas
+# scatter (K6) with the gate (K2) and feature-MSE (K7) kernels.
+AUG_KERNELS = ["--scatter-impl", "pallas", "--use-pallas-fusion", "--use-pallas-kd"]
+AUG_KEYS = {"benchmark", "config", "per_seed", "mean_miou"} | {
+    f"{g}_{s}" for g in ("aug_gap", "kd_aug_gap", "aug_on_top_of_kd")
+    for s in ("per_seed", "mean", "min")}
+K_AUG = ("voxelize_scatter_max", "fusion_gate", "kd_feature_mse")
+K_RECIPE = ("voxelize_scatter_max", "kd_feature_mse")
+# (experiment, its flags past the tiny regime, the kernels its configuration
+# selects, the result JSON's keys), in the order their outputs feed each
+# other: augment's teacher and results before augment_noisy, best_recipe and
+# ema; teacher_scaling's before capacity_gap, whose w=4 teacher ta_chain
+# distils.
+BENCH_EXPERIMENTS = (
+    ("augment", ["--seeds", "0"] + AUG_KERNELS, K_AUG, AUG_KEYS),
+    ("augment_noisy", ["--seeds", "0"] + AUG_KERNELS, K_AUG,
+     AUG_KEYS | {"noisy_gap_per_seed", "noisy_gap_mean", "noisy_vs_aug_mean"}),
+    ("best_recipe", ["--seeds", "0"] + AUG_KERNELS, K_AUG,
+     AUG_KEYS | {"noisy_gap_per_seed", "noisy_gap_mean", "noisy_vs_aug_mean",
+                 "best_recipe_vs_noisy_t2", "best_recipe_vs_noisy_t2_mean"}),
+    ("teacher_scaling", list(EXP_RECIPE), K_RECIPE, {"benchmark", "config", "per_width"}),
+    ("capacity_gap", list(EXP_RECIPE), K_RECIPE,
+     {"benchmark", "config", "full_size_student_rows", "per_teacher_width"}),
+    ("ta_chain", list(EXP_RECIPE), K_RECIPE,
+     {"benchmark", "config", "direct_cells", "tscale_w4_student_committed", "stages"}),
+    ("ema", ["--seeds", "0", "--scatter-impl", "pallas"], ("voxelize_scatter_max",),
+     {"benchmark", "config", "per_seed"}),
+    ("gated_sum", ["--seeds", "0", "--scatter-impl", "sorted_pallas"],
+     ("scatter_sorted_fwd", "scatter_sorted_bwd"),
+     {"benchmark", "experiment", "config", "per_seed", "mean_miou"}),
+    ("quant_accuracy", ["--calib-batches", "1", "--scatter-impl", "sorted_pallas",
+                        "--use-pallas-fusion", "--fused-inference"],
+     ("scatter_sorted_fwd", "fusion_gate", "ir_fused_infer", "scatter_sorted_bwd"),
+     {"benchmark", "model", "regime", "seed", "calib_batches", "trained_best_miou", "fp32",
+      "int8", "miou_delta", "argmax_agreement", "device"}),
+)
+
+
+def bench_experiment_mious(name: str, res: dict) -> list:
+    """Every mIoU an experiment's result JSON holds."""
+    if name in ("augment", "augment_noisy", "best_recipe", "ema", "gated_sum"):
+        return [v for r in res["per_seed"].values() for k, v in r.items()
+                if isinstance(v, float) and not k.startswith("vs_")]
+    if name in ("teacher_scaling", "capacity_gap"):
+        rows = res["per_width" if name == "teacher_scaling" else "per_teacher_width"]
+        return [r[k] for r in rows.values() for k in ("teacher", "student")]
+    if name == "ta_chain":
+        return list(res["stages"].values())
+    return [res["fp32"]["miou"], res["int8"]["miou"]]
+
+
+def run_bench_experiments(dev, root) -> dict:
+    """(a) The nine experiments through their main(argv) at the experiments
+    phase's tiny regime (EXP_TINY, seed 0), every output under `root`: the
+    result JSON has the script's keys, every mIoU in it is finite and in
+    [0, 1], each kernel its configuration selects launched (counts from 0
+    before each experiment). (f) quant_accuracy's float and int8 evaluations'
+    launches apart: K3 must launch in the int8 path's."""
+    import importlib
+
+    from lmsu_tpu_torch.experiments import quant_accuracy
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    out = {}
+    evals = []
+    real_eval = quant_accuracy._eval_predictor
+
+    def counted_eval(*a, **kw):
+        before = {k: v.launches for k, v in kernels().items()}
+        r = real_eval(*a, **kw)
+        evals.append({k: v.launches - before[k] for k, v in kernels().items()
+                      if v.launches - before[k]})
+        return r
+    for name, argv, need, keys in BENCH_EXPERIMENTS:
+        mod = importlib.import_module(f"lmsu_tpu_torch.experiments.{name}")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        quant_accuracy._eval_predictor = counted_eval
+        try:
+            with quiet(name):
+                res = mod.main(["--device", str(dev), "--output-root", root] + EXP_TINY + argv)
+        finally:
+            quant_accuracy._eval_predictor = real_eval
+        secs = time.perf_counter() - t0
+        launches = {k: v.launches for k, v in kernels().items() if v.launches}
+        mious = [float(v) for v in bench_experiment_mious(name, res)]
+        bad = [k for k in need if launches.get(k, 0) <= 0]
+        if (set(res) != keys or not mious
+                or not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in mious) or bad):
+            raise AssertionError(f"benches {name}: keys {sorted(res)}, mIoU {mious}, "
+                                 f"kernels not launched {bad}, launches {launches}")
+        out[name] = {"seconds": secs, "mious": mious, "launches": launches}
+        if name == "quant_accuracy":
+            float_eval, int8_eval = evals
+            if int8_eval.get("ir_fused_infer", 0) <= 0:
+                raise AssertionError(f"quant_accuracy: K3 not launched in the int8 path "
+                                     f"{int8_eval}")
+            out[name].update({"float_eval_launches": float_eval,
+                              "int8_eval_launches": int8_eval,
+                              "argmax_agreement": res["argmax_agreement"],
+                              "device": res["device"]})
+        log(f"[benches a] {name}: {json.dumps(out[name])}")
+    return out
+
+
+def bench_serving_batch(pred, frames):
+    """The first B frames as the engine preprocesses them, on the device."""
+    prepped = [pred._maybe_sort(pts, pv) for _, pts, pv in frames[:B]]
+    imgs = torch.from_numpy(np.stack([f[0] for f in frames[:B]])).to(pred.device)
+    pts = torch.from_numpy(np.stack([p for p, _ in prepped])).to(pred.device)
+    pv = torch.from_numpy(np.stack([v for _, v in prepped])).to(pred.device)
+    return imgs, pts, pv
+
+
+def check_bench_serving(dev, root) -> dict:
+    """(c) bench_serving at full width (weighted/128, 256^2 uint8, 5,000
+    points, the serving opt-ins), f32 and bf16, at the engine batch B=8: one
+    B=8 forward's CUDA-event time, then one frame's engine output against the
+    Predictor called directly on the same preprocessed batch (serving's
+    check (a): f32 1e-5, bf16 2e-2), then the bench's main with --duration 2
+    at one concurrency level, --saturation 2 and --null-backend-ms that
+    forward's time; K1, K2 and K3 must launch in the main's run."""
+    from lmsu_tpu_torch import bench_frozen_predictor as bfp
+    from lmsu_tpu_torch import bench_serving as bs
+    from lmsu_tpu_torch.inference import Predictor
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    out = {}
+    for dt, flags in (("f32", ["--fp32"]), ("bf16", [])):
+        argv = ["--device", str(dev), "--output-root", root, "--batch-size", str(B),
+                "--concurrency", "8", "--duration", "2", "--saturation", "2",
+                "--out", os.path.join(root, "docs", f"serving_bench_{dt}.json")] + flags
+        args = bs.make_parser().parse_args(argv)
+        cfg, img_hw, n_pts = bs.serving_model_config(args, True)
+        pred = Predictor(cfg, None, device=dev)
+        frames = bs.make_frame_pool(np.random.default_rng(7), B, img_hw, n_pts)
+        imgs, pts, pv = bench_serving_batch(pred, frames)
+        fwd_ms = bfp.one_forward_ms(pred.forward_batch, imgs, pts, pv)
+        direct = pred.forward_batch(imgs, pts, pv).float().cpu().numpy()
+        engine = bs.build_engine(args, B)[0]
+        try:
+            got = engine.predict(*frames[0], timeout=300)
+        finally:
+            engine.close()
+        err = float(np.abs(got - direct[0]).max())
+        tol = 1e-5 if dt == "f32" else 2e-2
+        if got.shape != (GRID, GRID, 2) or not np.isfinite(got).all() or err > tol:
+            raise AssertionError(f"bench_serving {dt}: engine != direct Predictor "
+                                 f"({err:g} > {tol:g}, shape {got.shape})")
+        reset_launch_counts()
+        with quiet(f"bench_serving {dt}"):
+            res = bs.main(argv + ["--null-backend-ms", f"{fwd_ms:.4f}"])
+        launches = {k: v.launches for k, v in kernels().items() if v.launches}
+        if any(launches.get(k, 0) <= 0 for k in SERVING_KERNELS):
+            raise AssertionError(f"bench_serving {dt}: launches {launches}")
+        det = res["detail"]
+        out[dt] = {"b8_forward_ms": fwd_ms, "err_engine_vs_direct": err,
+                   "levels": det["levels"], "saturation": det["saturation"],
+                   "null_backend": det["null_backend"], "launches": launches,
+                   "device": res["device"]}
+        log(f"[benches c] bench_serving {dt}: {json.dumps(out[dt])}")
+    # The artifact summarize's performance section reads: the bf16 run's.
+    shutil.copy(os.path.join(root, "docs", "serving_bench_bf16.json"),
+                os.path.join(root, "docs", "serving_bench.json"))
+    return out
+
+
+def check_bench_frozen(dev, root) -> dict:
+    """(d) bench_frozen_predictor's model (the serving cell's, BN moved off
+    identity) at B=1 and B=8, f32 and bf16: the last of 10 chained forwards
+    of the frozen copy, and of the module path, against a single forward of
+    the same path on the same input (images + eps): f32 within 1e-5 of
+    scale; bf16 within twice the module path's bf16 gap to its f32 forward
+    (check_frozen's bar); the frozen copy's gap to the module path is
+    printed (check_frozen holds it). K1, K2 and K3 launch in the chains.
+    Then the bench's main (bf16, B=1 and 8, 20 chained forwards) writes its
+    artifact: ms a chained forward beside one forward's CUDA-event time."""
+    from lmsu_tpu_torch import bench_frozen_predictor as bfp
+    from lmsu_tpu_torch.inference import Predictor
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    img_hw, n_pts, _ = bfp.bench_shapes(False)
+    preds = {}
+    for dt in ("f32", "bf16"):
+        cfg = bfp.bench_config(False, True, fp32=dt == "f32")
+        state = bfp.bench_state(cfg)
+        preds[dt] = (Predictor(cfg, state, device=dev),
+                     Predictor(cfg, state, device=dev, freeze_weights=True))
+    out = {}
+    for b in (1, B):
+        for dt in ("f32", "bf16"):
+            runtime, frozen = preds[dt]
+            reset_launch_counts()
+            row = bfp.run_batch(runtime, frozen, np.random.default_rng(b), b, img_hw, n_pts,
+                                iters=10)
+            launches = {k: v.launches for k, v in kernels().items() if v.launches}
+            outs = row.pop("outputs")
+            images, points, pv = outs["inputs"]
+            single = {k: p.forward_batch(images, points, pv).float()
+                      for k, p in (("runtime", runtime), ("frozen", frozen))}
+            scale = float(single["runtime"].abs().max())
+            errs = {k: float((outs[k].float() - single[k]).abs().max()) for k in single}
+            row["frozen_vs_module"] = float((single["frozen"] - single["runtime"]).abs().max())
+            single = single["runtime"]
+            if dt == "f32":
+                tol = 1e-5 * scale
+            else:
+                f32 = preds["f32"][0].forward_batch(images, points, pv).float()
+                row["gap_to_f32"] = float((single - f32).abs().max())
+                tol = 2 * row["gap_to_f32"]
+            if (any(launches.get(k, 0) <= 0 for k in SERVING_KERNELS)
+                    or not torch.isfinite(single).all() or max(errs.values()) > tol):
+                raise AssertionError(f"bench_frozen_predictor {dt} B={b}: chained vs single "
+                                     f"{errs} (limit {tol:g}, scale {scale:g}), "
+                                     f"launches {launches}")
+            out[f"{dt}_b{b}"] = {**row, "err_chain_vs_single": errs, "limit": tol,
+                                 "scale": scale, "launches": launches}
+            log(f"[benches d] frozen chain {dt} B={b}: {json.dumps(out[f'{dt}_b{b}'])}")
+    with quiet("bench_frozen_predictor"):
+        res = bfp.main(["--device", str(dev), "--output-root", root, "--batches", "1", str(B)])
+    out["main_bf16"] = res["rows"]
+    log(f"[benches d] bench_frozen_predictor main: {json.dumps(res)}")
+    return out
+
+
+def check_dress_rehearsal(dev, root) -> dict:
+    """(e) dress_rehearsal in the packed and onchip modes on packs of
+    numpy-made frames (--numpy-frames: no PIL or pandas), full width, bf16,
+    the sorted scatter, 100,000 points a frame, cut to DRESS_FRAMES frames
+    and 2 epochs (the script's 2,400 and 3): each mode's epochs, their
+    seconds and input stall; K1 and K5 must launch. Where PIL and pandas
+    import, the raw and cache modes and bench_input_pipeline run too, on a
+    fabricated tree of 48 frames."""
+    import importlib.util
+
+    from lmsu_tpu_torch import bench_input_pipeline, dress_rehearsal
+    from lmsu_tpu_torch.ops._cuda import kernels, reset_launch_counts
+    common = ["--device", str(dev), "--output-root", root, "--epochs", "2",
+              "--batch-size", "32", "--num-workers", "4"]
+    reset_launch_counts()
+    with quiet("dress_rehearsal"):
+        res = dress_rehearsal.main(common + ["--numpy-frames", "--modes", "packed,onchip",
+                                             "--frames", str(DRESS_FRAMES),
+                                             "--root", os.path.join(root, "dress")])
+    launches = {k: v.launches for k, v in kernels().items() if v.launches}
+    if any(launches.get(k, 0) <= 0 for k in ("scatter_sorted_fwd", "scatter_sorted_bwd")):
+        raise AssertionError(f"dress_rehearsal: launches {launches}")
+    out = {"modes": res["modes"], "pack_write_s": res["pack_write_s"], "launches": launches,
+           "device": res["device"]}
+    missing = [m for m in ("PIL", "pandas") if importlib.util.find_spec(m) is None]
+    if missing:
+        out["raw_tree"] = f"{', '.join(missing)} not installed: raw, cache and " \
+                          f"bench_input_pipeline do not run here"
+    else:
+        tree = os.path.join(root, "raw")
+        t0 = time.perf_counter()
+        bench_input_pipeline.fabricate_scenes(tree, 48, 100_000)
+        fabricate_s = time.perf_counter() - t0
+        with quiet("dress_rehearsal raw"):
+            raw = dress_rehearsal.main(common + ["--modes", "raw,cache", "--frames", "48",
+                                                 "--root", tree,
+                                                 "--out", os.path.join(root, "raw.json")])
+        with quiet("bench_input_pipeline"):
+            ip = bench_input_pipeline.main(["--device", str(dev), "--output-root", root,
+                                            "--frames", "48", "--epochs", "2", "--root", tree])
+        out["raw_tree"] = {"fabricate_s": fabricate_s, "modes": raw["modes"],
+                           "input_pipeline": ip["epochs"]}
+    log(f"[benches e] dress_rehearsal: {json.dumps(out)}")
+    return out
+
+
+# Frames of (e)'s numpy-made packs: 10 scenes of 16, 128 train and 32 val
+# (the script's reference scale is 2,400: 1,920 and 480).
+DRESS_FRAMES = 160
+# The result sections (a) writes the JSONs of, by heading.
+BENCH_SECTIONS = ("## Device-side augmentation lift", "## Teacher-width scaling",
+                  "## Capacity gap", "## Teacher-assistant chain", "## EMA weights",
+                  "## Performance on the card")
+
+
+def check_summarize(root) -> dict:
+    """(b) summarize_experiments over the phase's output root (after (c)-(f)
+    wrote their artifacts): the sections whose JSONs the phase wrote print,
+    the report names no TPU, and its performance section opens no *_v5e*
+    file (every open counted)."""
+    import builtins
+
+    from lmsu_tpu_torch import summarize_experiments as summ
+    opened = []
+    real_open = builtins.open
+
+    def counting_open(path, *a, **kw):
+        opened.append(str(path))
+        return real_open(path, *a, **kw)
+    builtins.open = counting_open
+    try:
+        text = summ.report(root, summ.card_name())
+    finally:
+        builtins.open = real_open
+    heads = [line for line in text.splitlines() if line.startswith("## ")]
+    missing = [h for h in BENCH_SECTIONS if not any(x.startswith(h) for x in heads)]
+    v5e = [p for p in opened if "_v5e" in p]
+    if missing or v5e or "TPU" in text:
+        raise AssertionError(f"summarize: sections missing {missing}, v5e opened {v5e}, "
+                             f"TPU named: {'TPU' in text}")
+    out = {"sections": heads, "opens": len(opened), "v5e_opens": len(v5e),
+           "lines": len(text.splitlines())}
+    log(f"[benches b] summarize_experiments: {json.dumps(out)}")
+    return out
+
+
+def phase_benches(dev) -> dict:
+    """The benches phase, every output under a temporary output root: (a)
+    the nine experiments and (f) quant_accuracy's int8 path, (c) bench_serving,
+    (d) bench_frozen_predictor, (e) dress_rehearsal, then (b)
+    summarize_experiments over the root. Each part's seconds are printed."""
+    import tempfile
+    t0 = time.perf_counter()
+    res, secs = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        for key, fn in (("experiments", run_bench_experiments),
+                        ("serving", check_bench_serving), ("frozen", check_bench_frozen),
+                        ("dress", check_dress_rehearsal)):
+            t = time.perf_counter()
+            res[key] = fn(dev, root)
+            secs[key] = time.perf_counter() - t
+            log(f"[benches] {key} {secs[key]:.1f} s")
+        t = time.perf_counter()
+        res["summarize"] = check_summarize(root)
+        secs["summarize"] = time.perf_counter() - t
+    res["part_seconds"] = secs
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[benches] phase {res['seconds']:.1f} s ({json.dumps(secs)})")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="kernels,serving,train,pandaset,parallel,experiments",
-                    help="comma list of kernels,serving,train,pandaset,parallel,experiments "
-                    "(build always runs)")
+    ap.add_argument("--phases",
+                    default="kernels,serving,train,pandaset,parallel,experiments,benches",
+                    help="comma list of kernels,serving,train,pandaset,parallel,experiments,"
+                    "benches (build always runs)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5198,6 +5565,7 @@ def main(argv=None) -> int:
         log(f"[pandaset] frames, packs, train_pandaset + evaluate CLIs: "
             f"{json.dumps(tres['pandaset_cli'])}")
     eres = phase_experiments(dev) if "experiments" in phases else {}
+    bres = phase_benches(dev) if "benches" in phases else {}
 
     # Each kernel's launches are counted on its slice's main path, f32: the
     # serving run for K1-K3, the 10 timed in-loop KD steps for K5, K7, the 10
@@ -5274,6 +5642,18 @@ def main(argv=None) -> int:
             entry["experiments_launches"] = {
                 **{d: r["launches"].get(name, 0) for d, r in eres["runs"].items()},
                 "analyze_weighted_gate": eres["gate_analysis"]["launches"].get(name, 0)}
+        if bres:
+            # The benches phase: each experiment's whole run at the tiny regime
+            # (quant_accuracy's int8 evaluation apart), each bench's run.
+            entry["benches_launches"] = {
+                **{d: r["launches"].get(name, 0) for d, r in bres["experiments"].items()},
+                "quant_accuracy_int8_eval":
+                    bres["experiments"]["quant_accuracy"]["int8_eval_launches"].get(name, 0),
+                **{f"bench_serving_{dt}": bres["serving"][dt]["launches"].get(name, 0)
+                   for dt in ("f32", "bf16")},
+                **{f"frozen_chain_{k}": r["launches"].get(name, 0)
+                   for k, r in bres["frozen"].items() if k != "main_bf16"},
+                "dress_rehearsal": bres["dress"]["launches"].get(name, 0)}
         if pres:
             # The parallel phase: the world-1 NCCL step's 3 steps, rank 0's 3
             # steps of each two-rank gloo run, the devices=[card] engine's 16
@@ -5441,6 +5821,19 @@ def main(argv=None) -> int:
                 "trained", "uniform", "camera_only", "lidar_only")},
             "visualize": {k: v for k, v in eres["visualize"].items() if k != "iou_card"},
             "profiling": eres["profiling"], "seconds": eres["seconds"]}, "card": smi}))
+    if bres:
+        print(json.dumps({"benches": {
+            "experiments": {d: {"seconds": r["seconds"], "mious": r["mious"]}
+                            for d, r in bres["experiments"].items()},
+            "serving": {dt: {k: r[k] for k in ("b8_forward_ms", "err_engine_vs_direct",
+                                               "levels", "saturation", "null_backend")}
+                        for dt, r in bres["serving"].items()},
+            "frozen": {k: ({f: r[f] for f in ("runtime_ms", "frozen_ms", "one_forward_ms",
+                                              "err_chain_vs_single", "limit")}
+                           if k != "main_bf16" else r) for k, r in bres["frozen"].items()},
+            "dress": {k: v for k, v in bres["dress"].items() if k != "launches"},
+            "summarize": bres["summarize"], "part_seconds": bres["part_seconds"],
+            "seconds": bres["seconds"]}, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

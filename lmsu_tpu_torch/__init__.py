@@ -11,18 +11,20 @@ The package imports neither jax nor anything of `lmsu_tpu`. Entry points
 trainers, `python -m lmsu_tpu_torch.{serve, train_distill, train_synthetic,
 train_fusion_ablation, train_pandaset, evaluate, run_multiprocess}`) run on
 CUDA unless asked for the CPU, as do `analyze_weighted_gate`,
-`visualize_predictions` and the KD experiments
-(`python -m lmsu_tpu_torch.experiments.<name>`, experiments/);
-`prepare_dataset`, `analyze_distribution`, `plot_training_curves` and
-`create_architecture_diagram` are host tools. The tools and experiments write
-their default outputs under one root of the port's own (common.OUTPUT_ROOT,
-torch_runs/).
+`visualize_predictions`, the experiments
+(`python -m lmsu_tpu_torch.experiments.<name>`, experiments/) and the
+benches (`bench_serving`, `bench_frozen_predictor`, `bench_input_pipeline`,
+`dress_rehearsal`); `prepare_dataset`, `analyze_distribution`,
+`plot_training_curves`, `create_architecture_diagram` and
+`summarize_experiments` are host tools. The tools, experiments and benches
+write their default outputs under one root of the port's own
+(common.OUTPUT_ROOT, torch_runs/).
 
-Ported so far: the model with its four fusions and both heads, serving
+Ported: the model with its four fusions and both heads, serving
 (Predictor -> ServingEngine -> HTTP), CE and KD training, PandaSet,
 synthetic and packed data, data parallelism (parallel/: one process a
 device, the fsdp teacher, data-parallel serving, the model axis),
-profiling (utils/profiling.py), the KD experiments, four host tools
-and every kernel of the JAX package (ROADMAP.md lists what is still to
-port).
+profiling (utils/profiling.py), every experiment, the report, the benches,
+the host tools and every kernel of the JAX package; the TPU and XLA probes
+of scripts/ stay unported (ROADMAP.md).
 """

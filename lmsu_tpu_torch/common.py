@@ -61,6 +61,25 @@ def import_pyplot():
     return plt
 
 
+def device_label(device) -> str:
+    """The device a measurement ran on, as the benches and experiments record
+    it beside their numbers: for a CUDA device the card's name and power
+    limit as `nvidia-smi --query-gpu=name,power.limit` gives them (the name
+    alone where nvidia-smi cannot be read), else the device type."""
+    import subprocess
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(["nvidia-smi", "-i", str(index),
+                              "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60)
+        return out.stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return torch.cuda.get_device_name(index)
+
+
 def add_output_root_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--output-root", default=OUTPUT_ROOT,
                    help="directory of every default output path (result JSON, run "

@@ -1,5 +1,4 @@
-"""The knowledge-distillation experiments of scripts/experiment_kd_*.py,
-experiment_best_overall.py and experiment_crossarch_best.py, on the port.
+"""The experiments of scripts/experiment_*.py, on the port.
 
 Each experiment runs as `python -m lmsu_tpu_torch.experiments.<name>` (the
 script's name less `experiment_`) with its script's flags, arms, grids,
@@ -12,6 +11,15 @@ regimes and result-JSON schema:
   best_overall    the best recipe on minimal/128, through train_distill
   crossarch_best  the best recipe, spatial teacher -> PointPillars student
   kd_ensemble     a two-member ensemble teacher under the best recipe
+  augment         the augmentation lift, with and without KD, paired with kd_lift
+  augment_noisy   noisy-student KD from augment's teachers (cached clean teacher)
+  best_recipe     noisy-student KD at T=4 from augment's teachers
+  teacher_scaling the best recipe at teacher widths 1 and 4 (train_distill)
+  capacity_gap    a half-width student from teachers of width 1, 2, 4 (train_distill)
+  ta_chain        w=4 teacher -> w=1 assistant -> w=0.5 student (train_distill)
+  ema             EMA weights, with and without augmentation (train_synthetic)
+  gated_sum       the gated-sum fusion, paired with a seeded fusion ablation
+  quant_accuracy  int8 against float val mIoU on a trained model
 
 What the port adds to each:
   * --device (CUDA unless 'cpu' is asked for), as the port's CLIs;
@@ -20,12 +28,14 @@ What the port adds to each:
     baselines and the teachers other experiments read) sits under it. The
     scripts' defaults are files the JAX package keeps in git (root result
     JSONs, checkpoints/<run>/training_history.json), and the experiments that
-    read results (kd_sweep, kd_compression, crossarch_best, kd_ensemble)
-    pair with the port's own runs, never with the TPU's;
+    read results (kd_sweep, kd_compression, crossarch_best, kd_ensemble and
+    all of the second group but quant_accuracy) pair with the port's own runs,
+    never with the TPU's;
   * kernel opt-ins, off by default so the arms' configurations equal the
     scripts': --scatter-impl (a common flag), --use-pallas-fusion and
-    --use-pallas-kd on the experiments that build their configurations, and,
-    on the three that drive train_distill, any further train_distill flag,
+    --use-pallas-kd on the experiments that build their configurations
+    (quant_accuracy: --use-pallas-fusion and --fused-inference), and, on those
+    that drive train_distill or train_synthetic, any further flag of that CLI,
     appended after the recipe's (the last of a repeated flag wins).
 Checkpoints are the port's torch files (latest.pth, best.pth); a teacher
 trained in the same process goes to the student's DistillationTrainer as
@@ -90,15 +100,16 @@ def write_json(path: str, obj) -> None:
         json.dump(obj, f, indent=2)
 
 
-def recipe_parser(doc: str, output: str) -> argparse.ArgumentParser:
-    """The flags of an experiment that runs train_distill's recipe per seed:
-    --seeds, --output (default <output-root>/`output`), --output-root and
-    --device. parse_known_args leaves every other flag for train_distill;
-    abbreviations are off, so none of them is taken for one of these
-    (--seed is not --seeds)."""
+def recipe_parser(doc: str, output: str, seeds: bool = True) -> argparse.ArgumentParser:
+    """The flags of an experiment that runs train_distill's recipe: --seeds
+    (with `seeds`), --output (default <output-root>/`output`), --output-root
+    and --device. parse_known_args leaves every other flag for
+    train_distill; abbreviations are off, so none of them is taken for one
+    of these (--seed is not --seeds)."""
     p = argparse.ArgumentParser(description=doc, allow_abbrev=False,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    if seeds:
+        p.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     p.add_argument("--output", default=None, help=f"default <output-root>/{output}")
     add_output_root_arg(p)
     p.add_argument("--device", default="cuda",

@@ -1,10 +1,21 @@
 """Model construction, seeded initialisation and parameter accounting.
 
-Counterpart of lmsu_tpu/models/factory.py. Initialisation draws from one
-torch.Generator seeded by the caller: convolutions He-normal on fan-out (the
-JAX package's variance_scaling(2, fan_out)), biases zero, BatchNorm at
-identity. The two packages draw different numbers from the same seed; tests
-share weights through utils/weights.py instead.
+Counterpart of lmsu_tpu/models/factory.py. Initialisation draws every
+parameter from one torch.Generator seeded by the caller, module by module
+in the model's order, with the law of the flax initialiser its JAX
+counterpart has (utils/weights.py::kernel_table says which):
+  * every conv (the depthwise convs, the x4 head's transposed convs, the
+    classifier and the gate's 1x1 kernels included): flax's conv_init,
+    variance_scaling(2, "fan_out", "truncated_normal");
+  * the point MLP's and the pillar net's Conv1d layers (flax nn.Dense):
+    lecun_normal, variance_scaling(1, "fan_in", "truncated_normal");
+  * biases zero, BatchNorm at identity (scale 1, shift 0, mean 0, var 1).
+Each truncated normal has std sqrt(scale / fan) / 0.8796 before its cut at
++-2 stds, the fans computed on the flax kernel's shape (in axis -2, out axis
+-1, the rest receptive field: a transposed conv's flax kernel is
+[kh, kw, out, in], so its fan_out is kh * kw * in). The two packages draw
+different numbers from the same seed (the RNGs differ; the laws are the
+same); tests share weights through utils/weights.py instead.
 """
 
 from __future__ import annotations
@@ -18,6 +29,9 @@ from lmsu_tpu_torch.config import ModelConfig
 from lmsu_tpu_torch.models.fusion import CompleteSegmentationModel
 from lmsu_tpu_torch.models.layers import InvertedResidual
 from lmsu_tpu_torch.ops.ir_fused import check_fused_infer, check_fused_train
+from lmsu_tpu_torch.utils.weights import init_kernel, kernel_table
+
+_WEIGHTED = (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d)
 
 
 def _check_supported(config: ModelConfig) -> None:
@@ -28,18 +42,26 @@ def _check_supported(config: ModelConfig) -> None:
 
 def create_model(config: Optional[ModelConfig] = None, *, seed: int = 0
                  ) -> CompleteSegmentationModel:
-    """Build the model on the CPU with weights drawn from `seed`."""
+    """Build the model on the CPU with weights drawn from `seed` alone (the
+    module docstring's laws). torch's own initialisation in the modules'
+    constructors runs on a forked RNG and is overwritten, so the global RNG
+    is left as it was."""
     config = config or ModelConfig()
     _check_supported(config)
-    model = CompleteSegmentationModel(config)
+    with torch.random.fork_rng(devices=[]):
+        model = CompleteSegmentationModel(config)
+    table = kernel_table(config)
+    weighted = [(n, m) for n, m in model.named_modules() if isinstance(m, _WEIGHTED)]
+    missing = {n for n, _ in weighted} ^ set(table)
+    if missing:
+        raise AssertionError(f"utils/weights.py::kernel_table does not match this model's "
+                             f"weights: {sorted(missing)}")
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (nn.Conv1d, nn.Conv2d)):
-                nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu",
-                                        generator=gen)
-                if m.bias is not None:
-                    m.bias.zero_()
+        for name, m in weighted:
+            init_kernel(m.weight, table[name].init, gen)
+            if m.bias is not None:
+                m.bias.zero_()
     return model
 
 

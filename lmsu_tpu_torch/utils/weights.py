@@ -27,12 +27,19 @@ Layouts (flax -> torch):
   ConvTranspose2dTorch [kh, kw, O, I] -> ConvTranspose2d [I, O, kh, kw]
                                    (a transpose only: no spatial flip)
   BN scale/bias/mean/var        -> weight/bias/running_mean/running_var
+
+`kernel_table` is the one table of the port's weights: each module that
+holds one -> its flax kernel's path, the flax initialiser that draws it,
+its bias and its BatchNorm. `from_jax_variables` converts by it, and
+models/factory.py::create_model draws each weight by its initialiser
+(`init_kernel`): flax's laws, the RNG the port's own.
 """
 
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +47,58 @@ import torch
 from lmsu_tpu_torch.config import ModelConfig
 
 _STAGES = (("stage1", 1), ("stage2", 6), ("stage3", 6), ("stage4", 6), ("stage5", 6))
+
+#: The flax initialisers the port's weights mirror, as (scale, mode) of
+#: flax's variance_scaling with a truncated normal: conv_init
+#: (lmsu_tpu/models/layers.py:31; every Conv, the transposed convs of the x4
+#: head and the gate's 1x1 kernels) and lecun_normal, flax's default for
+#: nn.Dense (the point MLP and the pillar net).
+INITIALISERS = {"conv_init": (2.0, "fan_out"), "lecun_normal": (1.0, "fan_in")}
+#: The std of a unit normal cut at +-2 (flax's truncated_normal divides by it).
+TRUNC_STD = 0.87962566103423978
+
+
+class Kernel(NamedTuple):
+    """A port weight's flax counterpart: the kernel's path in `params`, its
+    initialiser (a key of INITIALISERS), the bias's path (None without
+    one; biases start at zero) and (the port's BatchNorm name, its flax path)
+    of the BatchNorm after it (None without one; BatchNorm starts at
+    identity)."""
+    path: Tuple[str, ...]
+    init: str
+    bias: Optional[Tuple[str, ...]] = None
+    bn: Optional[Tuple[str, Tuple[str, ...]]] = None
+
+
+def flax_kernel_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The flax kernel's shape of a port weight of `shape` (the layouts
+    above): [O, I, kh, kw] (and a transposed conv's [I, O, kh, kw]) ->
+    [kh, kw, I, O] ([kh, kw, O, I]); Conv1d [O, I, 1] -> Dense [I, O]."""
+    if len(shape) == 4:
+        return (shape[2], shape[3], shape[1], shape[0])
+    if len(shape) == 3 and shape[2] == 1:
+        return (shape[1], shape[0])
+    raise ValueError(f"no flax kernel layout for a weight of shape {tuple(shape)}")
+
+
+def init_std(init: str, shape: Tuple[int, ...]) -> float:
+    """The std of the weights flax's `init` draws for a port weight of
+    `shape`: sqrt(scale / fan), the fans as flax computes them on the flax
+    kernel's shape (in axis -2, out axis -1, the rest receptive field). The
+    normal before the cut at +-2 has this std / TRUNC_STD."""
+    scale, mode = INITIALISERS[init]
+    fshape = flax_kernel_shape(shape)
+    receptive = math.prod(fshape[:-2])
+    fan = fshape[-2 if mode == "fan_in" else -1] * receptive
+    return math.sqrt(scale / fan)
+
+
+def init_kernel(weight: torch.Tensor, init: str, generator: torch.Generator) -> None:
+    """Draws `weight` in place by flax's `init` from `generator`: a normal of
+    std init_std / TRUNC_STD cut at two of its stds."""
+    sigma = init_std(init, tuple(weight.shape)) / TRUNC_STD
+    torch.nn.init.trunc_normal_(weight, std=sigma, a=-2 * sigma, b=2 * sigma,
+                                generator=generator)
 
 
 class _Converter:
@@ -57,17 +116,12 @@ class _Converter:
     def _put(self, key: str, a: np.ndarray) -> None:
         self.sd[key] = torch.from_numpy(np.array(a, order="C"))  # a writable copy
 
-    def conv(self, tkey: str, path: Tuple[str, ...], bias: bool = False) -> None:
+    def kernel(self, tkey: str, path: Tuple[str, ...]) -> None:
+        a = self._get(self.params, path)
         # [kh, kw, I, O] -> [O, I, kh, kw]; for a transposed conv the same
-        # transpose takes [kh, kw, O, I] to torch's [I, O, kh, kw].
-        self._put(f"{tkey}.weight", self._get(self.params, path + ("kernel",))
-                  .transpose(3, 2, 0, 1))
-        if bias:
-            self._put(f"{tkey}.bias", self._get(self.params, path + ("bias",)))
-
-    def dense(self, tkey: str, path: Tuple[str, ...]) -> None:
-        self._put(f"{tkey}.weight", self._get(self.params, path + ("kernel",)).T[:, :, None])
-        self._put(f"{tkey}.bias", self._get(self.params, path + ("bias",)))
+        # transpose takes [kh, kw, O, I] to torch's [I, O, kh, kw]. A Dense
+        # [I, O] -> Conv1d [O, I, 1].
+        self._put(f"{tkey}.weight", a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T[:, :, None])
 
     def bn(self, tkey: str, path: Tuple[str, ...]) -> None:
         self._put(f"{tkey}.weight", self._get(self.params, path + ("scale",)))
@@ -75,10 +129,6 @@ class _Converter:
         self._put(f"{tkey}.running_mean", self._get(self.stats, path + ("mean",)))
         self._put(f"{tkey}.running_var", self._get(self.stats, path + ("var",)))
         self.sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
-
-    def conv_bn(self, tconv: str, tbn: str, path: Tuple[str, ...]) -> None:
-        self.conv(tconv, path + ("conv",))
-        self.bn(tbn, path + ("bn",))
 
 
 def convbn_names(config: ModelConfig) -> Dict[Tuple[str, ...], Tuple[str, str]]:
@@ -126,32 +176,47 @@ def convbn_names(config: ModelConfig) -> Dict[Tuple[str, ...], Tuple[str, str]]:
     return out
 
 
+def kernel_table(config: ModelConfig) -> Dict[str, Kernel]:
+    """Every module of the port's model that holds a weight (a conv, a
+    transposed conv, a Conv1d standing for a Dense) -> its flax
+    counterpart (Kernel), in the order from_jax_variables writes them."""
+    out: Dict[str, Kernel] = OrderedDict()
+    for path, (tconv, tbn) in convbn_names(config).items():
+        out[tconv] = Kernel(path + ("conv", "kernel"), "conv_init", bn=(tbn, path + ("bn",)))
+
+    # The spatial encoder's point_mlp (JAX mlp{i}), or the pillar net's
+    # pfn (JAX pfn{i}): flax Dense layers; bn{i} in both.
+    seq, dense = (("pfn", "pfn") if config.lidar.encoder_type == "pointpillars"
+                  else ("point_mlp", "mlp"))
+    enc = ("lidar_encoder", "encoder")
+    for i in range(len(config.lidar.mlp_dims) + 1):
+        out[f"lidar_encoder.encoder.{seq}.{3 * i}"] = Kernel(
+            enc + (f"{dense}{i}", "kernel"), "lecun_normal", bias=enc + (f"{dense}{i}", "bias"),
+            bn=(f"lidar_encoder.encoder.{seq}.{3 * i + 1}", enc + (f"bn{i}",)))
+
+    if config.fusion_type in ("weighted", "gated_sum"):  # the gate net, weighted's names
+        for i, n in ((0, 1), (2, 2)):
+            out[f"fusion.attention.{i}"] = Kernel(("fusion", f"attn{n}_kernel"), "conv_init",
+                                                  bias=("fusion", f"attn{n}_bias"))
+
+    if config.output_mode == "x4":
+        for i in (1, 2):
+            out[f"head.up{i}.0"] = Kernel(("head", f"up{i}_deconv", "kernel"), "conv_init",
+                                          bn=(f"head.up{i}.1", ("head", f"up{i}_bn")))
+    out["head.cls"] = Kernel(("head", "cls", "kernel"), "conv_init", bias=("head", "cls", "bias"))
+    return out
+
+
 def from_jax_variables(variables: Mapping[str, Any], config: ModelConfig
                        ) -> Dict[str, torch.Tensor]:
     """JAX-package model variables -> a state dict for the port's model."""
     b = _Converter(variables)
-    for path, (tconv, tbn) in convbn_names(config).items():
-        b.conv_bn(tconv, tbn, path)
-
-    # The spatial encoder's point_mlp (JAX mlp{i}), or the pillar net's
-    # pfn (JAX pfn{i}), in the same layout; bn{i} in both.
-    seq, dense = (("pfn", "pfn") if config.lidar.encoder_type == "pointpillars"
-                  else ("point_mlp", "mlp"))
-    for i in range(len(config.lidar.mlp_dims) + 1):
-        b.dense(f"lidar_encoder.encoder.{seq}.{3 * i}", ("lidar_encoder", "encoder", f"{dense}{i}"))
-        b.bn(f"lidar_encoder.encoder.{seq}.{3 * i + 1}", ("lidar_encoder", "encoder", f"bn{i}"))
-
-    if config.fusion_type in ("weighted", "gated_sum"):  # the gate net, weighted's names
-        for i, n in ((0, 1), (2, 2)):
-            b._put(f"fusion.attention.{i}.weight",
-                   b._get(b.params, ("fusion", f"attn{n}_kernel")).transpose(3, 2, 0, 1))
-            b._put(f"fusion.attention.{i}.bias", b._get(b.params, ("fusion", f"attn{n}_bias")))
-
-    if config.output_mode == "x4":
-        for i in (1, 2):
-            b.conv(f"head.up{i}.0", ("head", f"up{i}_deconv"))
-            b.bn(f"head.up{i}.1", ("head", f"up{i}_bn"))
-    b.conv("head.cls", ("head", "cls"), bias=True)
+    for tname, k in kernel_table(config).items():
+        b.kernel(tname, k.path)
+        if k.bias is not None:
+            b._put(f"{tname}.bias", b._get(b.params, k.bias))
+        if k.bn is not None:
+            b.bn(*k.bn)
     return b.sd
 
 

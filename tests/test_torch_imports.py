@@ -18,7 +18,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "lmsu_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "lmsu_tpu", "scripts",
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "lmsu_tpu", "scripts", "bench",
              "lightweight_multi_modal_scene_understanding_via_knowledge_distillation_tpu"}
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -58,6 +58,29 @@ def test_package_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+# The last of the scripts' counterparts: the nine experiments,
+# summarize_experiments, the serving, frozen-predictor and input benches and
+# the dress rehearsal (the root bench.py's bench_shapes is copied, not
+# imported).
+LAST_MODULES = tuple(f"lmsu_tpu_torch/experiments/{n}.py" for n in (
+    "augment", "augment_noisy", "best_recipe", "teacher_scaling", "capacity_gap",
+    "ta_chain", "ema", "gated_sum", "quant_accuracy")) + tuple(
+    f"lmsu_tpu_torch/{n}.py" for n in ("summarize_experiments", "bench_serving",
+                                       "bench_frozen_predictor", "bench_input_pipeline",
+                                       "dress_rehearsal"))
+
+
+@pytest.mark.parametrize("name", LAST_MODULES)
+def test_last_modules_are_checked_and_import_nothing_of_jax(name):
+    """Each of the 14 is among the sources checked above and imports no jax,
+    no lmsu_tpu, nothing of scripts/ and not the root bench.py."""
+    path = ROOT / name
+    assert path in SOURCES
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in {"jax", "lmsu_tpu", "scripts", "bench"}]
+    assert not bad, f"{name} imports {bad}"
 
 
 def test_parallel_modules_are_checked_and_refuse_a_missing_gpu(monkeypatch):

@@ -39,8 +39,6 @@ from lmsu_tpu.config import ModelConfig as JModel
 from lmsu_tpu.config import TrainConfig as JTrain
 from lmsu_tpu.data import create_datasets as jax_create_datasets
 from lmsu_tpu.data import make_loader as jax_make_loader
-from lmsu_tpu.utils.torch_compat import convert_torch_state_dict
-from lmsu_tpu.config import teacher_config as jax_teacher_config
 from lmsu_tpu.training import distill as jax_distill_module
 from lmsu_tpu.training import trainer as jax_trainer_module
 from lmsu_tpu.training.distill import DistillationTrainer as JaxDistillationTrainer
@@ -49,7 +47,6 @@ from lmsu_tpu_torch.config import (AugmentConfig, CameraEncoderConfig, DataConfi
                                    ExperimentConfig, KDConfig, LidarEncoderConfig,
                                    ModelConfig, TrainConfig, teacher_config)
 from lmsu_tpu_torch.data import make_loader
-from lmsu_tpu_torch.models import create_model
 from lmsu_tpu_torch.ops import augment
 from lmsu_tpu_torch.training import DistillationTrainer
 from lmsu_tpu_torch.utils.weights import from_jax_projections, from_jax_variables
@@ -179,18 +176,14 @@ def jax_epoch(tmp_path_factory):
     cfg = _jax_config(tmp_path_factory.mktemp("jax"))
     train_ds, val_ds = jax_create_datasets(cfg.data)
 
-    # Seeded weights made by the port and carried to the JAX package by its
-    # own converter (the student from seed 0, the teacher from seed 1, as
-    # both trainers draw them): building them in JAX would compile the
-    # initialisers for half a minute here.
-    tcfg = teacher_config(_config("").model, 2.0)
-    made = {cfg.model: convert_torch_state_dict(create_model(_config("").model, seed=0)
-                                                .state_dict(), cfg.model),
-            jax_teacher_config(cfg.model, 2.0): convert_torch_state_dict(
-                create_model(tcfg, seed=1).state_dict(), jax_teacher_config(cfg.model, 2.0))}
+    # The JAX trainers' own seeded weights (the student's and the teacher's
+    # keys), their initialisers jitted: one compiled program each instead of
+    # one compilation per op.
+    real_init = jax_trainer_module.init_model
     with pytest.MonkeyPatch.context() as mp:
         for mod in (jax_trainer_module, jax_distill_module):
-            mp.setattr(mod, "init_model", lambda model, rng, **kw: made[model.config])
+            mp.setattr(mod, "init_model", lambda model, rng, **kw: jax.jit(
+                lambda r: real_init(model, r, **kw))(rng))
         tr = JaxDistillationTrainer(cfg, jax_make_loader(train_ds, BATCH, shuffle=True, seed=0),
                                     jax_make_loader(val_ds, BATCH, shuffle=False))
     get = lambda t: jax.tree_util.tree_map(np.asarray, jax.device_get(t))  # noqa: E731
